@@ -1,0 +1,763 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (gaus_slam_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # needs one CUDA card and nvcc
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. Build the four CUDA kernels from gaus_slam_tpu_torch/csrc (one nvcc
+   per source, all at once) and read the card's name and power limit.
+2. Each kernel against its plain PyTorch version on the card, at the
+   slice's shapes (340x600 synthetic frame, 836 tiles, capacity 393216,
+   r_max 530944; a random map from a numpy seed): K1/K3 on out, stash
+   and kexit, K2 on d_attrs against torch.autograd through the plain
+   version, K4 bit for bit. Prints errors, tolerances and ms per call
+   (CUDA events after warm-up).
+3. The slice: map init from frame 0 + mapping_loop, then frames 1-4:
+   tracking binning (coarse stride 3), tracking_loop with the fused
+   keyframe view and the constant-velocity prediction, the keyframe
+   test, and on keyframes densify + prune + mapping_loop + prune.
+   Launch counters are zeroed just before and read just after; every
+   kernel must have launched. Each tracked frame must end below half the
+   translation error of its constant-velocity init, or within T_ERR_ABS
+   (2x the JAX system's ATE where that init is already near it); a
+   tracker that never moves its pose must fail that check. Each
+   mapping_loop must lower the mapping loss.
+4. One JSON line with every kernel's numbers, then
+   {"ok": true, "device": {...}} as the last line.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+H, W = 340, 600              # bench shape (bench.py)
+CAPACITY = 393216            # configs/synthetic frontend_capacity at 340x600
+PAIR_FACTOR = 1.35           # pair_budget_factor_frontend
+D_MAX = 4                    # max_tiles_per_gaussian
+TRACK_ITERS, COARSE_ITERS, COARSE_STRIDE = 30, 18, 3
+CONVERGED_TH = 5e-4
+MAP_ITERS, REBIN, MAP_STRIDE = 20, 2, 3
+TAU_K = 0.05
+N_FRAMES = 4                 # tracked frames after the map init
+# A tracked frame ends below TRACK_GAIN x its constant-velocity init's
+# translation error, or within T_ERR_ABS: twice the JAX system's
+# ATE-RMSE at 340x600 (5.5 mm, 3 seeds x 100 frames on a TPU v5e,
+# tools/quality_ab.py), for inits that already sit near that accuracy.
+TRACK_GAIN = 0.5
+T_ERR_ABS = 0.011
+TRANS_LR, ROT_LR = 0.002, 0.0004
+LRS = (("opacity_lr", 0.05), ("rgb_lr", 0.0025), ("rotation_lr", 0.001),
+       ("scaling_lr", 0.001), ("xyz_lr", 0.0001))
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, at a 700 W limit). The
+# special-function units give 16 results (reciprocal, exp2, log2) per SM
+# per clock against 128 f32 lanes doing an FMA (2 FLOP) each, so their
+# rate is the f32 rate / 16.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SFU_PER_S = F32_FLOP_PER_S / 16
+# (FLOP, SFU) per (pair, pixel) that the function needs, counted once from
+# compositing.composite_chunk (SA on, normals off) without the kernels'
+# own recompute. FLOP: add, sub, mul, min, max and compare 1 each, a
+# fused multiply-add 2; SFU: reciprocals, exp and log.
+# Per evaluation (a pixel walks its tile's pairs until it terminates):
+#   ray-splat geometry and alpha 38 + (rcp, exp); accept test and
+#   transmittance 7 + (log1p, exp).
+FWD_EVAL = (45, 4)
+# Per accepted (pair, pixel): weight, median test, color, SA prefixes and
+# log-sum 13; SA's fusion weight and fused depth 25 + (rcp, rcp, exp).
+FWD_ACCEPTED = (38, 3)
+# K2 per accepted (pair, pixel): the forward's per-pair values without
+# its color and depth sums (38 - 11), the hand-derived vjp 64 + (rcp),
+# and the sum over pixels of the 18 gradient rows it touches 18.
+BWD_ACCEPTED = (27 + 64 + 18, 4)
+
+KERNELS = {
+    "raster_forward_stash": ("K1", "gaus_slam_tpu_torch/csrc/raster_forward.cu",
+                             "gaus_slam_tpu/ops/pallas_forward.py:173"),
+    "raster_backward_stash": ("K2", "gaus_slam_tpu_torch/csrc/raster_backward.cu",
+                              "gaus_slam_tpu/ops/pallas_backward.py:201"),
+    "raster_forward": ("K3", "gaus_slam_tpu_torch/csrc/raster_forward.cu",
+                       "gaus_slam_tpu/ops/pallas_forward.py:32"),
+    "monotone_row_gather": ("K4", "gaus_slam_tpu_torch/csrc/gather.cu",
+                            "gaus_slam_tpu/ops/gather.py:35"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def time_ms(fn, reps, warm=2):
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
+        f"nvidia-smi failed: {r.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+
+
+def phase_build():
+    from gaus_slam_tpu_torch.ops import _cuda
+
+    t0 = time.time()
+    built = _cuda.build_all()
+    print(f"[build] {len(built)} libraries in {time.time() - t0:.1f} s "
+          f"into {_cuda.BUILD_DIR}")
+    for name, (path, report) in built.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# scene
+
+
+def load_frame(ds, i, dev):
+    import torch
+
+    color, depth, _, c2w = ds[i]
+    return (torch.as_tensor(color / 255.0, dtype=torch.float32, device=dev),
+            torch.as_tensor(depth, dtype=torch.float32, device=dev),
+            np.asarray(c2w, np.float64))
+
+
+def make_setup(dev):
+    from gaus_slam_tpu_torch.data.synthetic import SyntheticDataset
+    from gaus_slam_tpu_torch.ops.binning import make_grid
+    from gaus_slam_tpu_torch.ops.camera import camera_from_intrinsics
+    from gaus_slam_tpu_torch.render import RenderOptions
+
+    ds = SyntheticDataset(height=H, width=W, num_frames=60)
+    cam = camera_from_intrinsics(H, W, ds.intrinsics, np.eye(4), device=dev)
+    opts = RenderOptions(grid=make_grid(cam, 16, 16), use_sa=True,
+                         pair_budget_factor=PAIR_FACTOR,
+                         max_tiles_per_gaussian=D_MAX)
+    return ds, cam, opts
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+
+
+def random_map(ds, cam, dev, seed=0):
+    """Map of frame 0 with numpy-seeded random opacity, color, scale and
+    position jitter on its active rows."""
+    import torch
+
+    from gaus_slam_tpu_torch.models.gaussians import Params
+    from gaus_slam_tpu_torch.slam.init_map import initialize_map
+
+    color, depth, _ = load_frame(ds, 0, dev)
+    gm = initialize_map(CAPACITY, color, depth,
+                        torch.eye(4, device=dev), cam)
+    rng = np.random.default_rng(seed)
+    n = gm.capacity
+
+    def noise(shape, scale):
+        return torch.as_tensor(rng.normal(0.0, scale, shape).astype(np.float32),
+                               device=dev)
+
+    act = gm.active[:, None]
+    p = gm.params
+    new = Params(
+        xyz=p.xyz + act * noise((n, 3), 0.003),
+        log_scales=p.log_scales + act * noise((n, 2), 0.3),
+        quats=p.quats + act * noise((n, 4), 0.1),
+        opacity_logit=torch.where(act, noise((n, 1), 2.0), p.opacity_logit),
+        rgb=torch.where(act, torch.as_tensor(
+            rng.uniform(0, 1, (n, 3)).astype(np.float32), device=dev), p.rgb),
+    )
+    return gm._replace(params=new)
+
+
+def kernel_inputs(gm, cam, opts):
+    """Pair attributes + tile ranges of the mapping path (all tiles) and
+    of the coarse tracking path (stride-3 tile subset of a phase-major
+    cache sliced to its head block)."""
+    import torch
+
+    from gaus_slam_tpu_torch.render import (_prep_attrs, bin_for_tracking,
+                                            bin_full, expand_pairs,
+                                            track_coarse_budget)
+    from gaus_slam_tpu_torch.ops.preprocess import preprocess_t
+    from gaus_slam_tpu_torch.slam.steps import _coarse_tile_ids
+
+    with torch.no_grad():
+        bins = bin_full(gm.params, gm.active, cam, opts)
+        attrs, _ = _prep_attrs(gm.params, gm.active, cam)
+        pattrs = expand_pairs(attrs.T, bins, D_MAX)
+        full = (pattrs.contiguous(), bins.tile_start, bins.tile_stop, None)
+        cache = bin_for_tracking(gm, cam, opts, coarse_strides=(COARSE_STRIDE,))
+        hi = track_coarse_budget(cache.raw_t.shape[1], COARSE_STRIDE)
+        raw = cache.raw_t[:, :hi]
+        eye = cam.replace_w2c(torch.eye(4, device=raw.device))
+        cattrs, _ = preprocess_t(raw[0:3], raw[3:5], raw[5:9], raw[9],
+                                 raw[10:13], eye)
+        ids = _coarse_tile_ids(opts.grid, COARSE_STRIDE, raw.device)
+        ts = torch.clamp(cache.tile_start, max=hi)
+        te = torch.where(cache.tile_stop <= hi, cache.tile_stop, ts)
+        coarse = (cattrs.contiguous(), ts[ids.long()], te[ids.long()], ids)
+    return bins, {"full": full, "coarse": coarse}
+
+
+def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
+    """(pair, pixel) work this run's data needs, for the operation bound:
+    (evaluations, accepted). A pixel evaluates its tile's pairs until it
+    terminates, just past its last contributor n_contrib; it accepts a
+    pair at or before n_contrib whose depth and alpha tests pass
+    (composite_chunk's okf). ts / te are the ranges of tiles 0..T-1."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.camera import (ALPHA_MIN, FILTER_INV_SQUARE,
+                                                NEAR_N)
+    from gaus_slam_tpu_torch.ops.composite_ref import tile_pixel_coords
+
+    dev = pattrs.device
+    lens = (te - ts).clamp(min=0).long()
+    nc = out[:, 13]
+    upto = torch.minimum(nc.double() + 1.0, lens.double()[:, None])
+    evals = float(torch.where(out[:, 15] > 0.5, upto,
+                              lens.double()[:, None].expand_as(upto)).sum())
+    tile = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
+    k = torch.arange(tile.numel(), device=dev) - (torch.cumsum(lens, 0)
+                                                  - lens)[tile]
+    px, py = tile_pixel_coords(grid, torch.arange(lens.numel(), device=dev))
+    accepted = 0
+    for c0 in range(0, tile.numel(), chunk):
+        t, kk = tile[c0:c0 + chunk], k[c0:c0 + chunk]
+        a = pattrs[:, ts.long()[t] + kk].T[..., None]     # [m, 24, 1]
+        x, y = px[t, 0], py[t, 0]                          # [m, P]
+        p_x = x * a[:, 0] + y * a[:, 3] + a[:, 6]
+        p_y = x * a[:, 1] + y * a[:, 4] + a[:, 7]
+        p_z = x * a[:, 2] + y * a[:, 5] + a[:, 8]
+        sx = p_x / torch.where(p_z != 0, p_z, torch.ones_like(p_z))
+        sy = p_y / torch.where(p_z != 0, p_z, torch.ones_like(p_z))
+        rho3d = sx * sx + sy * sy
+        rho2d = FILTER_INV_SQUARE * ((a[:, 12] - x) ** 2 + (a[:, 13] - y) ** 2)
+        d_raw = torch.where(rho3d <= rho2d, sx * a[:, 9] + sy * a[:, 10]
+                            + a[:, 11], a[:, 11].expand_as(sx))
+        alpha = a[:, 17] * torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
+        ok = ((p_z != 0) & (d_raw >= NEAR_N) & (alpha >= ALPHA_MIN)
+              & ((kk + 1)[:, None].float() <= nc[t]))
+        accepted += int(ok.sum())
+    return evals, float(accepted)
+
+
+def op_bound(evals, accepted, per_accepted, nbytes):
+    """(bound ms, 'operations' or 'bytes'): the f32 and special-function
+    pipes run side by side, so the operation time is the larger of the
+    two; the bound is the larger of that and the bytes' time."""
+    flop = evals * FWD_EVAL[0] + accepted * per_accepted[0]
+    sfu = evals * FWD_EVAL[1] + accepted * per_accepted[1]
+    t_ops = max(flop / F32_FLOP_PER_S, sfu / SFU_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+# Tolerances of the kernels against their plain versions, relative to
+# each channel's scale. The two sum in different orders (sequential per
+# pixel vs cumsum / matmul over the block); channels built on SA's fusion
+# weight see that rounding amplified, because the weight depends on the
+# cancelling variance estimate D2 - 2*D*mm (depth, middepth and the D /
+# D2 stash rows). The SA distortion channel is itself that cancellation,
+# D2 - 2*mm*D + mm^2*(1-T): its error is measured against the scale of
+# its terms (mm*D + mm^2), not of its small result.
+TOL_OUT = {c: 1e-4 for c in range(13)}
+TOL_OUT.update({3: 2e-3, 8: 2e-3, 9: 2e-3})
+TOL_STASH = {0: 1e-4, 1: 0.0, 2: 2e-3, 3: 2e-3, 4: 1e-4, 5: 1e-4, 6: 2e-3,
+             7: 0.0}
+TOL_GRAD = 2e-3
+
+
+def compare_out(k_out, p_out):
+    """Integer channels (n_contrib, med_contrib, done) may differ only on
+    threshold-borderline pixels (< 0.5%); float channels agree within
+    TOL_OUT of the channel's scale on the other pixels. Returns (mismatch
+    fraction, max abs err, per-channel report, ok)."""
+    import torch
+
+    agree = torch.ones_like(k_out[:, 0], dtype=torch.bool)
+    for c in (13, 14, 15):
+        agree &= k_out[:, c] == p_out[:, c]
+    frac = int((~agree).sum()) / agree.numel()
+    err, ok, report = 0.0, frac < 5e-3, []
+    mm, dd = p_out[:, 8].abs(), p_out[:, 3].abs()
+    for c in range(13):
+        ref = mm * dd + mm * mm if c == 9 else p_out[:, c].abs()
+        scale = max(float(ref.max()), 1e-6)
+        d = (k_out[:, c] - p_out[:, c]).abs()[agree]
+        m = float(d.max()) if d.numel() else 0.0
+        err = max(err, m)
+        ok = ok and m <= TOL_OUT[c] * scale
+        report.append(f"{c}:{m / scale:.1e}")
+    return frac, err, " ".join(report), ok
+
+
+def phase_kernels(ds, cam, opts, dev):
+    import torch
+
+    from gaus_slam_tpu_torch.ops.gather import (monotone_row_gather,
+                                                monotone_row_gather_plain)
+    from gaus_slam_tpu_torch.ops.raster_backward import (raster_backward_plain,
+                                                         raster_backward_stash)
+    from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
+                                                        raster_forward_plain,
+                                                        raster_forward_stash,
+                                                        stash_offsets)
+
+    gm = random_map(ds, cam, dev)
+    bins, cases = kernel_inputs(gm, cam, opts)
+    rng = np.random.default_rng(1)
+    results = {}
+    kw = dict(grid=opts.grid, use_sa=True, need_normal=False)
+    for case, (pattrs, ts, te, ids) in cases.items():
+        n_sub = int(ts.shape[0])
+        print(f"[kernels] case {case}: {n_sub} tiles, R={pattrs.shape[1]}, "
+              f"pairs={int((te - ts).clamp(min=0).sum())}")
+        k_out, k_stash, k_kexit = raster_forward_stash(pattrs, ts, te,
+                                                       tile_ids=ids, **kw)
+        k3_out = raster_forward(pattrs, ts, te, tile_ids=ids, **kw)
+        p_out, p_stash, p_kexit = raster_forward_plain(pattrs, ts, te,
+                                                       tile_ids=ids, **kw)
+        torch.cuda.synchronize()
+        frac, err1, report, ok1 = compare_out(k_out, p_out)
+        kex_agree = float((k_kexit == p_kexit).float().mean())
+        # stash rows of tiles whose block count agrees
+        soff = stash_offsets(ts, te).long()
+        rows = [torch.arange(int(soff[i]), int(soff[i]) + int(k_kexit[i]),
+                             device=dev)
+                for i in torch.nonzero(k_kexit == p_kexit)[:, 0].tolist()]
+        rows = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.long,
+                                                        device=dev)
+        st_ok, st_report = True, []
+        for c in range(8):
+            ref = p_stash[rows, c]
+            m = float((k_stash[rows, c] - ref).abs().max()) if rows.numel() else 0.0
+            scale = max(float(ref.abs().max()), 1e-6) if rows.numel() else 1.0
+            st_ok = st_ok and m <= TOL_STASH[c] * scale
+            st_report.append(f"{c}:{m / scale:.1e}")
+        k3_same = bool(torch.equal(k3_out, k_out))
+        print(f"[kernels] K1 {case}: int-channel mismatch {frac:.2e} "
+              f"(< 5e-3), float max abs err {err1:.3e}, relative by channel "
+              f"[{report}] (tol {TOL_OUT}), kexit agree {kex_agree:.4f}, "
+              f"stash relative by row [{' '.join(st_report)}]; K3 == K1 "
+              f"out: {k3_same}")
+        check(ok1, f"K1 {case} disagrees with its plain version")
+        check(kex_agree >= 0.99, f"K1 {case} kexit disagrees")
+        check(st_ok, f"K1 {case} stash disagrees")
+        check(k3_same, f"K3 {case} differs from K1's output")
+
+        d_out = torch.zeros_like(k_out)
+        d_out[:, :10] = torch.as_tensor(
+            rng.normal(size=(n_sub, 10, k_out.shape[-1])).astype(np.float32),
+            device=dev)
+        bargs = (pattrs, ts, te, k_stash, k_kexit, k_out, d_out)
+        k_grad = raster_backward_stash(*bargs, tile_ids=ids, **kw)
+        p_grad = raster_backward_plain(*bargs, tile_ids=ids, **kw)
+        # the same function evaluated in float64: SA's gradient through the
+        # depth rows reads the fusion weight's cancelling variance
+        # estimate, so two float32 evaluations in different summation
+        # orders differ by more than TOL_GRAD there; the kernel must then
+        # be no further from float64 than the plain float32 version is
+        p64 = raster_backward_plain(*(a.double() if a.is_floating_point()
+                                      else a for a in bargs),
+                                    tile_ids=ids, **kw)
+        torch.cuda.synchronize()
+        err2 = float((k_grad - p_grad).abs().max())
+        ok2, report = True, []
+        for c in range(21):
+            ref = float(p_grad[c].norm())
+            if ref == 0.0:
+                ok2 = ok2 and float(k_grad[c].abs().max()) == 0.0
+                continue
+            r32 = float((k_grad[c] - p_grad[c]).norm()) / ref
+            r64 = float((k_grad[c].double() - p64[c]).norm() / p64[c].norm())
+            p_64 = float((p_grad[c].double() - p64[c]).norm() / p64[c].norm())
+            ok2 = ok2 and (r32 <= TOL_GRAD or r64 <= 1.5 * p_64 + 1e-5)
+            report.append(f"{c}:{r32:.1e}/{r64:.1e}/{p_64:.1e}")
+        del p64
+        untouched = float(k_grad[21:].abs().max())
+        print(f"[kernels] K2 {case}: max abs err {err2:.3e}; per attribute "
+              f"row relative L2 err vs plain f32 / vs f64 / plain f32 vs "
+              f"f64 [{' '.join(report)}] (tol: vs f32 <= {TOL_GRAD}, or vs "
+              f"f64 <= 1.5 x plain's); pad rows {untouched}")
+        check(ok2 and untouched == 0.0,
+              f"K2 {case} disagrees with torch.autograd through the plain "
+              f"version")
+        if case == "full":
+            # without SA the weight is well conditioned: K2 must match the
+            # plain version's autograd tightly
+            kn = dict(kw, use_sa=False)
+            n_out, n_stash, n_kexit = raster_forward_stash(pattrs, ts, te, **kn)
+            nargs = (pattrs, ts, te, n_stash, n_kexit, n_out, d_out)
+            nk = raster_backward_stash(*nargs, **kn)
+            npl = raster_backward_plain(*nargs, **kn)
+            rel_n = max(float((nk[c] - npl[c]).norm() / npl[c].norm())
+                        for c in range(21) if float(npl[c].norm()) > 0)
+            print(f"[kernels] K2 full without SA: worst row relative L2 err "
+                  f"{rel_n:.2e} (tol 1e-5)")
+            check(rel_n <= 1e-5, "K2 without SA disagrees with its plain "
+                  "version")
+
+        if case == "full":
+            evals, accepted = pair_pixel_work(pattrs, ts, te, k_out, opts.grid)
+            out_bytes = k_out.numel() * 4
+            in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
+            stash_bytes = int(k_kexit.sum()) * 8 * 256 * 4
+            t_k1 = time_ms(lambda: raster_forward_stash(pattrs, ts, te, **kw), 10)
+            t_k3 = time_ms(lambda: raster_forward(pattrs, ts, te, **kw), 10)
+            t_k2 = time_ms(lambda: raster_backward_stash(*bargs, **kw), 5)
+            t_p1 = time_ms(lambda: raster_forward_plain(pattrs, ts, te, **kw),
+                           2, warm=1)
+            t_p2 = time_ms(lambda: raster_backward_plain(*bargs, **kw), 1,
+                           warm=1)
+
+            b1 = op_bound(evals, accepted, FWD_ACCEPTED,
+                          in_bytes + out_bytes + stash_bytes)
+            b3 = op_bound(evals, accepted, FWD_ACCEPTED, in_bytes + out_bytes)
+            b2 = op_bound(evals, accepted, BWD_ACCEPTED,
+                          2 * in_bytes + 2 * out_bytes + stash_bytes)
+            results["raster_forward_stash"] = dict(
+                max_abs_err=err1, ms=t_k1, plain_ms=t_p1, bound_ms=b1[0],
+                bound_by=b1[1], library_ms=None)
+            results["raster_forward"] = dict(
+                max_abs_err=err1, ms=t_k3, plain_ms=t_p1, bound_ms=b3[0],
+                bound_by=b3[1], library_ms=None)
+            results["raster_backward_stash"] = dict(
+                max_abs_err=err2, ms=t_k2, plain_ms=t_p2, bound_ms=b2[0],
+                bound_by=b2[1], library_ms=None)
+            print(f"[kernels] ms: K1 {t_k1:.3f} (plain {t_p1:.1f}, bound "
+                  f"{b1[0]:.4f} {b1[1]}), K3 {t_k3:.3f} (bound {b3[0]:.4f}), "
+                  f"K2 {t_k2:.3f} (plain {t_p2:.1f}, bound {b2[0]:.4f} "
+                  f"{b2[1]}); (pair, pixel) evaluations {evals:.6g}, "
+                  f"accepted {accepted:.6g}")
+
+    # K4 at the reduction's shapes: [24, R] data, pos = run ends of the
+    # binning's per-gaussian pair counts
+    r = bins.pair_gauss.shape[0]
+    data_t = torch.as_tensor(rng.normal(size=(24, r)).astype(np.float32),
+                             device=dev)
+    pos = torch.clamp(torch.cumsum(bins.counts, 0) - 1, 0, r - 1).to(torch.int32)
+    k4 = monotone_row_gather(data_t, pos, max_step=D_MAX)
+    p4 = monotone_row_gather_plain(data_t, pos)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(k4, p4))
+    err4 = float((k4 - p4).abs().max())
+    pos_l = pos.long()
+    t_k4 = time_ms(lambda: monotone_row_gather(data_t, pos, max_step=D_MAX), 50)
+    t_p4 = time_ms(lambda: monotone_row_gather_plain(data_t, pos), 50)
+    t_l4 = time_ms(lambda: torch.index_select(data_t, 1, pos_l), 50)
+    nbytes = (data_t.numel() + pos.numel() + k4.numel()) * 4
+    b4 = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[kernels] K4: bit-exact {exact} (max abs err {err4}), ms "
+          f"{t_k4:.4f}, plain {t_p4:.4f}, index_select {t_l4:.4f}, bound "
+          f"{b4:.4f} bytes; N={pos.numel()} R={r}")
+    check(exact, "K4 is not bit-exact")
+    results["monotone_row_gather"] = dict(
+        max_abs_err=err4, ms=t_k4, plain_ms=t_p4, bound_ms=b4,
+        bound_by="bytes", library_ms=t_l4)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+
+
+def phase_slice(ds, cam, opts, dev):
+    import torch
+
+    from gaus_slam_tpu_torch.models import gaussians as G
+    from gaus_slam_tpu_torch.models.frame import LrSchedule, init_pose
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops.composite_ref import frame_to_tiles
+    from gaus_slam_tpu_torch.render import bin_for_tracking, render_view
+    from gaus_slam_tpu_torch.slam.densify import (DensifyConfig,
+                                                  add_new_gaussians,
+                                                  prune_gaussians)
+    from gaus_slam_tpu_torch.slam.init_map import initialize_map
+    from gaus_slam_tpu_torch.slam.loss import LossConfig, mapping_loss
+    from gaus_slam_tpu_torch.slam.steps import (MapConfig, TrackConfig,
+                                                mapping_loop, tracking_loop)
+
+    lcfg = LossConfig()
+    dcfg = DensifyConfig()
+    mcfg = MapConfig(lrs=LRS)
+    tcfg = TrackConfig(
+        num_iters=TRACK_ITERS, converged_th=CONVERGED_TH,
+        rot_sched=LrSchedule(ROT_LR, ROT_LR / 5, TRACK_ITERS),
+        trans_sched=LrSchedule(TRANS_LR, TRANS_LR / 5, TRACK_ITERS),
+        betas=(0.7, 0.99), coarse_iters=COARSE_ITERS,
+        coarse_stride=COARSE_STRIDE)
+    grid = opts.grid
+    pad = grid.num_tiles * grid.pixels_per_tile - H * W
+    pick = random.Random(0)
+    frames = []   # (color, depth, gt tiles, c2w, pose)
+
+    def map_loss(gm, sel):
+        """Full-image mapping loss over the selected frames: a check, so
+        its renders are kept out of the launch counts."""
+        saved = dict(_cuda.LAUNCHES)
+        with torch.no_grad():
+            vals = [float(mapping_loss(render_view(gm, cam.replace_w2c(
+                f[4].w2c), opts), f[2], lcfg)[0]) for f in sel]
+        _cuda.LAUNCHES.clear()
+        _cuda.LAUNCHES.update(saved)
+        return float(np.mean(vals))
+
+    def map_frames(gm):
+        k = MAP_ITERS // REBIN
+        sel = [pick.choice(frames) for _ in range(k)]
+        uniq = list({id(f): f for f in sel}.values())
+        before = map_loss(gm, uniq)
+        w2cs = torch.stack([f[4].w2c for f in sel])
+        gts = torch.stack([f[2] for f in sel])
+        gm, aux = mapping_loop(gm, w2cs, gts, cam, opts, mcfg, lcfg,
+                               rebin_every=REBIN, coarse_stride=MAP_STRIDE)
+        check(bool(torch.isfinite(aux["losses"]).all()),
+              "non-finite mapping loss")
+        after = map_loss(gm, uniq)
+        check(after < before,
+              f"mapping loss did not fall ({before} -> {after})")
+        return gm, before, after
+
+    def fit_capacity(gm):
+        n = int(gm.n_active)
+        cap = G.bucket_capacity(n, 1 << 17, 1.2, CAPACITY)
+        if cap < gm.capacity and n > 0.35 * gm.capacity:
+            return gm, n
+        return G.resize_map(gm, cap), n
+
+    def center_err(w2c, c2w_gt, c2w0):
+        est = np.linalg.inv(w2c.detach().cpu().numpy().astype(np.float64))
+        gt = np.linalg.inv(c2w0) @ c2w_gt
+        return float(np.linalg.norm(est[:3, 3] - gt[:3, 3]))
+
+    sync(dev)
+    _cuda.LAUNCHES.clear()
+    t0 = time.time()
+    color, depth, c2w0 = load_frame(ds, 0, dev)
+    pose0 = init_pose(np.eye(4), device=dev)
+    frames.append((color, depth, frame_to_tiles(color, depth, grid), c2w0,
+                   pose0))
+    gm = initialize_map(CAPACITY, color, depth, pose0.w2c, cam)
+    gm, l0, l1 = map_frames(gm)
+    sync(dev)
+    print(f"[slice] frame 0: map init n_active={int(gm.n_active)}, mapping "
+          f"loss {l0:.5f} -> {l1:.5f}, {1e3 * (time.time() - t0):.0f} ms")
+
+    def track_ok(err, init_err):
+        return err < max(TRACK_GAIN * init_err, T_ERR_ABS)
+
+    pred = pose0
+    noop_errs = []
+    for f in range(1, N_FRAMES + 1):
+        t1 = time.time()
+        color, depth, c2w = load_frame(ds, f, dev)
+        gt = frame_to_tiles(color, depth, grid)
+        init_err = center_err(pred.w2c, c2w, c2w0)
+        still_err = center_err(frames[-1][4].w2c, c2w, c2w0)
+        # a tracker that never moves its pose keeps frame 0's (the
+        # constant-velocity prediction from two equal poses is that pose)
+        noop_errs.append(center_err(pose0.w2c, c2w, c2w0))
+        cache = bin_for_tracking(gm, cam.replace_w2c(pred.w2c), opts,
+                                 coarse_strides=(COARSE_STRIDE,))
+        pose, aux = tracking_loop(cache, pred, gt, cam, opts, tcfg, lcfg,
+                                  want_view=True, prev_pose=frames[-1][4],
+                                  predict=True, compact_coarse=True)
+        err = center_err(pose.w2c, c2w, c2w0)
+        frames.append((color, depth, gt, c2w, pose))
+        pred = aux["pred_pose"]
+        n_low = int(aux["n_low"]) - pad
+        kf = n_low > H * W * TAU_K
+        msg = ""
+        if kf:
+            w2c = pose.w2c
+            gm = add_new_gaussians(gm, w2c, color, depth, aux["view"], cam,
+                                   opts, dcfg, lcfg)
+            gm = prune_gaussians(gm, dcfg)
+            gm, _ = fit_capacity(gm)
+            gm, l0, l1 = map_frames(gm)
+            gm = prune_gaussians(gm, dcfg)
+            gm, _ = fit_capacity(gm)
+            msg = f", keyframe: mapping loss {l0:.5f} -> {l1:.5f}"
+        sync(dev)
+        ms = 1e3 * (time.time() - t1)
+        loss = float(aux["loss"])
+        print(f"[slice] frame {f}: iters {aux['iters']}, loss {loss:.4f}, "
+              f"t_err {err:.5f} m (constant-velocity init {init_err:.5f} m, "
+              f"previous pose {still_err:.5f} m), n_low {n_low}, n_active "
+              f"{int(gm.n_active)}, {ms:.0f} ms{msg}")
+        check(np.isfinite(loss), f"frame {f}: non-finite tracking loss")
+        check(track_ok(err, init_err),
+              f"frame {f}: translation error {err} neither below "
+              f"{TRACK_GAIN} x its constant-velocity init's {init_err} nor "
+              f"within {T_ERR_ABS}")
+    noop_pass = [track_ok(e, e) for e in noop_errs]
+    print(f"[slice] a tracker that never moves its pose would end frames "
+          f"1-{N_FRAMES} at t_err "
+          + ", ".join(f"{e:.5f}" for e in noop_errs)
+          + f" m; the check passes it on frames "
+          f"{[f + 1 for f, ok in enumerate(noop_pass) if ok]}")
+    check(not all(noop_pass), "the tracking check passes a tracker that "
+          "never moves its pose")
+    sync(dev)
+    launches = dict(_cuda.LAUNCHES)
+    print("[slice] kernels " + json.dumps(launches))
+    for name in KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} never launched on the slice")
+    return launches, dict(gm=gm, frames=frames, tcfg=tcfg, lcfg=lcfg,
+                          mcfg=mcfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (after the counts were read): where a tracking and a mapping
+# iteration spend their time
+
+
+def phase_profile(cam, opts, dev, st):
+    """torch.profiler over 3 full-resolution tracking iterations and one
+    2-iteration mapping group on the slice's final map: device busy time
+    (sum of kernel times), the host wall time around it and the busiest
+    device ops. Prints 'not measured' where the profiler sees no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaus_slam_tpu_torch.render import bin_for_tracking
+    from gaus_slam_tpu_torch.slam.steps import mapping_loop, tracking_loop
+
+    gm, frames = st["gm"], st["frames"]
+    _, _, gt, _, pose = frames[-1]
+    cache = bin_for_tracking(gm, cam.replace_w2c(pose.w2c), opts)
+    tc = st["tcfg"]._replace(num_iters=3, coarse_iters=0, converged_th=-1.0)
+
+    def track():
+        tracking_loop(cache, pose, gt, cam, opts, tc, st["lcfg"])
+
+    w2cs = torch.stack([pose.w2c])
+    gts = gt[None]
+
+    def mapping():
+        mapping_loop(gm, w2cs, gts, cam, opts, st["mcfg"], st["lcfg"],
+                     rebin_every=2, coarse_stride=MAP_STRIDE)
+
+    for label, fn in (("tracking, 3 full-res iterations", track),
+                      ("mapping, 1 group of 2 iterations", mapping)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        rows = []
+        for ev in prof.key_averages():
+            # device-side events only: a CPU op also reports the time of
+            # the kernels it launched, which would count them twice
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, ev.count, ev.key))
+        busy = sum(r[0] for r in rows)
+        if busy <= 0:
+            print(f"[profile] {label}: wall {wall:.1f} ms, device time not "
+                  f"measured (the profiler saw none)")
+            continue
+        rows.sort(reverse=True)
+        print(f"[profile] {label}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms, idle share {1 - busy / wall:.2f}; top: "
+              + "; ".join(f"{k[:60]} x{n} {ms:.2f} ms"
+                          for ms, n, k in rows[:8]))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import gaus_slam_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    try:
+        phase_build()
+        card = card_line()
+        print(f"[device] {card}")
+        ds, cam, opts = make_setup(dev)
+        numbers = phase_kernels(ds, cam, opts, dev)
+        launches, state = phase_slice(ds, cam, opts, dev)
+        phase_profile(cam, opts, dev, state)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    kernels = []
+    for name, (kid, src, replaces) in KERNELS.items():
+        kernels.append({"name": name, "id": kid, "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": int(launches.get(name, 0)),
+                        **numbers[name]})
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,151 @@
+"""Rasterizer backward: K2 (port of gaus_slam_tpu/ops/pallas_backward.py).
+
+Per-pair attribute gradients [ATTR_C, R] from the loss cotangents of the
+tile-major render buffer. The first cotangent of the pixel state (vjp of
+``compositing.finalize``) has a closed form, ``finalize_cotangents``; the
+reverse sweep over each tile's blocks runs on the card as
+csrc/raster_backward.cu (hand-derived vjp of composite_chunk) and on the
+CPU as ``raster_backward_plain``: ``torch.autograd.grad`` of the plain
+``composite_chunk`` per block in reverse, from the forward's stash.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+from .binning import TileGrid
+from .compositing import ATTR_C, PixelState, composite_chunk
+from .composite_ref import tile_pixel_coords
+from .raster_forward import CHUNK, _check_inputs, _default_ids, stash_offsets
+
+
+def finalize_cotangents(saved_out, d_out, bg, *, use_sa: bool):
+    """Closed-form vjp of ``compositing.finalize`` -> d_state
+    [T, OUT_C, P] in PixelState field order."""
+    dr, dg, db = d_out[:, 0], d_out[:, 1], d_out[:, 2]
+    dD = d_out[:, 3]
+    dA = d_out[:, 4]
+    dn = d_out[:, 5:8]
+    dmid = d_out[:, 8]
+    ddist = d_out[:, 9]
+    mm = saved_out[:, 8]
+    if use_sa:
+        # dist = D2 - 2*sg(mm)*D + sg(mm)^2 * (1 - T)
+        d_D = dD - 2.0 * mm * ddist
+        d_D2 = ddist
+        d_dist = torch.zeros_like(ddist)
+        d_T = bg[0] * dr + bg[1] * dg + bg[2] * db - dA - mm * mm * ddist
+    else:
+        d_D = dD
+        d_D2 = torch.zeros_like(ddist)
+        d_dist = ddist
+        d_T = bg[0] * dr + bg[1] * dg + bg[2] * db - dA
+    zero = torch.zeros_like(dD)
+    rows = [d_T, zero, dr, dg, db, dn[:, 0], dn[:, 1], dn[:, 2],
+            d_D, d_D2, zero, zero, d_dist, dmid, zero, zero]
+    return torch.stack(rows, dim=1)
+
+
+def _state_from_stash(rows: torch.Tensor) -> PixelState:
+    """stash [n, STASH_C, P] -> PixelState with zeroed linear accumulators."""
+    z = torch.zeros_like(rows[:, 0:1])
+    return PixelState(
+        T=rows[:, 0:1], done=rows[:, 1:2], r=z, g=z, b=z, nx=z, ny=z, nz=z,
+        D=rows[:, 2:3], D2=rows[:, 3:4], M1=rows[:, 4:5], M2=rows[:, 5:6],
+        dist=z, mm=rows[:, 6:7], n_contrib=z, med_contrib=z,
+    )
+
+
+def raster_backward_plain(pair_attrs, tile_start, tile_stop, stash, kexit,
+                          saved_out, d_out, *, grid: TileGrid, use_sa=True,
+                          need_normal=True, tile_ids=None):
+    """Plain PyTorch version of K2: vjp of composite_chunk per block in
+    reverse, block k of every tile with k < kexit in one batched call."""
+    r = _check_inputs(pair_attrs, grid)
+    dev = pair_attrs.device
+    ids = _default_ids(grid, tile_ids, dev)
+    bg = torch.zeros(3, device=dev)
+    d0 = finalize_cotangents(saved_out, d_out, bg, use_sa=use_sa)
+    d_state = [d0[:, i:i + 1] for i in range(len(PixelState._fields))]
+    start = tile_start.long()
+    stop = tile_stop.long()
+    blk0 = start // CHUNK
+    soff = stash_offsets(tile_start, tile_stop).long()
+    kex = kexit.long()
+    px, py = tile_pixel_coords(grid, ids)
+    blocks = pair_attrs.detach().T.reshape(r // CHUNK, CHUNK, ATTR_C)
+    d_blocks = torch.zeros_like(blocks)
+    ar = torch.arange(CHUNK, device=dev)
+    n_steps = int(kex.max()) if kex.numel() else 0
+    for k in reversed(range(n_steps)):
+        idx = torch.nonzero(k < kex)[:, 0]
+        b = blk0[idx] + k
+        gi = b[:, None] * CHUNK + ar
+        valid = ((gi >= start[idx, None]) & (gi < stop[idx, None]))
+        idx_base = (b * CHUNK - start[idx] + 1)[:, None, None]
+        state_in = PixelState(*(f.clone().requires_grad_()
+                                for f in _state_from_stash(stash[soff[idx] + k])))
+        attrs = blocks[b].clone().requires_grad_()
+        with torch.enable_grad():
+            new = composite_chunk(state_in, attrs, px[idx], py[idx], idx_base,
+                                  valid[..., None].float(), use_sa=use_sa,
+                                  need_normal=need_normal)
+            outs, gouts = [], []
+            for f, gf in zip(new, d_state):
+                if f.requires_grad:
+                    outs.append(f)
+                    gouts.append(gf[idx])
+            grads = torch.autograd.grad(outs, list(state_in) + [attrs],
+                                        gouts, allow_unused=True)
+        for fi in range(len(d_state)):
+            gf = grads[fi]
+            d_state[fi] = torch.index_put(
+                d_state[fi], (idx,),
+                torch.zeros_like(d_state[fi][idx]) if gf is None else gf)
+        d_blocks.index_add_(0, b, grads[-1])
+    return d_blocks.reshape(r, ATTR_C).T.contiguous()
+
+
+def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
+                          saved_out, d_out, *, grid: TileGrid, use_sa=True,
+                          need_normal=True, tile_ids=None):
+    """K2: d_attrs [ATTR_C, R]; rows of blocks no tile swept are 0."""
+    if not pair_attrs.is_cuda:
+        return raster_backward_plain(pair_attrs, tile_start, tile_stop, stash,
+                                     kexit, saved_out, d_out, grid=grid,
+                                     use_sa=use_sa, need_normal=need_normal,
+                                     tile_ids=tile_ids)
+    r = _check_inputs(pair_attrs, grid)
+    dev = pair_attrs.device
+    ids = _default_ids(grid, tile_ids, dev).contiguous()
+    n_sub = ids.shape[0]
+    attrs = pair_attrs.detach().contiguous()
+    ts = tile_start.to(torch.int32).contiguous()
+    te = tile_stop.to(torch.int32).contiguous()
+    soff = stash_offsets(ts, te).contiguous()
+    kex = kexit.to(torch.int32).contiguous()
+    stash = stash.contiguous()
+    bg = torch.zeros(3, device=dev)
+    dstate0 = finalize_cotangents(saved_out, d_out.float(), bg,
+                                  use_sa=use_sa).contiguous()
+    for t, what in ((attrs, torch.float32), (ids, torch.int32),
+                    (ts, torch.int32), (te, torch.int32), (kex, torch.int32),
+                    (stash, torch.float32), (dstate0, torch.float32)):
+        _cuda.require(t, what, "raster_backward")
+    d_attrs = torch.zeros((ATTR_C, r), dtype=torch.float32, device=dev)
+    fn = _cuda.library("raster_backward").raster_backward
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    _cuda.LAUNCHES["raster_backward_stash"] += 1
+    _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ids), _cuda.ptr(ts),
+                   _cuda.ptr(te), _cuda.ptr(soff), _cuda.ptr(kex),
+                   _cuda.ptr(stash), stash.shape[0], _cuda.ptr(dstate0),
+                   n_sub, grid.tiles_x,
+                   int(use_sa), int(need_normal), _cuda.ptr(d_attrs),
+                   _cuda.stream()), "raster_backward_stash")
+    return d_attrs
+

@@ -1,0 +1,236 @@
+"""SLAM optimization loops (port of gaus_slam_tpu/slam/steps.py).
+
+The JAX package compiles a whole tracking loop (``lax.while_loop``) and
+a whole mapping schedule (``lax.scan``) into single XLA programs; here
+they are Python loops over eagerly launched kernels. Where the JAX
+program tests a device scalar (the convergence counter of the tracking
+early exit), the port reads it on the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..models import gaussians as G
+from ..models.frame import LrSchedule, PoseState, pose_adam_step
+from ..ops.camera import Camera
+from ..ops.se3 import invert_se3, pose_params_from_matrix
+from ..render import (PairCache, RenderOptions, bin_full, phase_budget,
+                      render_full, render_tracking, track_coarse_budget)
+from .loss import LossConfig, mapping_loss, tracking_loss
+
+
+class TrackConfig(NamedTuple):
+    num_iters: int
+    converged_th: float         # <= 0 disables the early exit
+    rot_sched: LrSchedule
+    trans_sched: LrSchedule
+    betas: tuple = (0.7, 0.99)
+    # coarse-to-fine: the first `coarse_iters` iterations render only a
+    # `coarse_stride`-strided checkerboard of image tiles
+    coarse_iters: int = 0
+    coarse_stride: int = 2
+    # pyramid schedule ((iters, stride), ...) coarse -> fine; supersedes
+    # coarse_iters / coarse_stride when non-empty
+    coarse_levels: tuple = ()
+
+    def levels(self) -> tuple:
+        if self.coarse_levels:
+            return tuple((int(i), int(s)) for i, s in self.coarse_levels)
+        if self.coarse_iters > 0:
+            return ((self.coarse_iters, self.coarse_stride),)
+        return ()
+
+
+def _coarse_tile_ids(grid, stride: int, device) -> torch.Tensor:
+    """Strided checkerboard of image-tile ids."""
+    ty = torch.arange(0, grid.tiles_y, stride, dtype=torch.int32, device=device)
+    tx = torch.arange(0, grid.tiles_x, stride, dtype=torch.int32, device=device)
+    return (ty[:, None] * grid.tiles_x + tx[None, :]).reshape(-1)
+
+
+def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
+                  cam_proj: Camera, opts: RenderOptions, tcfg: TrackConfig,
+                  lcfg: LossConfig, want_view: bool = False,
+                  prev_pose: PoseState | None = None, predict: bool = False,
+                  use_vel: bool = True, compact_coarse: bool = False):
+    """Full tracking optimization for one frame.
+
+    ``want_view=True`` also renders the final pose (detached, all tiles,
+    same pair cache: K3) and counts its low-alpha pixels (the keyframe
+    test). ``predict=True`` also emits the constant-velocity pose init of
+    the next frame. Returns (pose, aux)."""
+    dev = gt_tiled.device
+    pose = pose0
+    state = {"k": 0, "conv": 0, "loss": torch.zeros((), device=dev),
+             "depth_l1": torch.zeros((), device=dev)}
+
+    def run(kmax, tile_ids, gt_sub, pair_hi):
+        nonlocal pose
+        while state["k"] < kmax and not (
+                tcfg.converged_th > 0 and state["conv"] > 3):
+            quat = pose.quat.detach().requires_grad_()
+            trans = pose.trans.detach().requires_grad_()
+            out = render_tracking(cache, quat, trans, cam_proj, opts,
+                                  tile_ids=tile_ids, pair_hi=pair_hi)
+            loss, aux = tracking_loss(out, gt_sub, lcfg)
+            g_q, g_t = torch.autograd.grad(loss, (quat, trans))
+            new_pose = pose_adam_step(pose._replace(quat=quat.detach(),
+                                                    trans=trans.detach()),
+                                      g_q, g_t, tcfg.rot_sched,
+                                      tcfg.trans_sched, tcfg.betas)
+            if tcfg.converged_th > 0:
+                # host read of the convergence test (a device scalar in
+                # the JAX while_loop)
+                delta = float(torch.linalg.norm(new_pose.trans - pose.trans))
+                state["conv"] = state["conv"] + 1 \
+                    if delta < tcfg.converged_th else 0
+            pose = new_pose
+            state["k"] += 1
+            state["loss"] = loss.detach()
+            state["depth_l1"] = aux["depth_l1"].detach()
+
+    consumed = 0
+    for it_l, s_l in tcfg.levels():
+        n_l = min(it_l, tcfg.num_iters - consumed)
+        if n_l <= 0 or s_l <= 1:
+            continue
+        ids = _coarse_tile_ids(opts.grid, s_l, dev)
+        pair_hi = (track_coarse_budget(cache.raw_t.shape[1], s_l)
+                   if compact_coarse else None)
+        run(consumed + n_l, ids, gt_tiled[ids.long()], pair_hi)
+        consumed += n_l
+    run(tcfg.num_iters, None, gt_tiled, None)
+
+    pose = pose._replace(quat=pose.quat.detach(), trans=pose.trans.detach())
+    aux = {"iters": state["k"], "loss": state["loss"],
+           "depth_l1": state["depth_l1"], "w2c": pose.w2c}
+    if predict:
+        w2c_f = aux["w2c"]
+        pred_m = (w2c_f @ invert_se3(prev_pose.w2c) @ w2c_f
+                  if use_vel else w2c_f)
+        q, t = pose_params_from_matrix(pred_m)
+        z4, z3 = torch.zeros_like(q), torch.zeros_like(t)
+        aux["pred_pose"] = PoseState(q, t, z4, z4.clone(), z3, z3.clone(), 0)
+        aux["pred_w2c"] = aux["pred_pose"].w2c
+    if want_view:
+        with torch.no_grad():
+            out = render_tracking(cache, pose.quat, pose.trans, cam_proj, opts)
+        aux["view"] = out
+        aux["n_low"] = torch.sum(out[:, 4] < 0.5).to(torch.int32)
+    return pose, aux
+
+
+def fold_diags(diags):
+    """OR/max-reduce a list of per-step binning diagnostics."""
+    ov = torch.stack([torch.as_tensor(d["overflow"]) for d in diags])
+    ns = torch.stack([torch.as_tensor(d["n_shrunk"]) for d in diags])
+    dm = torch.stack([torch.as_tensor(d.get("demand", 0)) for d in diags])
+    return {"overflow": torch.any(ov), "n_shrunk": torch.max(ns),
+            "demand": torch.max(dm)}
+
+
+class MapConfig(NamedTuple):
+    lrs: tuple                  # sorted tuple of (lr_key, value)
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-15
+    isotropic: bool = False
+
+
+def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
+                 cam_proj: Camera, opts: RenderOptions, mcfg: MapConfig,
+                 lcfg: LossConfig, bins=None, tile_ids=None, tile_valid=None,
+                 phase: int | None = None, coarse_stride: int = 0):
+    """One mapping iteration: render at a fixed pose with the map
+    parameters live, then one Adam step (exposure optimization is not
+    part of this slice). Returns (gm, aux)."""
+    cam = cam_proj.replace_w2c(w2c.detach())
+    if bins is None:
+        bins = bin_full(gm.params, gm.active, cam, opts,
+                        phase_stride=coarse_stride if phase is not None else 0)
+    gt_sub = gt_tiled if tile_ids is None else gt_tiled[tile_ids.long()]
+
+    params = G.Params(*(p.detach().requires_grad_() for p in gm.params))
+    out, _ = render_full(params, gm.active, cam, opts, bins=bins,
+                         need_normal=opts.normals_in_tracking,
+                         tile_ids=tile_ids, tile_valid=tile_valid,
+                         phase=phase, coarse_stride=coarse_stride)
+    loss, aux = mapping_loss(out, gt_sub, lcfg)
+    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+    grads = G.Params(*(torch.zeros_like(p) if g is None else g
+                       for p, g in zip(params, grads)))
+
+    overflow = bins.overflow
+    if phase is not None:
+        sizes = bins.phase_start[1:] - bins.phase_start[:-1]
+        overflow = overflow | torch.any(
+            sizes > phase_budget(opts, gm.params.xyz.shape[0],
+                                 coarse_stride) - 127)
+    diag = {"num_pairs": bins.num_pairs, "overflow": overflow,
+            "n_shrunk": bins.n_shrunk, "demand": bins.demand}
+    gm = G.adam_step(gm, grads, dict(mcfg.lrs), mcfg.betas, mcfg.eps,
+                     isotropic=mcfg.isotropic)
+    return gm, {"loss": loss.detach(),
+                **{k: v.detach() for k, v in aux.items()}, **diag}
+
+
+def _coarse_map_phases(grid, stride: int, device):
+    """([stride^2, Ts] tile-id phases, [stride^2, Ts] validity): the
+    rotating checkerboard schedule; shorter phases are padded with
+    repeats marked invalid (rendered empty)."""
+    phases, valids = [], []
+    for oy in range(stride):
+        for ox in range(stride):
+            ty = np.arange(oy, grid.tiles_y, stride)
+            tx = np.arange(ox, grid.tiles_x, stride)
+            ids = (ty[:, None] * grid.tiles_x + tx[None, :]).reshape(-1)
+            phases.append(ids)
+            valids.append(np.ones(len(ids), bool))
+    ts = max(len(p) for p in phases)
+    out = np.stack([np.resize(p, ts) for p in phases]).astype(np.int32)
+    val = np.stack([np.concatenate([v, np.zeros(ts - len(v), bool)])
+                    for v in valids])
+    return (torch.as_tensor(out, device=device),
+            torch.as_tensor(val, device=device))
+
+
+def mapping_loop(gm: G.GaussianMap, w2cs: torch.Tensor, gts: torch.Tensor,
+                 cam_proj: Camera, opts: RenderOptions, mcfg: MapConfig,
+                 lcfg: LossConfig, rebin_every: int = 1,
+                 coarse_stride: int = 1, phase0: int = 0):
+    """K x rebin_every mapping iterations: group g re-bins once against
+    the current map at w2cs[g], then runs ``rebin_every`` Adam steps on
+    gts[g]. ``coarse_stride`` > 1 renders each iteration on a rotating
+    checkerboard of 1/stride^2 of the tiles through the compact
+    per-phase path; ``phase0`` offsets the rotation.
+
+    Returns (gm, aux) with the binning diagnostics folded over every
+    iteration and ``losses``, the loss of every iteration."""
+    dev = gts.device
+    n_phase = coarse_stride * coarse_stride
+    phases = pvalid = None
+    if coarse_stride > 1:
+        phases, pvalid = _coarse_map_phases(opts.grid, coarse_stride, dev)
+    diags, losses = [], []
+    for g_idx in range(w2cs.shape[0]):
+        w2c = w2cs[g_idx]
+        cam = cam_proj.replace_w2c(w2c.detach())
+        bins = bin_full(gm.params, gm.active, cam, opts,
+                        phase_stride=coarse_stride if coarse_stride > 1 else 0)
+        for j in range(rebin_every):
+            if phases is None:
+                ids = wt = ph = None
+            else:
+                ph = (phase0 + g_idx * rebin_every + j) % n_phase
+                ids, wt = phases[ph], pvalid[ph]
+            gm, aux = mapping_step(
+                gm, w2c, gts[g_idx], cam_proj, opts, mcfg, lcfg, bins=bins,
+                tile_ids=ids, tile_valid=wt, phase=ph,
+                coarse_stride=coarse_stride if phases is not None else 0)
+            diags.append(aux)
+            losses.append(aux["loss"])
+    folded = fold_diags(diags)
+    losses = torch.stack(losses)
+    return gm, {**folded, "loss": losses[-1], "losses": losses}
