@@ -3,34 +3,46 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Phases (any failure exits non-zero and prints no result line):
+Everything is driven from configs/synthetic/config.py at the bench shape
+340x600 (836 tiles of 16x16, frontend capacity 393216, pair factor 1.35,
+r_max 530944). Phases (any failure exits non-zero and prints no result
+line):
 
-1. Build the four CUDA kernels from gaus_slam_tpu_torch/csrc (one nvcc
-   per source, all at once) and read the card's name and power limit.
+1. Build the CUDA kernels from gaus_slam_tpu_torch/csrc (one nvcc per
+   source, all at once) and read the card's name and power limit.
 2. Each kernel against its plain PyTorch version on the card, at the
-   slice's shapes (340x600 synthetic frame, 836 tiles, capacity 393216,
-   r_max 530944; a random map from a numpy seed): K1/K3 on out, stash
-   and kexit, K2 on d_attrs against torch.autograd through the plain
-   version, K4 bit for bit. Prints errors, tolerances and ms per call
-   (CUDA events after warm-up).
-3. The slice: map init from frame 0 + mapping_loop, then frames 1-4:
-   tracking binning (coarse stride 3), tracking_loop with the fused
-   keyframe view and the constant-velocity prediction, the keyframe
-   test, and on keyframes densify + prune + mapping_loop + prune.
-   Launch counters are zeroed just before and read just after; every
-   kernel must have launched. Each tracked frame must end below half the
-   translation error of its constant-velocity init, or within T_ERR_ABS
-   (2x the JAX system's ATE where that init is already near it); a
-   tracker that never moves its pose must fail that check. Each
-   mapping_loop must lower the mapping loss.
-4. One JSON line with every kernel's numbers, then
-   {"ok": true, "device": {...}} as the last line.
+   frontend's shapes (a random map from a numpy seed): K1/K3 on out,
+   stash and kexit, K2 and K5 on d_attrs against torch.autograd through
+   the plain versions (and SA's depth rows against float64), K5 against
+   K2 on the same inputs, K4 bit for bit. Prints errors, tolerances and
+   ms per call (CUDA events after warm-up).
+3. The port's Frontend (backend "pallas": K1-K4) over 24 frames, submaps
+   of 10 frames, so at least two submap cuts, then process_final; the
+   backend queue is drained after every frame. Per frame: iterations,
+   loss, keyframe or cut, n_active, wall ms and t_err, the camera
+   centre's error relative to the submap's first frame against the same
+   relative ground truth. Each tracked frame must end below half the
+   error of its constant-velocity init, or within T_ERR_ABS (2x the JAX
+   system's ATE where that init is already near it); a tracker that never
+   moves its pose must fail that check. Every LocalMap must hold finite
+   frozen poses, a descriptor and its kept frames. K1-K4 must launch.
+3b. The same Frontend under backend "reference" (the plain compositor,
+   K5 as its backward, the plain gather) with tpu.coarse_map_stride 1,
+   6 frames; K5 must launch and K1-K4 must not. This backend tracks at
+   full resolution only, so a control run drives the stash kernels
+   through that same schedule: a reference frame passes the tracking
+   check, or fails it only where the control fails it too, ending within
+   ATE_JAX of the control's error.
+   Launches are counted per phase: zeroed just before, read just after.
+4. torch.profiler over a tracking and a mapping iteration on phase 3's
+   final map, then one JSON line with every kernel's numbers, the card
+   line, and {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
 import json
 import os
-import random
+import queue
 import subprocess
 import sys
 import time
@@ -38,25 +50,18 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(REPO, "configs", "synthetic", "config.py")
 
 H, W = 340, 600              # bench shape (bench.py)
-CAPACITY = 393216            # configs/synthetic frontend_capacity at 340x600
-PAIR_FACTOR = 1.35           # pair_budget_factor_frontend
-D_MAX = 4                    # max_tiles_per_gaussian
-TRACK_ITERS, COARSE_ITERS, COARSE_STRIDE = 30, 18, 3
-CONVERGED_TH = 5e-4
-MAP_ITERS, REBIN, MAP_STRIDE = 20, 2, 3
-TAU_K = 0.05
-N_FRAMES = 4                 # tracked frames after the map init
+N_FRAMES = 24                # phase 3: two cuts at the default 10-frame submaps
+N_FRAMES_REF = 6             # phase 3b
 # A tracked frame ends below TRACK_GAIN x its constant-velocity init's
 # translation error, or within T_ERR_ABS: twice the JAX system's
 # ATE-RMSE at 340x600 (5.5 mm, 3 seeds x 100 frames on a TPU v5e,
 # tools/quality_ab.py), for inits that already sit near that accuracy.
 TRACK_GAIN = 0.5
-T_ERR_ABS = 0.011
-TRANS_LR, ROT_LR = 0.002, 0.0004
-LRS = (("opacity_lr", 0.05), ("rgb_lr", 0.0025), ("rotation_lr", 0.001),
-       ("scaling_lr", 0.001), ("xyz_lr", 0.0001))
+ATE_JAX = 0.0055
+T_ERR_ABS = 2 * ATE_JAX
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at a 700 W limit). The
 # special-function units give 16 results (reciprocal, exp2, log2) per SM
@@ -78,7 +83,9 @@ FWD_EVAL = (45, 4)
 FWD_ACCEPTED = (38, 3)
 # K2 per accepted (pair, pixel): the forward's per-pair values without
 # its color and depth sums (38 - 11), the hand-derived vjp 64 + (rcp),
-# and the sum over pixels of the 18 gradient rows it touches 18.
+# and the sum over pixels of the 18 gradient rows it touches 18. K5
+# computes the same function (its re-forward is the kernel's own
+# recompute, as K2's is), so it has the same bound.
 BWD_ACCEPTED = (27 + 64 + 18, 4)
 
 KERNELS = {
@@ -90,7 +97,11 @@ KERNELS = {
                        "gaus_slam_tpu/ops/pallas_forward.py:32"),
     "monotone_row_gather": ("K4", "gaus_slam_tpu_torch/csrc/gather.cu",
                             "gaus_slam_tpu/ops/gather.py:35"),
+    "raster_backward": ("K5", "gaus_slam_tpu_torch/csrc/raster_backward.cu",
+                        "gaus_slam_tpu/ops/pallas_backward.py:109"),
 }
+STASH_PATH = ("raster_forward_stash", "raster_backward_stash",
+              "raster_forward", "monotone_row_gather")
 
 
 class SmokeFailure(RuntimeError):
@@ -154,6 +165,28 @@ def phase_build():
 # scene
 
 
+def load_config():
+    """configs/synthetic/config.py at H x W, cameras probed from the
+    synthetic dataset (as scripts/gaus.py does); returns (config, dataset)."""
+    from gaus_slam_tpu_torch.data.synthetic import SyntheticDataset
+    from gaus_slam_tpu_torch.utils.config import load_config as load, \
+        probe_cameras
+
+    old = {k: os.environ.get(k) for k in ("SYN_H", "SYN_W")}
+    os.environ.update(SYN_H=str(H), SYN_W=str(W))
+    try:
+        cfg = load(CONFIG)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    ds = SyntheticDataset(height=H, width=W, num_frames=60)
+    probe_cameras(cfg, ds[0][0], ds.intrinsics)
+    return cfg, ds
+
+
 def load_frame(ds, i, dev):
     import torch
 
@@ -164,24 +197,19 @@ def load_frame(ds, i, dev):
 
 
 def make_setup(dev):
-    from gaus_slam_tpu_torch.data.synthetic import SyntheticDataset
-    from gaus_slam_tpu_torch.ops.binning import make_grid
-    from gaus_slam_tpu_torch.ops.camera import camera_from_intrinsics
-    from gaus_slam_tpu_torch.render import RenderOptions
+    """(config, dataset, the frontend's SystemConfig, capacity)."""
+    from gaus_slam_tpu_torch.utils.config import SystemConfig
 
-    ds = SyntheticDataset(height=H, width=W, num_frames=60)
-    cam = camera_from_intrinsics(H, W, ds.intrinsics, np.eye(4), device=dev)
-    opts = RenderOptions(grid=make_grid(cam, 16, 16), use_sa=True,
-                         pair_budget_factor=PAIR_FACTOR,
-                         max_tiles_per_gaussian=D_MAX)
-    return ds, cam, opts
+    cfg, ds = load_config()
+    sys_cfg = SystemConfig.from_config(cfg, component="frontend", device=dev)
+    return cfg, ds, sys_cfg, int(cfg["tpu"]["frontend_capacity"])
 
 
 # ---------------------------------------------------------------------------
 # phase 2
 
 
-def random_map(ds, cam, dev, seed=0):
+def random_map(ds, cam, capacity, dev, seed=0):
     """Map of frame 0 with numpy-seeded random opacity, color, scale and
     position jitter on its active rows."""
     import torch
@@ -190,7 +218,7 @@ def random_map(ds, cam, dev, seed=0):
     from gaus_slam_tpu_torch.slam.init_map import initialize_map
 
     color, depth, _ = load_frame(ds, 0, dev)
-    gm = initialize_map(CAPACITY, color, depth,
+    gm = initialize_map(capacity, color, depth,
                         torch.eye(4, device=dev), cam)
     rng = np.random.default_rng(seed)
     n = gm.capacity
@@ -212,7 +240,7 @@ def random_map(ds, cam, dev, seed=0):
     return gm._replace(params=new)
 
 
-def kernel_inputs(gm, cam, opts):
+def kernel_inputs(gm, cam, opts, stride):
     """Pair attributes + tile ranges of the mapping path (all tiles) and
     of the coarse tracking path (stride-3 tile subset of a phase-major
     cache sliced to its head block)."""
@@ -227,15 +255,15 @@ def kernel_inputs(gm, cam, opts):
     with torch.no_grad():
         bins = bin_full(gm.params, gm.active, cam, opts)
         attrs, _ = _prep_attrs(gm.params, gm.active, cam)
-        pattrs = expand_pairs(attrs.T, bins, D_MAX)
+        pattrs = expand_pairs(attrs.T, bins, opts.max_tiles_per_gaussian)
         full = (pattrs.contiguous(), bins.tile_start, bins.tile_stop, None)
-        cache = bin_for_tracking(gm, cam, opts, coarse_strides=(COARSE_STRIDE,))
-        hi = track_coarse_budget(cache.raw_t.shape[1], COARSE_STRIDE)
+        cache = bin_for_tracking(gm, cam, opts, coarse_strides=(stride,))
+        hi = track_coarse_budget(cache.raw_t.shape[1], stride)
         raw = cache.raw_t[:, :hi]
         eye = cam.replace_w2c(torch.eye(4, device=raw.device))
         cattrs, _ = preprocess_t(raw[0:3], raw[3:5], raw[5:9], raw[9],
                                  raw[10:13], eye)
-        ids = _coarse_tile_ids(opts.grid, COARSE_STRIDE, raw.device)
+        ids = _coarse_tile_ids(opts.grid, stride, raw.device)
         ts = torch.clamp(cache.tile_start, max=hi)
         te = torch.where(cache.tile_stop <= hi, cache.tile_stop, ts)
         coarse = (cattrs.contiguous(), ts[ids.long()], te[ids.long()], ids)
@@ -335,20 +363,43 @@ def compare_out(k_out, p_out):
     return frac, err, " ".join(report), ok
 
 
-def phase_kernels(ds, cam, opts, dev):
+def compare_grad(k_grad, p_grad, p64):
+    """Per attribute row: relative L2 error against the plain float32
+    version <= TOL_GRAD, or, where SA's fusion weight makes two float32
+    summation orders differ by more, against the plain float64 evaluation
+    no further than the plain float32 version is. Returns (ok, report)."""
+    ok, report = True, []
+    for c in range(21):
+        ref = float(p_grad[c].norm())
+        if ref == 0.0:
+            ok = ok and float(k_grad[c].abs().max()) == 0.0
+            continue
+        r32 = float((k_grad[c] - p_grad[c]).norm()) / ref
+        r64 = float((k_grad[c].double() - p64[c]).norm() / p64[c].norm())
+        p_64 = float((p_grad[c].double() - p64[c]).norm() / p64[c].norm())
+        ok = ok and (r32 <= TOL_GRAD or r64 <= 1.5 * p_64 + 1e-5)
+        report.append(f"{c}:{r32:.1e}/{r64:.1e}/{p_64:.1e}")
+    return ok, report
+
+
+def phase_kernels(ds, sys_cfg, capacity, dev):
     import torch
 
     from gaus_slam_tpu_torch.ops.gather import (monotone_row_gather,
                                                 monotone_row_gather_plain)
-    from gaus_slam_tpu_torch.ops.raster_backward import (raster_backward_plain,
-                                                         raster_backward_stash)
+    from gaus_slam_tpu_torch.ops.raster_backward import (
+        raster_backward, raster_backward_plain, raster_backward_stash,
+        raster_backward_stash_plain)
     from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
                                                         raster_forward_plain,
                                                         raster_forward_stash,
                                                         stash_offsets)
 
-    gm = random_map(ds, cam, dev)
-    bins, cases = kernel_inputs(gm, cam, opts)
+    cam, opts = sys_cfg.cam, sys_cfg.opts
+    d_max = opts.max_tiles_per_gaussian
+    gm = random_map(ds, cam, capacity, dev)
+    bins, cases = kernel_inputs(gm, cam, opts,
+                                sys_cfg.track_front.coarse_stride)
     rng = np.random.default_rng(1)
     results = {}
     kw = dict(grid=opts.grid, use_sa=True, need_normal=False)
@@ -395,28 +446,18 @@ def phase_kernels(ds, cam, opts, dev):
             device=dev)
         bargs = (pattrs, ts, te, k_stash, k_kexit, k_out, d_out)
         k_grad = raster_backward_stash(*bargs, tile_ids=ids, **kw)
-        p_grad = raster_backward_plain(*bargs, tile_ids=ids, **kw)
+        p_grad = raster_backward_stash_plain(*bargs, tile_ids=ids, **kw)
         # the same function evaluated in float64: SA's gradient through the
         # depth rows reads the fusion weight's cancelling variance
         # estimate, so two float32 evaluations in different summation
         # orders differ by more than TOL_GRAD there; the kernel must then
         # be no further from float64 than the plain float32 version is
-        p64 = raster_backward_plain(*(a.double() if a.is_floating_point()
-                                      else a for a in bargs),
-                                    tile_ids=ids, **kw)
+        p64 = raster_backward_stash_plain(
+            *(a.double() if a.is_floating_point() else a for a in bargs),
+            tile_ids=ids, **kw)
         torch.cuda.synchronize()
         err2 = float((k_grad - p_grad).abs().max())
-        ok2, report = True, []
-        for c in range(21):
-            ref = float(p_grad[c].norm())
-            if ref == 0.0:
-                ok2 = ok2 and float(k_grad[c].abs().max()) == 0.0
-                continue
-            r32 = float((k_grad[c] - p_grad[c]).norm()) / ref
-            r64 = float((k_grad[c].double() - p64[c]).norm() / p64[c].norm())
-            p_64 = float((p_grad[c].double() - p64[c]).norm() / p64[c].norm())
-            ok2 = ok2 and (r32 <= TOL_GRAD or r64 <= 1.5 * p_64 + 1e-5)
-            report.append(f"{c}:{r32:.1e}/{r64:.1e}/{p_64:.1e}")
+        ok2, report = compare_grad(k_grad, p_grad, p64)
         del p64
         untouched = float(k_grad[21:].abs().max())
         print(f"[kernels] K2 {case}: max abs err {err2:.3e}; per attribute "
@@ -433,7 +474,7 @@ def phase_kernels(ds, cam, opts, dev):
             n_out, n_stash, n_kexit = raster_forward_stash(pattrs, ts, te, **kn)
             nargs = (pattrs, ts, te, n_stash, n_kexit, n_out, d_out)
             nk = raster_backward_stash(*nargs, **kn)
-            npl = raster_backward_plain(*nargs, **kn)
+            npl = raster_backward_stash_plain(*nargs, **kn)
             rel_n = max(float((nk[c] - npl[c]).norm() / npl[c].norm())
                         for c in range(21) if float(npl[c].norm()) > 0)
             print(f"[kernels] K2 full without SA: worst row relative L2 err "
@@ -442,6 +483,28 @@ def phase_kernels(ds, cam, opts, dev):
                   "version")
 
         if case == "full":
+            # K5 on the same inputs: its own re-forward instead of K1's
+            # stash, so the same carries and the same gradient as K2
+            k5_args = (pattrs, ts, te, k_out, d_out)
+            k5 = raster_backward(*k5_args, **kw)
+            p5 = raster_backward_plain(*k5_args, **kw)
+            p5_64 = raster_backward_plain(pattrs.double(), ts, te,
+                                          k_out.double(), d_out.double(), **kw)
+            torch.cuda.synchronize()
+            err5 = float((k5 - p5).abs().max())
+            ok5, report5 = compare_grad(k5, p5, p5_64)
+            del p5_64
+            d52 = float((k5 - k_grad).abs().max())
+            print(f"[kernels] K5: max abs err {err5:.3e}; per attribute row "
+                  f"relative L2 err vs plain f32 / vs f64 / plain f32 vs f64 "
+                  f"[{' '.join(report5)}] (tol as K2); largest difference "
+                  f"from K2 on K1's stash {d52:.3e} (bit-equal: "
+                  f"{bool(torch.equal(k5, k_grad))})")
+            check(ok5 and float(k5[21:].abs().max()) == 0.0,
+                  "K5 disagrees with torch.autograd through the plain version")
+            check(d52 <= TOL_GRAD * float(k_grad.abs().max()),
+                  "K5 disagrees with K2 on the same inputs")
+
             evals, accepted = pair_pixel_work(pattrs, ts, te, k_out, opts.grid)
             out_bytes = k_out.numel() * 4
             in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
@@ -451,7 +514,10 @@ def phase_kernels(ds, cam, opts, dev):
             t_k2 = time_ms(lambda: raster_backward_stash(*bargs, **kw), 5)
             t_p1 = time_ms(lambda: raster_forward_plain(pattrs, ts, te, **kw),
                            2, warm=1)
-            t_p2 = time_ms(lambda: raster_backward_plain(*bargs, **kw), 1,
+            t_p2 = time_ms(lambda: raster_backward_stash_plain(*bargs, **kw),
+                           1, warm=1)
+            t_k5 = time_ms(lambda: raster_backward(*k5_args, **kw), 5)
+            t_p5 = time_ms(lambda: raster_backward_plain(*k5_args, **kw), 1,
                            warm=1)
 
             b1 = op_bound(evals, accepted, FWD_ACCEPTED,
@@ -459,6 +525,8 @@ def phase_kernels(ds, cam, opts, dev):
             b3 = op_bound(evals, accepted, FWD_ACCEPTED, in_bytes + out_bytes)
             b2 = op_bound(evals, accepted, BWD_ACCEPTED,
                           2 * in_bytes + 2 * out_bytes + stash_bytes)
+            b5 = op_bound(evals, accepted, BWD_ACCEPTED,
+                          2 * in_bytes + 2 * out_bytes)
             results["raster_forward_stash"] = dict(
                 max_abs_err=err1, ms=t_k1, plain_ms=t_p1, bound_ms=b1[0],
                 bound_by=b1[1], library_ms=None)
@@ -468,6 +536,12 @@ def phase_kernels(ds, cam, opts, dev):
             results["raster_backward_stash"] = dict(
                 max_abs_err=err2, ms=t_k2, plain_ms=t_p2, bound_ms=b2[0],
                 bound_by=b2[1], library_ms=None)
+            results["raster_backward"] = dict(
+                max_abs_err=err5, ms=t_k5, plain_ms=t_p5, bound_ms=b5[0],
+                bound_by=b5[1], library_ms=None)
+            print(f"[kernels] K5 ms {t_k5:.3f} (plain {t_p5:.1f}, bound "
+                  f"{b5[0]:.4f} {b5[1]})")
+            print(f"[card] {card_line()}")
             print(f"[kernels] ms: K1 {t_k1:.3f} (plain {t_p1:.1f}, bound "
                   f"{b1[0]:.4f} {b1[1]}), K3 {t_k3:.3f} (bound {b3[0]:.4f}), "
                   f"K2 {t_k2:.3f} (plain {t_p2:.1f}, bound {b2[0]:.4f} "
@@ -480,13 +554,14 @@ def phase_kernels(ds, cam, opts, dev):
     data_t = torch.as_tensor(rng.normal(size=(24, r)).astype(np.float32),
                              device=dev)
     pos = torch.clamp(torch.cumsum(bins.counts, 0) - 1, 0, r - 1).to(torch.int32)
-    k4 = monotone_row_gather(data_t, pos, max_step=D_MAX)
+    k4 = monotone_row_gather(data_t, pos, max_step=d_max)
     p4 = monotone_row_gather_plain(data_t, pos)
     torch.cuda.synchronize()
     exact = bool(torch.equal(k4, p4))
     err4 = float((k4 - p4).abs().max())
     pos_l = pos.long()
-    t_k4 = time_ms(lambda: monotone_row_gather(data_t, pos, max_step=D_MAX), 50)
+    t_k4 = time_ms(lambda: monotone_row_gather(data_t, pos, max_step=d_max),
+                   50)
     t_p4 = time_ms(lambda: monotone_row_gather_plain(data_t, pos), 50)
     t_l4 = time_ms(lambda: torch.index_select(data_t, 1, pos_l), 50)
     nbytes = (data_t.numel() + pos.numel() + k4.numel()) * 4
@@ -502,153 +577,172 @@ def phase_kernels(ds, cam, opts, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3
+# phases 3 and 3b: the port's Frontend
 
 
-def phase_slice(ds, cam, opts, dev):
+def center_err(w2c, gt_rel):
+    """Camera centre error of an estimated w2c against a relative c2w."""
+    est = np.linalg.inv(np.asarray(w2c, np.float64))
+    return float(np.linalg.norm(est[:3, 3] - gt_rel[:3, 3]))
+
+
+def track_ok(err, init_err):
+    return err < max(TRACK_GAIN * init_err, T_ERR_ABS)
+
+
+def drive_frontend(label, cfg, ds, backend, n_frames, dev, strict=True):
+    """Stream frames 0 .. n_frames-1 through Frontend.process_frame, then
+    process_final, draining the backend queue after every frame. Checks
+    every LocalMap and, with ``strict``, every tracked frame (otherwise
+    each record carries the check's verdict in "ok"); returns (launches
+    of this run, per-frame records, state for the profile, LocalMaps)."""
     import torch
 
-    from gaus_slam_tpu_torch.models import gaussians as G
-    from gaus_slam_tpu_torch.models.frame import LrSchedule, init_pose
     from gaus_slam_tpu_torch.ops import _cuda
-    from gaus_slam_tpu_torch.ops.composite_ref import frame_to_tiles
-    from gaus_slam_tpu_torch.render import bin_for_tracking, render_view
-    from gaus_slam_tpu_torch.slam.densify import (DensifyConfig,
-                                                  add_new_gaussians,
-                                                  prune_gaussians)
-    from gaus_slam_tpu_torch.slam.init_map import initialize_map
-    from gaus_slam_tpu_torch.slam.loss import LossConfig, mapping_loss
-    from gaus_slam_tpu_torch.slam.steps import (MapConfig, TrackConfig,
-                                                mapping_loop, tracking_loop)
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
 
-    lcfg = LossConfig()
-    dcfg = DensifyConfig()
-    mcfg = MapConfig(lrs=LRS)
-    tcfg = TrackConfig(
-        num_iters=TRACK_ITERS, converged_th=CONVERGED_TH,
-        rot_sched=LrSchedule(ROT_LR, ROT_LR / 5, TRACK_ITERS),
-        trans_sched=LrSchedule(TRANS_LR, TRANS_LR / 5, TRACK_ITERS),
-        betas=(0.7, 0.99), coarse_iters=COARSE_ITERS,
-        coarse_stride=COARSE_STRIDE)
-    grid = opts.grid
-    pad = grid.num_tiles * grid.pixels_per_tile - H * W
-    pick = random.Random(0)
-    frames = []   # (color, depth, gt tiles, c2w, pose)
-
-    def map_loss(gm, sel):
-        """Full-image mapping loss over the selected frames: a check, so
-        its renders are kept out of the launch counts."""
-        saved = dict(_cuda.LAUNCHES)
-        with torch.no_grad():
-            vals = [float(mapping_loss(render_view(gm, cam.replace_w2c(
-                f[4].w2c), opts), f[2], lcfg)[0]) for f in sel]
-        _cuda.LAUNCHES.clear()
-        _cuda.LAUNCHES.update(saved)
-        return float(np.mean(vals))
-
-    def map_frames(gm):
-        k = MAP_ITERS // REBIN
-        sel = [pick.choice(frames) for _ in range(k)]
-        uniq = list({id(f): f for f in sel}.values())
-        before = map_loss(gm, uniq)
-        w2cs = torch.stack([f[4].w2c for f in sel])
-        gts = torch.stack([f[2] for f in sel])
-        gm, aux = mapping_loop(gm, w2cs, gts, cam, opts, mcfg, lcfg,
-                               rebin_every=REBIN, coarse_stride=MAP_STRIDE)
-        check(bool(torch.isfinite(aux["losses"]).all()),
-              "non-finite mapping loss")
-        after = map_loss(gm, uniq)
-        check(after < before,
-              f"mapping loss did not fall ({before} -> {after})")
-        return gm, before, after
-
-    def fit_capacity(gm):
-        n = int(gm.n_active)
-        cap = G.bucket_capacity(n, 1 << 17, 1.2, CAPACITY)
-        if cap < gm.capacity and n > 0.35 * gm.capacity:
-            return gm, n
-        return G.resize_map(gm, cap), n
-
-    def center_err(w2c, c2w_gt, c2w0):
-        est = np.linalg.inv(w2c.detach().cpu().numpy().astype(np.float64))
-        gt = np.linalg.inv(c2w0) @ c2w_gt
-        return float(np.linalg.norm(est[:3, 3] - gt[:3, 3]))
-
+    to_backend = queue.Queue()
+    lms, recs, noop_pass = [], [], []
     sync(dev)
     _cuda.LAUNCHES.clear()
-    t0 = time.time()
-    color, depth, c2w0 = load_frame(ds, 0, dev)
-    pose0 = init_pose(np.eye(4), device=dev)
-    frames.append((color, depth, frame_to_tiles(color, depth, grid), c2w0,
-                   pose0))
-    gm = initialize_map(CAPACITY, color, depth, pose0.w2c, cam)
-    gm, l0, l1 = map_frames(gm)
-    sync(dev)
-    print(f"[slice] frame 0: map init n_active={int(gm.n_active)}, mapping "
-          f"loss {l0:.5f} -> {l1:.5f}, {1e3 * (time.time() - t0):.0f} ms")
-
-    def track_ok(err, init_err):
-        return err < max(TRACK_GAIN * init_err, T_ERR_ABS)
-
-    pred = pose0
-    noop_errs = []
-    for f in range(1, N_FRAMES + 1):
-        t1 = time.time()
-        color, depth, c2w = load_frame(ds, f, dev)
-        gt = frame_to_tiles(color, depth, grid)
-        init_err = center_err(pred.w2c, c2w, c2w0)
-        still_err = center_err(frames[-1][4].w2c, c2w, c2w0)
-        # a tracker that never moves its pose keeps frame 0's (the
-        # constant-velocity prediction from two equal poses is that pose)
-        noop_errs.append(center_err(pose0.w2c, c2w, c2w0))
-        cache = bin_for_tracking(gm, cam.replace_w2c(pred.w2c), opts,
-                                 coarse_strides=(COARSE_STRIDE,))
-        pose, aux = tracking_loop(cache, pred, gt, cam, opts, tcfg, lcfg,
-                                  want_view=True, prev_pose=frames[-1][4],
-                                  predict=True, compact_coarse=True)
-        err = center_err(pose.w2c, c2w, c2w0)
-        frames.append((color, depth, gt, c2w, pose))
-        pred = aux["pred_pose"]
-        n_low = int(aux["n_low"]) - pad
-        kf = n_low > H * W * TAU_K
-        msg = ""
-        if kf:
-            w2c = pose.w2c
-            gm = add_new_gaussians(gm, w2c, color, depth, aux["view"], cam,
-                                   opts, dcfg, lcfg)
-            gm = prune_gaussians(gm, dcfg)
-            gm, _ = fit_capacity(gm)
-            gm, l0, l1 = map_frames(gm)
-            gm = prune_gaussians(gm, dcfg)
-            gm, _ = fit_capacity(gm)
-            msg = f", keyframe: mapping loss {l0:.5f} -> {l1:.5f}"
+    fe = Frontend(cfg, to_backend, backend=backend, device=dev)
+    for t in range(n_frames):
+        color, depth, _, c2w = ds[t]
+        # what the frame starts from: the submap's first frame, and the
+        # constant-velocity init (the speculative path gives the same value)
+        first = fe.local_frames[0].time_idx if fe.local_frames else t
+        if fe.local_frames:
+            last = fe.local_frames[-1]
+            init_w2c = fe.vel @ last._w2c_host
+        n_lms = len(lms)
+        t0 = time.perf_counter()
+        fe.process_frame(t, np.asarray(color, np.float32) / np.float32(255),
+                         np.asarray(depth), c2w)
         sync(dev)
-        ms = 1e3 * (time.time() - t1)
-        loss = float(aux["loss"])
-        print(f"[slice] frame {f}: iters {aux['iters']}, loss {loss:.4f}, "
-              f"t_err {err:.5f} m (constant-velocity init {init_err:.5f} m, "
-              f"previous pose {still_err:.5f} m), n_low {n_low}, n_active "
-              f"{int(gm.n_active)}, {ms:.0f} ms{msg}")
-        check(np.isfinite(loss), f"frame {f}: non-finite tracking loss")
-        check(track_ok(err, init_err),
-              f"frame {f}: translation error {err} neither below "
-              f"{TRACK_GAIN} x its constant-velocity init's {init_err} nor "
-              f"within {T_ERR_ABS}")
-    noop_pass = [track_ok(e, e) for e in noop_errs]
-    print(f"[slice] a tracker that never moves its pose would end frames "
-          f"1-{N_FRAMES} at t_err "
-          + ", ".join(f"{e:.5f}" for e in noop_errs)
-          + f" m; the check passes it on frames "
-          f"{[f + 1 for f, ok in enumerate(noop_pass) if ok]}")
-    check(not all(noop_pass), "the tracking check passes a tracker that "
-          "never moves its pose")
+        ms = 1e3 * (time.perf_counter() - t0)
+        while not to_backend.empty():
+            lms.append(to_backend.get())
+        cut = len(lms) > n_lms
+        kind = "map init" if t == 0 else ("cut" if cut else (
+            "keyframe" if fe.local_frames[-1].frame_type == 1 else "tracked"))
+        rec = dict(t=t, kind=kind, ms=ms, n_active=fe.n_active_host,
+                   submap=fe.cur_lmid - (1 if cut else 0))
+        if t > 0:
+            gt_rel = np.linalg.inv(np.asarray(ds[first][3], np.float64)) \
+                @ np.asarray(c2w, np.float64)
+            w2c = lms[-1].frames[-1].est_w2c if cut else \
+                fe.local_frames[-1]._w2c_host
+            err, init_err = center_err(w2c, gt_rel), center_err(init_w2c, gt_rel)
+            # a tracker that never moves its pose keeps the submap's first
+            # pose (the constant-velocity prediction from two equal poses)
+            noop = center_err(np.eye(4), gt_rel)
+            noop_pass.append(track_ok(noop, noop))
+            rec.update(err=err, init_err=init_err, ok=track_ok(err, init_err),
+                       **fe.last_track)
+            check(np.isfinite(rec["loss"]), f"{label} frame {t}: non-finite "
+                  f"tracking loss")
+            check(rec["ok"] or not strict,
+                  f"{label} frame {t}: translation error {err} neither below "
+                  f"{TRACK_GAIN} x its constant-velocity init's {init_err} "
+                  f"nor within {T_ERR_ABS}")
+            print(f"[{label}] frame {t}: {kind}, iters {rec['iters']}, loss "
+                  f"{rec['loss']:.4f}, t_err {err:.5f} m (constant-velocity "
+                  f"init {init_err:.5f} m, no-op tracker {noop:.5f} m), "
+                  f"n_active {rec['n_active']}, {ms:.0f} ms")
+        else:
+            print(f"[{label}] frame 0: map init, n_active {rec['n_active']}, "
+                  f"{ms:.0f} ms")
+        recs.append(rec)
+    state = dict(fe=fe, frame=fe.local_frames[-1],
+                 pose=fe.local_frames[-1].pose,
+                 gt=fe._tile_gt(fe.local_frames[-1]))
+    fe.process_final()
+    while not to_backend.empty():
+        lms.append(to_backend.get())
     sync(dev)
     launches = dict(_cuda.LAUNCHES)
-    print("[slice] kernels " + json.dumps(launches))
-    for name in KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} never launched on the slice")
-    return launches, dict(gm=gm, frames=frames, tcfg=tcfg, lcfg=lcfg,
-                          mcfg=mcfg)
+    check(not all(noop_pass), f"{label}: the tracking check passes a "
+          f"tracker that never moves its pose")
+    for lm in lms:
+        keep = min(fe.num_frame_saved, len(lm.frames) - 1)
+        kept = [i for i, f in enumerate(lm.frames) if f.gt_color is not None]
+        check(all(f.pose is None and np.isfinite(f.est_w2c).all()
+                  for f in lm.frames), f"{label}: LocalMap {lm.lmid} holds a "
+              f"live or non-finite pose")
+        check(lm.map_desc is not None and lm.map_desc.shape == (2, 256)
+              and np.isfinite(lm.map_desc).all(),
+              f"{label}: LocalMap {lm.lmid} has no descriptor")
+        check(len(lm.saved_idxs) == keep and sorted(lm.saved_idxs) == kept,
+              f"{label}: LocalMap {lm.lmid} keeps {kept}, not "
+              f"{keep} frames {lm.saved_idxs}")
+    for lm in lms:
+        errs = [r["err"] for r in recs if r.get("submap") == lm.lmid
+                and "err" in r]
+        rmse = float(np.sqrt(np.mean(np.square(errs)))) if errs else 0.0
+        print(f"[{label}] submap {lm.lmid}: frames "
+              f"{lm.frames[0].time_idx}-{lm.frames[-1].time_idx}, kept "
+              f"{sorted(lm.saved_idxs)}, n_active "
+              f"{int(lm.map_params[2])}, t_err RMSE {rmse:.5f} m")
+    print(f"[{label}] kernels {json.dumps(launches)}")
+    return launches, recs, state, lms
+
+
+def phase_frontend(cfg, ds, dev):
+    """Phase 3: the Frontend on the stash kernels, through >= two cuts."""
+    launches, recs, state, lms = drive_frontend(
+        "frontend", cfg, ds, "pallas", N_FRAMES, dev)
+    cuts = sum(r["kind"] == "cut" for r in recs)
+    check(cuts >= 2, f"phase 3 cut {cuts} submaps, not at least 2")
+    for name in STASH_PATH:
+        check(launches.get(name, 0) > 0, f"{name} never launched in phase 3")
+    return launches, recs, state
+
+
+def phase_reference(ds, dev):
+    """Phase 3b: the Frontend under the reference render backend, which
+    tracks at full resolution only (no coarse phase, as in the JAX
+    package). A control run drives the stash kernels through the same
+    schedule (coarse_iters 0, coarse mapping stride 1) over the same
+    frames. A reference frame passes the tracking check, or fails it only
+    where the control fails it too and then ends within ATE_JAX of the
+    control's error."""
+    cfg, _ = load_config()
+    cfg["tpu"]["coarse_map_stride"] = 1
+    launches, recs, _, _ = drive_frontend(
+        "reference", cfg, ds, "reference", N_FRAMES_REF, dev, strict=False)
+    check(launches.get("raster_backward", 0) > 0,
+          "K5 never launched in phase 3b")
+    for name in STASH_PATH:
+        check(launches.get(name, 0) == 0,
+              f"{name} launched under the reference backend")
+    ctl_cfg, _ = load_config()
+    ctl_cfg["tpu"]["coarse_map_stride"] = 1
+    ctl_cfg["frontend"].update(coarse_iters=0, coarse_levels=[])
+    _, ctl, _, _ = drive_frontend("control", ctl_cfg, ds, "pallas",
+                                  N_FRAMES_REF, dev, strict=False)
+    for r, c in zip(recs[1:], ctl[1:]):
+        ok = r["ok"] or (not c["ok"] and r["err"] <= c["err"] + ATE_JAX)
+        print(f"[reference] frame {r['t']}: t_err {r['err']:.5f} m, control "
+              f"(stash kernels, same schedule) {c['err']:.5f} m; tracking "
+              f"check {r['ok']} / control {c['ok']} -> "
+              f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"reference frame {r['t']}: t_err {r['err']} fails the "
+              f"tracking check, and the control's {c['err']} "
+              f"(check {c['ok']}) does not account for it")
+    return launches, recs
+
+
+def frame_times(label, recs):
+    """Median wall ms per kind of frame (first-use costs of frame 0 and
+    of the first frame of each kind included in the list)."""
+    out = {}
+    for kind in ("map init", "tracked", "keyframe", "cut"):
+        ms = [r["ms"] for r in recs if r["kind"] == kind]
+        if ms:
+            out[kind] = (float(np.median(ms)), len(ms))
+    print(f"[{label}] wall ms per frame (median, count): "
+          + ", ".join(f"{k} {v[0]:.0f} ({v[1]})" for k, v in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -656,32 +750,33 @@ def phase_slice(ds, cam, opts, dev):
 # iteration spend their time
 
 
-def phase_profile(cam, opts, dev, st):
+def phase_profile(st):
     """torch.profiler over 3 full-resolution tracking iterations and one
-    2-iteration mapping group on the slice's final map: device busy time
-    (sum of kernel times), the host wall time around it and the busiest
-    device ops. Prints 'not measured' where the profiler sees no device
-    time."""
+    2-iteration mapping group on phase 3's final map and frame: device
+    busy time (sum of kernel times), the host wall time around it and the
+    busiest device ops. Prints 'not measured' where the profiler sees no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gaus_slam_tpu_torch.render import bin_for_tracking
     from gaus_slam_tpu_torch.slam.steps import mapping_loop, tracking_loop
 
-    gm, frames = st["gm"], st["frames"]
-    _, _, gt, _, pose = frames[-1]
+    fe, pose, gt = st["fe"], st["pose"], st["gt"]
+    s = fe.sys
+    cam, opts, gm = s.cam, s.opts, fe.map
     cache = bin_for_tracking(gm, cam.replace_w2c(pose.w2c), opts)
-    tc = st["tcfg"]._replace(num_iters=3, coarse_iters=0, converged_th=-1.0)
+    tc = s.track_front._replace(num_iters=3, coarse_iters=0, converged_th=-1.0)
 
     def track():
-        tracking_loop(cache, pose, gt, cam, opts, tc, st["lcfg"])
+        tracking_loop(cache, pose, gt, cam, opts, tc, s.lcfg)
 
     w2cs = torch.stack([pose.w2c])
     gts = gt[None]
 
     def mapping():
-        mapping_loop(gm, w2cs, gts, cam, opts, st["mcfg"], st["lcfg"],
-                     rebin_every=2, coarse_stride=MAP_STRIDE)
+        mapping_loop(gm, w2cs, gts, cam, opts, s.mcfg, s.lcfg,
+                     rebin_every=2, coarse_stride=fe.coarse_map_stride)
 
     for label, fn in (("tracking, 3 full-res iterations", track),
                       ("mapping, 1 group of 2 iterations", mapping)):
@@ -738,19 +833,22 @@ def main() -> int:
         phase_build()
         card = card_line()
         print(f"[device] {card}")
-        ds, cam, opts = make_setup(dev)
-        numbers = phase_kernels(ds, cam, opts, dev)
-        launches, state = phase_slice(ds, cam, opts, dev)
-        phase_profile(cam, opts, dev, state)
+        cfg, ds, sys_cfg, capacity = make_setup(dev)
+        numbers = phase_kernels(ds, sys_cfg, capacity, dev)
+        launches, recs, state = phase_frontend(cfg, ds, dev)
+        ref_launches, ref_recs = phase_reference(ds, dev)
+        frame_times("frontend", recs)
+        frame_times("reference", ref_recs)
+        phase_profile(state)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
+        n = (launches if name in STASH_PATH else ref_launches).get(name, 0)
         kernels.append({"name": name, "id": kid, "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": int(launches.get(name, 0)),
-                        **numbers[name]})
+                        "launches": int(n), **numbers[name]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

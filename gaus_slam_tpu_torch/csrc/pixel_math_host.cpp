@@ -1,8 +1,9 @@
 // The per-pixel math of the rasterizer kernels, run on the CPU.
 //
 // Compiles raster_common.cuh as plain C++ and drives composite_block /
-// pair_grad exactly as raster_forward.cu (K1) and raster_backward.cu (K2)
-// do, through the same helpers for the range clamps (tile_walk), the
+// pair_grad exactly as raster_forward.cu (K1) and raster_backward.cu (K2,
+// and K5: K1's walk capped at reforward_blocks into a scratch stash, then
+// K2's sweep over it) do, through the same helpers for the range clamps (tile_walk), the
 // stash guards (stash_rows, swept_blocks), the pixel coordinates and the
 // stash and output rows. Only the CTA is replaced: its threads become
 // sequential loops over the pixels, the tile's exit barrier a loop over
@@ -31,13 +32,15 @@ template <bool USE_SA, bool NN>
 static void forward_tile(int i, const float* attrs, int R, const int* ids,
                          const int* ts, const int* te, const int* soff,
                          int tiles_x, bool want_stash, int stash_rows,
-                         float* out, float* stash, int* kexit) {
+                         float* out, float* stash, int* kexit,
+                         bool reforward = false) {
   const int t = ids[i];
   const TileWalk tw = tile_walk(ts[i], te[i], R);
+  const int nblk = reforward ? reforward_blocks(tw.nblk) : tw.nblk;
   std::vector<PixState> s(P, init_state());
   std::vector<float> sa(ATTR_C * CHUNK);
   int k = 0;
-  for (; k < tw.nblk; ++k) {
+  for (; k < nblk; ++k) {
     bool all_done = true;
     for (int p = 0; p < P; ++p) all_done = all_done && s[p].done >= 0.5f;
     if (all_done) break;
@@ -135,6 +138,33 @@ extern "C" void host_raster_backward(const float* attrs, int R, const int* ids,
     kexit, stash, stash_rows, dstate0, tiles_x, d_attrs)
     if (use_sa) { if (nn) GS_CALL(true, true); else GS_CALL(true, false); }
     else { if (nn) GS_CALL(false, true); else GS_CALL(false, false); }
+#undef GS_CALL
+  }
+}
+
+// K5 on the CPU: for every tile of the grid (tile i = ids i), the
+// re-forward into `stash` (K1's layout, rows [soff, soff + kexit)) and
+// then the reverse sweep over the blocks it composited.
+extern "C" void host_raster_backward_restash(const float* attrs, int R,
+                                             const int* ts, const int* te,
+                                             const int* soff, float* stash,
+                                             int stash_rows,
+                                             const float* dstate0, int n_tiles,
+                                             int tiles_x, int use_sa, int nn,
+                                             float* d_attrs) {
+  std::vector<int> ids(n_tiles), kexit(n_tiles);
+  for (int i = 0; i < n_tiles; ++i) ids[i] = i;
+  std::vector<float> out((int64_t)n_tiles * OUT_C * P);
+  for (int i = 0; i < n_tiles; ++i) {
+#define GS_CALL(SA, N)                                                      \
+    forward_tile<SA, N>(i, attrs, R, ids.data(), ts, te, soff, tiles_x,    \
+                        true, stash_rows, out.data(), stash, kexit.data(),  \
+                        true);                                              \
+    backward_tile<SA, N>(i, attrs, R, ids.data(), ts, te, soff,            \
+                         kexit.data(), stash, stash_rows, dstate0, tiles_x, \
+                         d_attrs)
+    if (use_sa) { if (nn) { GS_CALL(true, true); } else { GS_CALL(true, false); } }
+    else { if (nn) { GS_CALL(false, true); } else { GS_CALL(false, false); } }
 #undef GS_CALL
   }
 }

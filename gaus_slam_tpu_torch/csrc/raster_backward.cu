@@ -39,6 +39,17 @@
 // for the vjp and the sum over pixels; this design also recomputes the
 // pair's geometry in pair_grad and runs 21 warp reductions per pair that
 // any pixel of a warp touched. chip_smoke.py computes the bound.
+//
+// K5 (raster_backward_restash_kernel) replaces pallas_backward.py::
+// raster_backward (kernel _kernel), the backward of the reference render
+// backend, whose forward keeps no stash. Phase A re-runs K1's block walk
+// (forward_walk, the same code, so its carries equal K1's bit for bit)
+// over at most MAX_CHUNKS_PER_TILE blocks, storing each block's incoming
+// carry in a global scratch at K1's stash layout; the TPU kept it in a
+// 512-block VMEM stash, which would not fit a CTA's shared memory here.
+// Phase B is K2's reverse sweep over that scratch. The function is K2's
+// plus one forward, so it is bound as K2 is; chip_smoke.py gives K2's
+// needed work as its bound.
 #include "raster_common.cuh"
 
 using namespace gs;
@@ -46,38 +57,27 @@ using namespace gs;
 constexpr int WARPS = P / 32;
 constexpr int GROUP = 32;  // pairs reduced per shared-memory round
 
+// The reverse sweep of one CTA over blocks K-1 .. 0 of its tile (K2 and
+// K5): block k's incoming carry comes from stash row soff + k; c enters
+// as the cotangent of the tile's final pixel state.
 template <bool USE_SA, bool NN>
-__global__ void __launch_bounds__(P) raster_backward_kernel(
-    const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids,
-    const int* __restrict__ tstart, const int* __restrict__ tstop,
-    const int* __restrict__ soff, const int* __restrict__ kexit,
-    const float* __restrict__ stash, int stash_rows,
-    const float* __restrict__ dstate0, int tiles_x,
-    float* __restrict__ d_attrs) {
-  __shared__ float sa[ATTR_C * CHUNK];
+__device__ __forceinline__ void reverse_sweep(
+    float* sa, const float* __restrict__ attrs, int R, const TileWalk& tw,
+    int K, const float* stash, int soff, float px, float py,
+    Cot c, float* __restrict__ d_attrs) {
   __shared__ float part[WARPS][GROUP][GRAD_C];
   // per-pixel, per-pair records of the block's forward recompute
   // (per-thread local memory)
   float cumx[CHUNK], pre1[CHUNK], pre2[CHUNK];
-
-  const int i = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31, warp = p >> 5;
-  const int t = tile_ids[i];
-  // ranges clamped to the slab and blocks to the stash, as in K1
-  const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
   const int start = tw.start, stop = tw.stop;
-  const float px = pixel_x(t, tiles_x, p);
-  const float py = pixel_y(t, tiles_x, p);
-  Cot c = load_cot(dstate0 + (int64_t)i * OUT_C * P + p, P);
-
-  const int K = swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows);
   for (int k = K - 1; k >= 0; --k) {
     const int64_t gstart = (int64_t)(tw.blk0 + k) * CHUNK;
     __syncthreads();
     stage_block(sa, attrs, R, gstart);
     PixState s = state_from_stash(
-        stash + ((int64_t)(soff[i] + k) * STASH_C) * P + p, P);
+        stash + ((int64_t)(soff + k) * STASH_C) * P + p, P);
     const float T_in = s.T;
     const bool live = s.done < 0.5f;
     __syncthreads();
@@ -126,6 +126,56 @@ __global__ void __launch_bounds__(P) raster_backward_kernel(
   }
 }
 
+template <bool USE_SA, bool NN>
+__global__ void __launch_bounds__(P) raster_backward_kernel(
+    const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids,
+    const int* __restrict__ tstart, const int* __restrict__ tstop,
+    const int* __restrict__ soff, const int* __restrict__ kexit,
+    const float* __restrict__ stash, int stash_rows,
+    const float* __restrict__ dstate0, int tiles_x,
+    float* __restrict__ d_attrs) {
+  __shared__ float sa[ATTR_C * CHUNK];
+  const int i = blockIdx.x;
+  const int p = threadIdx.x;
+  const int t = tile_ids[i];
+  // ranges clamped to the slab and blocks to the stash, as in K1
+  const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
+  const Cot c = load_cot(dstate0 + (int64_t)i * OUT_C * P + p, P);
+  reverse_sweep<USE_SA, NN>(
+      sa, attrs, R, tw, swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows),
+      stash, soff[i], pixel_x(t, tiles_x, p), pixel_y(t, tiles_x, p), c,
+      d_attrs);
+}
+
+// K5: the re-forward (phase A) writes each block's incoming carry into
+// the global scratch `stash` at K1's layout, then the reverse sweep
+// (phase B) reads it back. Every tile of the grid, tile i = CTA i.
+template <bool USE_SA, bool NN>
+__global__ void __launch_bounds__(P) raster_backward_restash_kernel(
+    const float* __restrict__ attrs, int R, const int* __restrict__ tstart,
+    const int* __restrict__ tstop, const int* __restrict__ soff,
+    float* stash, int stash_rows,
+    const float* __restrict__ dstate0, int tiles_x,
+    float* __restrict__ d_attrs) {
+  __shared__ float sa[ATTR_C * CHUNK];
+  const int i = blockIdx.x;
+  const int p = threadIdx.x;
+  const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
+  const float px = pixel_x(i, tiles_x, p);
+  const float py = pixel_y(i, tiles_x, p);
+  PixState s = init_state();
+  // each thread reads back only the stash entries it wrote itself, so
+  // program order suffices between the phases (no __restrict__ on the
+  // scratch: it must not be read through the non-coherent cache)
+  const int kex = forward_walk<true, USE_SA, NN>(
+      s, sa, attrs, R, tw, reforward_blocks(tw.nblk), px, py, stash, soff[i],
+      stash_rows);
+  const Cot c = load_cot(dstate0 + (int64_t)i * OUT_C * P + p, P);
+  reverse_sweep<USE_SA, NN>(
+      sa, attrs, R, tw, swept_blocks(kex, tw.nblk, soff[i], stash_rows),
+      stash, soff[i], px, py, c, d_attrs);
+}
+
 extern "C" int raster_backward(const float* attrs, int R, const int* tile_ids,
                                const int* tile_start, const int* tile_stop,
                                const int* soff, const int* kexit,
@@ -139,6 +189,30 @@ extern "C" int raster_backward(const float* attrs, int R, const int* tile_ids,
   raster_backward_kernel<SA, N><<<grid, P, 0, stream>>>(                    \
       attrs, R, tile_ids, tile_start, tile_stop, soff, kexit, stash,        \
       stash_rows, dstate0, tiles_x, d_attrs)
+    if (use_sa) {
+      if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+    } else {
+      if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
+    }
+#undef GS_LAUNCH
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raster_backward_restash(const float* attrs, int R,
+                                       const int* tile_start,
+                                       const int* tile_stop, const int* soff,
+                                       float* stash, int stash_rows,
+                                       const float* dstate0, int n_tiles,
+                                       int tiles_x, int use_sa,
+                                       int need_normal, float* d_attrs,
+                                       cudaStream_t stream) {
+  if (n_tiles > 0) {
+    dim3 grid(n_tiles);
+#define GS_LAUNCH(SA, N)                                                    \
+  raster_backward_restash_kernel<SA, N><<<grid, P, 0, stream>>>(            \
+      attrs, R, tile_start, tile_stop, soff, stash, stash_rows, dstate0,    \
+      tiles_x, d_attrs)
     if (use_sa) {
       if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
     } else {

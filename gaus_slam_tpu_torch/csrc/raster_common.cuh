@@ -44,6 +44,9 @@ constexpr int OUT_C = 16;    // rows of the tile-major render buffer
 constexpr int STASH_C = 8;   // T done D D2 M1 M2 mm pad
 constexpr int TILE = 16;     // tile edge in pixels
 constexpr int P = TILE * TILE;
+// K5's re-forward visits at most this many blocks of a tile (64k pairs),
+// as the TPU kernel's on-chip stash held (pallas_backward.py:48)
+constexpr int MAX_CHUNKS_PER_TILE = 512;
 
 // float32 roundings of the python constants (ops/camera.py), rounded
 // from double exactly as numpy/JAX round them
@@ -456,6 +459,12 @@ GS_FN int swept_blocks(int kexit, int nblk, int soff, int stash_rows) {
   return k < stash_rows - soff ? k : stash_rows - soff;
 }
 
+// Blocks K5's re-forward may visit: the tile's, capped at
+// MAX_CHUNKS_PER_TILE.
+GS_FN int reforward_blocks(int nblk) {
+  return nblk < MAX_CHUNKS_PER_TILE ? nblk : MAX_CHUNKS_PER_TILE;
+}
+
 // Image coordinates of pixel p of tile t.
 GS_FN float pixel_x(int t, int tiles_x, int p) {
   return (float)((t % tiles_x) * TILE + p % TILE);
@@ -473,6 +482,34 @@ __device__ __forceinline__ void stage_block(float* sa, const float* attrs,
     const int c = e / CHUNK, j = e % CHUNK;
     sa[e] = attrs[c * R + gstart + j];
   }
+}
+
+// One CTA's forward walk over the first `nblk` blocks of its tile, from
+// the pixel state `s` (K1, K3, and K5's re-forward): each block staged
+// once in `sa`, every pixel compositing it; the walk stops once every
+// pixel of the tile has terminated. With STASH, each block's incoming
+// carry goes to stash row soff + k (rows past stash_rows are skipped).
+// Returns the number of blocks composited.
+template <bool STASH, bool USE_SA, bool NN>
+__device__ __forceinline__ int forward_walk(
+    PixState& s, float* sa, const float* __restrict__ attrs, int R,
+    const TileWalk& tw, int nblk, float px, float py, float* stash,
+    int soff, int stash_rows) {
+  const int p = threadIdx.x;
+  int k = 0;
+  for (; k < nblk; ++k) {
+    // exit once every pixel of the tile has terminated (this barrier
+    // also orders the previous block's reads of `sa` before the restage)
+    if (__syncthreads_and(s.done >= 0.5f)) break;
+    const int64_t gstart = (int64_t)(tw.blk0 + k) * CHUNK;
+    if (STASH && soff + k < stash_rows)
+      store_stash(stash + ((int64_t)(soff + k) * STASH_C) * P + p, P, s);
+    stage_block(sa, attrs, R, gstart);
+    __syncthreads();
+    composite_block<USE_SA, NN, false>(s, sa, (int)gstart, tw.start, tw.stop,
+                                       px, py, nullptr, nullptr, nullptr);
+  }
+  return k;
 }
 #endif
 

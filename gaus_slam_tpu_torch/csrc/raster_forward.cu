@@ -9,7 +9,8 @@
 // The tile's pair range [start, stop) is walked in 128-aligned global
 // blocks floor(start/128) .. ceil(stop/128) with a validity mask; each
 // block's [24, 128] attributes are staged once in shared memory and every
-// pixel composites the block sequentially (raster_common.cuh). The tile
+// pixel composites the block sequentially (raster_common.cuh,
+// forward_walk, which K5's re-forward shares). The tile
 // exits when every pixel is done (__syncthreads_and). K1 writes each
 // block's incoming carry (T done D D2 M1 M2 mm) to the stash at row
 // soff[tile] + k and the number of blocks it composited to kexit.
@@ -45,19 +46,9 @@ __global__ void __launch_bounds__(P) raster_forward_kernel(
   const float py = pixel_y(t, tiles_x, p);
 
   PixState s = init_state();
-  int k = 0;
-  for (; k < tw.nblk; ++k) {
-    // exit once every pixel of the tile has terminated (this barrier
-    // also orders the previous block's reads of `sa` before the restage)
-    if (__syncthreads_and(s.done >= 0.5f)) break;
-    const int64_t gstart = (int64_t)(tw.blk0 + k) * CHUNK;
-    if (STASH && soff[i] + k < stash_rows)
-      store_stash(stash + ((int64_t)(soff[i] + k) * STASH_C) * P + p, P, s);
-    stage_block(sa, attrs, R, gstart);
-    __syncthreads();
-    composite_block<USE_SA, NN, false>(s, sa, (int)gstart, tw.start, tw.stop,
-                                       px, py, nullptr, nullptr, nullptr);
-  }
+  const int k = forward_walk<STASH, USE_SA, NN>(
+      s, sa, attrs, R, tw, tw.nblk, px, py, stash, STASH ? soff[i] : 0,
+      stash_rows);
   if (STASH && p == 0) kexit[i] = k;
   store_out<USE_SA>(out + (int64_t)i * OUT_C * P + p, P, s);
 }

@@ -1,14 +1,18 @@
-"""Per-frame optimizable state: camera pose and exposure
-(port of the state part of gaus_slam_tpu/models/frame.py).
+"""Per-frame optimizable state and the host-side frame record (port of
+gaus_slam_tpu/models/frame.py).
 
 Pose = quaternion (w,x,y,z) + translation with per-group Adam and a
 learning rate linearly interpolated from init to final over max_steps;
 exposure = affine (gain, bias) color correction with its own Adam.
+``Frame`` holds a frame's ground truth and its lifecycle (images freed
+after the submap is cut unless the frame is one of the saved ones).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.se3 import pose_matrix, pose_params_from_matrix
@@ -106,3 +110,55 @@ def exposure_adam_step(es: ExposureState, g_gain, g_bias, sched: LrSchedule,
     v = b2 * es.v + (1 - b2) * g * g
     upd = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
     return ExposureState(es.gain - upd[0], es.bias - upd[1], m, v, step)
+
+
+@dataclass
+class Frame:
+    """Host-side per-frame record (scene/Frame.py:140-199). Its pose and
+    exposure live on ``device``; ``_w2c_host`` mirrors the pose on the
+    host (set by start_optimizer and by the frontend's tracking
+    readback)."""
+
+    time_idx: int
+    gt_color: object        # [H, W, 3] float 0-1 tensor (None after free)
+    gt_depth: object        # [H, W] meters
+    gt_w2c: np.ndarray      # [4, 4] ground truth (for eval only)
+    kfid: int = 0
+    # scene/Frame.py codes: 0 reference keyframe, 1 keyframe, 2 ordinary
+    frame_type: int = 2
+    pose: PoseState | None = None
+    exposure: ExposureState | None = None
+    est_w2c: np.ndarray = field(
+        default_factory=lambda: np.eye(4, dtype=np.float32))
+    est_exposure: tuple = (1.0, 0.0)
+    mapping_times: int = 0
+    device: object = "cuda"
+
+    def start_optimizer(self, initial_w2c, enable_exposure=False):
+        self.pose = init_pose(initial_w2c, device=self.device)
+        self._w2c_host = np.asarray(initial_w2c, dtype=np.float32)
+        if enable_exposure:
+            self.exposure = init_exposure(self.device)
+
+    def finish_optimizer(self, save: bool = False):
+        """Freeze pose into est_w2c; free images unless saved
+        (Frame.py:175-187)."""
+        if self.pose is not None:
+            self.est_w2c = self.pose.w2c.detach().cpu().numpy()
+            self.pose = None
+        if self.exposure is not None:
+            self.est_exposure = (float(self.exposure.gain),
+                                 float(self.exposure.bias))
+            self.exposure = None
+        if not save:
+            self.gt_color = None
+            self.gt_depth = None
+            if hasattr(self, "gt_tiled"):
+                self.gt_tiled = None
+
+    @property
+    def get_w2c(self) -> torch.Tensor:
+        if self.pose is not None:
+            return self.pose.w2c
+        return torch.as_tensor(self.est_w2c, dtype=torch.float32,
+                               device=self.device)

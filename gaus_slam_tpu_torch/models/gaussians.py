@@ -234,3 +234,8 @@ def adam_step(gm: GaussianMap, grads: Params, lrs: dict,
         new_v.append(v)
     return gm._replace(params=Params(*new_p), m=Params(*new_m),
                        v=Params(*new_v), step=step)
+
+
+def extract_params(gm: GaussianMap) -> tuple[Params, torch.Tensor, torch.Tensor]:
+    """Detached snapshot for submap handoff (Gaussians.extract_params)."""
+    return (Params(*(p.detach() for p in gm.params)), gm.active, gm.n_active)

@@ -9,7 +9,9 @@ produces the depth-ordered per-tile lists under a static pair budget
 
 The gradient reduction (``Binning.slab_scatter_grads`` /
 ``phase_reduce``) lands its per-gaussian run totals through the
-``monotone_row_gather`` kernel (K4, ops/gather.py) on the card.
+``monotone_row_gather`` kernel (K4, ops/gather.py) on the card under the
+"pallas" / "interpret" render backends, and through the plain gather
+otherwise (the JAX package's routing).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .gather import monotone_row_gather
+from .gather import monotone_row_gather, monotone_row_gather_plain
 
 SENTINEL = 0x7FFFFFFF
 
@@ -73,10 +75,14 @@ def _segmented_scan(acc: torch.Tensor, keys: torch.Tensor,
     return acc
 
 
-def _land(acc: torch.Tensor, pos: torch.Tensor, d_max: int) -> torch.Tensor:
+def _land(acc: torch.Tensor, pos: torch.Tensor, d_max: int,
+          backend: str | None) -> torch.Tensor:
     """Run totals at positions ``pos`` (monotone, steps <= d_max):
-    [R, C] -> [N, C] through the K4 gather ([C, R] -> [C, N] layout)."""
-    return monotone_row_gather(acc.T.contiguous(), pos, max_step=d_max).T
+    [R, C] -> [N, C] through the K4 gather ([C, R] -> [C, N] layout) for
+    the "pallas" / "interpret" backends, the plain gather otherwise."""
+    if backend in ("pallas", "interpret"):
+        return monotone_row_gather(acc.T.contiguous(), pos, max_step=d_max).T
+    return monotone_row_gather_plain(acc.T, pos).T
 
 
 class Binning(NamedTuple):
@@ -98,7 +104,8 @@ class Binning(NamedTuple):
     slab_phase: torch.Tensor | None = None   # [d_max, N] phase per slot
 
     def slab_scatter_grads(self, pair_grads: torch.Tensor, n: int,
-                           d_max: int | None = None) -> torch.Tensor:
+                           d_max: int | None = None,
+                           backend: str | None = None) -> torch.Tensor:
         """Reduce per-pair gradients [R, C] -> per-gaussian [N, C].
 
         Run path (no budget truncation): sort by gaussian, segmented
@@ -108,10 +115,10 @@ class Binning(NamedTuple):
         d_max = d_max if d_max is not None else self.num_tiles_touched
         if bool(self.overflow):
             return self._slab_reduce(pair_grads, n, d_max)
-        return self._run_reduce(pair_grads, n, d_max)
+        return self._run_reduce(pair_grads, n, d_max, backend)
 
     def phase_reduce(self, d_pairs_sub: torch.Tensor, phase: int, n: int,
-                     d_max: int) -> torch.Tensor:
+                     d_max: int, backend: str | None = None) -> torch.Tensor:
         """Per-gaussian reduce of ONE coarse phase's compact pair grads
         [r_phase, C], indexed from the 128-aligned floor of the phase
         start (phase-major binning with ``reduce_perm``)."""
@@ -137,7 +144,7 @@ class Binning(NamedTuple):
         counts_p = torch.sum(self.slab_phase == phase, dim=0)
         pos = torch.clamp(torch.cumsum(counts_p, 0) - 1, 0,
                           r_phase - 1).to(torch.int32)
-        out = _land(acc, pos, d_max)
+        out = _land(acc, pos, d_max, backend)
         exact = torch.logical_not(self.overflow) & ((p1 - p0_al) <= r_phase)
         keep = (counts_p > 0)[:, None] & exact
         return torch.where(keep, out, torch.zeros((), device=dev))
@@ -156,7 +163,7 @@ class Binning(NamedTuple):
         return slab.reshape(d_max, n, c).sum(dim=0)
 
     def _run_reduce(self, pair_grads: torch.Tensor, n: int,
-                    d_max: int) -> torch.Tensor:
+                    d_max: int, backend: str | None) -> torch.Tensor:
         r, _ = pair_grads.shape
         dev = pair_grads.device
         if self.red_perm is not None and self.red_perm.shape[0]:
@@ -170,7 +177,7 @@ class Binning(NamedTuple):
         acc = _segmented_scan(grads_sorted, keys_sorted, d_max)
         pos = torch.clamp(torch.cumsum(self.counts, 0) - 1, 0,
                           r - 1).to(torch.int32)
-        out = _land(acc, pos, d_max)
+        out = _land(acc, pos, d_max, backend)
         return torch.where((self.counts > 0)[:, None], out,
                            torch.zeros((), device=dev))
 

@@ -3,9 +3,16 @@ gaus_slam_tpu/ops/raster.py).
 
 ``render_pairs``: pair-expanded attributes [ATTR_C, R] in, tile-major
 render buffer [n_sub, OUT_C, P] out, as a ``torch.autograd.Function``.
-On a CUDA tensor the forward is K1 (with stash) and the backward K2; a
-call that needs no gradient launches K3 instead. On the CPU both
-directions run the plain versions, including ``tile_ids`` subsets.
+
+``RenderSettings.backend`` takes the JAX package's names:
+  * "pallas" / "interpret" (the stash path): on a CUDA tensor the forward
+    is K1 (with stash) and the backward K2; a call that needs no gradient
+    launches K3 instead. On the CPU both directions run the plain
+    versions, including ``tile_ids`` subsets.
+  * "reference": the forward is the plain ``composite_ref`` compositor
+    (tile-local windows, no stash) on every device, and the backward is
+    K5 on a CUDA tensor (its plain version on the CPU). All tiles only:
+    tile subsets are refused, as the JAX package asserts.
 """
 from __future__ import annotations
 
@@ -14,13 +21,17 @@ from typing import NamedTuple
 import torch
 
 from .binning import TileGrid
-from .raster_backward import raster_backward_stash
+from .composite_ref import composite_windows
+from .raster_backward import raster_backward, raster_backward_stash
 from .raster_forward import raster_forward, raster_forward_stash
+
+BACKENDS = ("pallas", "interpret", "reference")
 
 
 class RenderSettings(NamedTuple):
     grid: TileGrid
     use_sa: bool = True
+    backend: str = "pallas"  # pallas | interpret | reference
     need_normal: bool = True  # gate normal accumulation + its grad paths
 
 
@@ -52,11 +63,41 @@ class _RenderPairs(torch.autograd.Function):
         return d_attrs, None, None, None, None, None
 
 
+class _RenderPairsReference(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pair_attrs, tile_start, tile_stop, settings):
+        ctx.settings = settings
+        out = composite_windows(
+            pair_attrs.detach().T, None, tile_start, tile_stop,
+            settings.grid, use_sa=settings.use_sa,
+            max_pairs_per_tile=pair_attrs.shape[1],
+            need_normal=settings.need_normal)
+        ctx.save_for_backward(pair_attrs, tile_start, tile_stop, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        pair_attrs, tile_start, tile_stop, out = ctx.saved_tensors
+        s = ctx.settings
+        d_attrs = raster_backward(pair_attrs, tile_start, tile_stop, out,
+                                  d_out.contiguous(), grid=s.grid,
+                                  use_sa=s.use_sa, need_normal=s.need_normal)
+        return d_attrs, None, None, None
+
+
 def render_pairs(pair_attrs, tile_start, tile_stop, tile_ids,
                  settings: RenderSettings):
     """[ATTR_C, R] pair attrs -> [n_sub, OUT_C, P] render buffer.
     ``tile_ids`` (None = all tiles) selects the image tiles to render;
     ``tile_start``/``tile_stop`` are the matching subset rows."""
+    if settings.backend not in BACKENDS:
+        raise ValueError(f"unknown render backend {settings.backend!r}")
+    if settings.backend == "reference":
+        if tile_ids is not None:
+            raise ValueError("the reference render backend renders all "
+                             "tiles; tile subsets need the stash kernels")
+        return _RenderPairsReference.apply(pair_attrs, tile_start, tile_stop,
+                                           settings)
     if tile_ids is None:
         tile_ids = torch.arange(settings.grid.num_tiles, dtype=torch.int32,
                                 device=pair_attrs.device)

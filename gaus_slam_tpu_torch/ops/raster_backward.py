@@ -1,12 +1,23 @@
-"""Rasterizer backward: K2 (port of gaus_slam_tpu/ops/pallas_backward.py).
+"""Rasterizer backward: K2 and K5 (port of
+gaus_slam_tpu/ops/pallas_backward.py).
 
 Per-pair attribute gradients [ATTR_C, R] from the loss cotangents of the
 tile-major render buffer. The first cotangent of the pixel state (vjp of
-``compositing.finalize``) has a closed form, ``finalize_cotangents``; the
-reverse sweep over each tile's blocks runs on the card as
-csrc/raster_backward.cu (hand-derived vjp of composite_chunk) and on the
-CPU as ``raster_backward_plain``: ``torch.autograd.grad`` of the plain
-``composite_chunk`` per block in reverse, from the forward's stash.
+``compositing.finalize``) has a closed form, ``finalize_cotangents``.
+
+K2 (``raster_backward_stash``) is the reverse sweep over each tile's
+blocks from the forward's stash: on the card csrc/raster_backward.cu
+(hand-derived vjp of composite_chunk), on the CPU
+``raster_backward_stash_plain`` (``torch.autograd.grad`` of the plain
+``composite_chunk`` per block in reverse).
+
+K5 (``raster_backward``) is the backward of the reference render
+backend, whose forward keeps no stash: per tile it first re-runs K1's
+block walk (at most ``MAX_CHUNKS_PER_TILE`` blocks) into a scratch stash
+laid out as K1's, then runs K2's reverse sweep over it. On the card both
+phases are one kernel (raster_backward.cu), on the CPU
+``raster_backward_plain``. Its forward (``composite_ref.render_tiles``)
+has no per-tile cap, so a tile with more than 64k pairs would differ.
 """
 from __future__ import annotations
 
@@ -18,7 +29,12 @@ from . import _cuda
 from .binning import TileGrid
 from .compositing import ATTR_C, PixelState, composite_chunk
 from .composite_ref import tile_pixel_coords
-from .raster_forward import CHUNK, _check_inputs, _default_ids, stash_offsets
+from .raster_forward import (CHUNK, STASH_C, _check_inputs, _default_ids,
+                             raster_forward_plain, stash_offsets, stash_rows)
+
+# Blocks K5's re-forward visits per tile at most (64k pairs), as the TPU
+# kernel's on-chip stash held; csrc/raster_common.cuh has the same bound.
+MAX_CHUNKS_PER_TILE = 512
 
 
 def finalize_cotangents(saved_out, d_out, bg, *, use_sa: bool):
@@ -58,9 +74,9 @@ def _state_from_stash(rows: torch.Tensor) -> PixelState:
     )
 
 
-def raster_backward_plain(pair_attrs, tile_start, tile_stop, stash, kexit,
-                          saved_out, d_out, *, grid: TileGrid, use_sa=True,
-                          need_normal=True, tile_ids=None):
+def raster_backward_stash_plain(pair_attrs, tile_start, tile_stop, stash,
+                                kexit, saved_out, d_out, *, grid: TileGrid,
+                                use_sa=True, need_normal=True, tile_ids=None):
     """Plain PyTorch version of K2: vjp of composite_chunk per block in
     reverse, block k of every tile with k < kexit in one batched call."""
     r = _check_inputs(pair_attrs, grid)
@@ -113,10 +129,10 @@ def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
                           need_normal=True, tile_ids=None):
     """K2: d_attrs [ATTR_C, R]; rows of blocks no tile swept are 0."""
     if not pair_attrs.is_cuda:
-        return raster_backward_plain(pair_attrs, tile_start, tile_stop, stash,
-                                     kexit, saved_out, d_out, grid=grid,
-                                     use_sa=use_sa, need_normal=need_normal,
-                                     tile_ids=tile_ids)
+        return raster_backward_stash_plain(
+            pair_attrs, tile_start, tile_stop, stash, kexit, saved_out, d_out,
+            grid=grid, use_sa=use_sa, need_normal=need_normal,
+            tile_ids=tile_ids)
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev).contiguous()
@@ -149,3 +165,58 @@ def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
                    _cuda.stream()), "raster_backward_stash")
     return d_attrs
 
+
+def raster_backward_plain(pair_attrs, tile_start, tile_stop, saved_out, d_out,
+                          *, grid: TileGrid, use_sa=True, need_normal=True):
+    """Plain PyTorch version of K5: the plain K1 walk capped at
+    MAX_CHUNKS_PER_TILE blocks, then the plain K2 sweep over its stash.
+    All tiles of the grid."""
+    kw = dict(grid=grid, use_sa=use_sa, need_normal=need_normal)
+    _, stash, kexit = raster_forward_plain(
+        pair_attrs.detach(), tile_start, tile_stop,
+        max_blocks=MAX_CHUNKS_PER_TILE, **kw)
+    return raster_backward_stash_plain(pair_attrs, tile_start, tile_stop,
+                                       stash, kexit, saved_out, d_out, **kw)
+
+
+def raster_backward(pair_attrs, tile_start, tile_stop, saved_out, d_out, *,
+                    grid: TileGrid, use_sa=True, need_normal=True):
+    """K5: d_attrs [ATTR_C, R] for the rows of every tile of the grid;
+    ``saved_out`` is the forward's output (SA's cotangent reads its
+    median). The scratch stash costs the same bytes as K1's."""
+    if not pair_attrs.is_cuda:
+        return raster_backward_plain(pair_attrs, tile_start, tile_stop,
+                                     saved_out, d_out, grid=grid,
+                                     use_sa=use_sa, need_normal=need_normal)
+    r = _check_inputs(pair_attrs, grid)
+    dev = pair_attrs.device
+    n = grid.num_tiles
+    if tile_start.shape != (n,) or tile_stop.shape != (n,):
+        raise ValueError(f"raster_backward takes the ranges of all {n} "
+                         f"tiles, got {tuple(tile_start.shape)}")
+    attrs = pair_attrs.detach().contiguous()
+    ts = tile_start.to(torch.int32).contiguous()
+    te = tile_stop.to(torch.int32).contiguous()
+    soff = stash_offsets(ts, te).contiguous()
+    n_rows = stash_rows(r, n)
+    scratch = torch.empty((n_rows, STASH_C, grid.pixels_per_tile),
+                          dtype=torch.float32, device=dev)
+    bg = torch.zeros(3, device=dev)
+    dstate0 = finalize_cotangents(saved_out.float(), d_out.float(), bg,
+                                  use_sa=use_sa).contiguous()
+    for t, what in ((attrs, torch.float32), (ts, torch.int32),
+                    (te, torch.int32), (dstate0, torch.float32)):
+        _cuda.require(t, what, "raster_backward")
+    d_attrs = torch.zeros((ATTR_C, r), dtype=torch.float32, device=dev)
+    fn = _cuda.library("raster_backward").raster_backward_restash
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    _cuda.LAUNCHES["raster_backward"] += 1
+    _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ts), _cuda.ptr(te),
+                   _cuda.ptr(soff), _cuda.ptr(scratch), n_rows,
+                   _cuda.ptr(dstate0), n, grid.tiles_x, int(use_sa),
+                   int(need_normal), _cuda.ptr(d_attrs), _cuda.stream()),
+                "raster_backward")
+    return d_attrs

@@ -63,9 +63,11 @@ def _stack_stash(s):
 
 
 def raster_forward_plain(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
-                         use_sa=True, need_normal=True, tile_ids=None):
+                         use_sa=True, need_normal=True, tile_ids=None,
+                         max_blocks: int | None = None):
     """Plain PyTorch version of K1. Returns (out [n_sub, OUT_C, P],
-    stash [S, STASH_C, P], kexit [n_sub] int32); K3's output is ``out``."""
+    stash [S, STASH_C, P], kexit [n_sub] int32); K3's output is ``out``.
+    ``max_blocks`` caps the blocks a tile walks (K5's re-forward)."""
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev)
@@ -76,6 +78,8 @@ def raster_forward_plain(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
     blk0 = start // CHUNK
     nblk = torch.where(stop > start, (stop + CHUNK - 1) // CHUNK - blk0,
                        torch.zeros_like(stop))
+    if max_blocks is not None:
+        nblk = torch.clamp(nblk, max=max_blocks)
     soff = stash_offsets(tile_start, tile_stop).long()
     px, py = tile_pixel_coords(grid, ids)
     blocks = pair_attrs.detach().T.reshape(r // CHUNK, CHUNK, ATTR_C)

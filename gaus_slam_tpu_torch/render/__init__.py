@@ -12,7 +12,9 @@ Gradient boundaries as in the reference:
 
 The pair expansion of the mapping path is an ``autograd.Function`` whose
 backward is the per-gaussian gradient reduction, landing through the K4
-gather (``Binning.slab_scatter_grads`` / ``phase_reduce``).
+gather (``Binning.slab_scatter_grads`` / ``phase_reduce``) under the
+"pallas" / "interpret" backends and through the plain gather under
+"reference", as the JAX package routes it.
 """
 from __future__ import annotations
 
@@ -33,16 +35,20 @@ class RenderOptions(NamedTuple):
 
     grid: B.TileGrid
     use_sa: bool = True
-    # r_max = factor * capacity
+    backend: str = "pallas"    # pallas | interpret | reference (ops/raster)
+    # r_max = factor * capacity, or pair_cap rows when > 0
     pair_budget_factor: float = 2
+    pair_cap: int = 0
     max_tiles_per_gaussian: int = 16
     normals_in_tracking: bool = False  # loss.use_normal_loss
 
     def settings(self, need_normal: bool = True) -> RenderSettings:
         return RenderSettings(grid=self.grid, use_sa=self.use_sa,
-                              need_normal=need_normal)
+                              backend=self.backend, need_normal=need_normal)
 
     def r_max(self, n: int) -> int:
+        if self.pair_cap > 0:
+            return -(-int(self.pair_cap) // 128) * 128
         return -(-int(self.pair_budget_factor * n) // 128) * 128
 
 
@@ -52,19 +58,23 @@ class RenderOptions(NamedTuple):
 
 class _ExpandPairs(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, attrs_t, bins, d_max):
+    def forward(ctx, attrs_t, bins, d_max, backend):
         ctx.bins, ctx.n, ctx.d_max = bins, attrs_t.shape[0], d_max
+        ctx.backend = backend
         return attrs_t[bins.pair_gauss.long()].T.contiguous()
 
     @staticmethod
     def backward(ctx, d_pairs):
-        g = ctx.bins.slab_scatter_grads(d_pairs.T, ctx.n, d_max=ctx.d_max)
-        return g, None, None
+        g = ctx.bins.slab_scatter_grads(d_pairs.T, ctx.n, d_max=ctx.d_max,
+                                        backend=ctx.backend)
+        return g, None, None, None
 
 
-def expand_pairs(attrs_t: torch.Tensor, bins: B.Binning, d_max: int):
-    """[N, ATTR_C] per-gaussian attrs -> [ATTR_C, R] pair-expanded."""
-    return _ExpandPairs.apply(attrs_t, bins, d_max)
+def expand_pairs(attrs_t: torch.Tensor, bins: B.Binning, d_max: int,
+                 backend: str | None = None):
+    """[N, ATTR_C] per-gaussian attrs -> [ATTR_C, R] pair-expanded.
+    ``backend`` routes the gradient reduction's landing gather."""
+    return _ExpandPairs.apply(attrs_t, bins, d_max, backend)
 
 
 def _phase_base(bins: B.Binning, phase: int) -> torch.Tensor:
@@ -84,21 +94,24 @@ def _phase_rows(attrs_t, bins, phase, r_phase):
 
 class _ExpandPairsPhase(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, attrs_t, bins, phase, r_phase, d_max):
+    def forward(ctx, attrs_t, bins, phase, r_phase, d_max, backend):
         ctx.bins, ctx.phase, ctx.n, ctx.d_max = bins, phase, attrs_t.shape[0], d_max
+        ctx.backend = backend
         return _phase_rows(attrs_t, bins, phase, r_phase)
 
     @staticmethod
     def backward(ctx, d_pairs):
-        g = ctx.bins.phase_reduce(d_pairs.T, ctx.phase, ctx.n, ctx.d_max)
-        return g, None, None, None, None
+        g = ctx.bins.phase_reduce(d_pairs.T, ctx.phase, ctx.n, ctx.d_max,
+                                  backend=ctx.backend)
+        return g, None, None, None, None, None
 
 
 def expand_pairs_phase(attrs_t, bins: B.Binning, phase: int, r_phase: int,
-                       d_max: int):
+                       d_max: int, backend: str | None = None):
     """[N, ATTR_C] attrs -> [ATTR_C, r_phase] pair block of ONE coarse
     phase of a phase-major binning (a contiguous slice of the pairs)."""
-    return _ExpandPairsPhase.apply(attrs_t, bins, phase, r_phase, d_max)
+    return _ExpandPairsPhase.apply(attrs_t, bins, phase, r_phase, d_max,
+                                   backend)
 
 
 def phase_budget(opts: RenderOptions, n: int, stride: int) -> int:
@@ -166,7 +179,7 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
         assert tile_ids is not None and coarse_stride > 0
         r_phase = phase_budget(opts, params.xyz.shape[0], coarse_stride)
         pattrs = expand_pairs_phase(attrs_t, bins, phase, r_phase,
-                                    opts.max_tiles_per_gaussian)
+                                    opts.max_tiles_per_gaussian, opts.backend)
         p0_al = _phase_base(bins, phase)
         ids = tile_ids.long()
         start = torch.clamp(bins.tile_start[ids] - p0_al, 0, r_phase)
@@ -177,7 +190,8 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
         out = render_pairs(pattrs, start.int(), stop.int(), tile_ids,
                            opts.settings(need_normal=need_normal))
         return out, bins
-    pattrs = expand_pairs(attrs_t, bins, opts.max_tiles_per_gaussian)
+    pattrs = expand_pairs(attrs_t, bins, opts.max_tiles_per_gaussian,
+                          opts.backend)
     if tile_ids is None:
         start, stop = bins.tile_start, bins.tile_stop
     else:
@@ -191,7 +205,8 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
 
 
 def render_view(gm: GaussianMap, cam: Camera, opts: RenderOptions):
-    """Detached render at a fixed pose (Renderer_view); launches K3."""
+    """Detached render at a fixed pose (Renderer_view); launches K3 (the
+    plain compositor under the reference backend)."""
     with torch.no_grad():
         out, _ = render_full(gm.params, gm.active, cam, opts)
     return out

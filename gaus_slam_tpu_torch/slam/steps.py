@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from ..models import gaussians as G
-from ..models.frame import LrSchedule, PoseState, pose_adam_step
+from ..models.frame import (ExposureState, LrSchedule, PoseState,
+                            exposure_adam_step, init_exposure, pose_adam_step)
 from ..ops.camera import Camera
 from ..ops.se3 import invert_se3, pose_params_from_matrix
 from ..render import (PairCache, RenderOptions, bin_full, phase_budget,
@@ -93,7 +94,9 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
             state["depth_l1"] = aux["depth_l1"].detach()
 
     consumed = 0
-    for it_l, s_l in tcfg.levels():
+    # the reference backend renders all tiles only: no coarse phase
+    levels = tcfg.levels() if opts.backend != "reference" else ()
+    for it_l, s_l in levels:
         n_l = min(it_l, tcfg.num_iters - consumed)
         if n_l <= 0 or s_l <= 1:
             continue
@@ -140,12 +143,15 @@ class MapConfig(NamedTuple):
 
 
 def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
+                 exposure: ExposureState, do_exposure, exp_sched: LrSchedule,
                  cam_proj: Camera, opts: RenderOptions, mcfg: MapConfig,
                  lcfg: LossConfig, bins=None, tile_ids=None, tile_valid=None,
                  phase: int | None = None, coarse_stride: int = 0):
     """One mapping iteration: render at a fixed pose with the map
-    parameters live, then one Adam step (exposure optimization is not
-    part of this slice). Returns (gm, aux)."""
+    parameters live, then one Adam step. Under ``lcfg.enable_exposure``
+    the (gain, bias) of ``exposure`` are live in the loss too, and step
+    when ``do_exposure`` (a host bool here; a device bool in JAX).
+    Returns (gm, exposure, aux)."""
     cam = cam_proj.replace_w2c(w2c.detach())
     if bins is None:
         bins = bin_full(gm.params, gm.active, cam, opts,
@@ -153,14 +159,23 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
     gt_sub = gt_tiled if tile_ids is None else gt_tiled[tile_ids.long()]
 
     params = G.Params(*(p.detach().requires_grad_() for p in gm.params))
+    live = list(params)
+    exp = None
+    if lcfg.enable_exposure:
+        gain = exposure.gain.detach().requires_grad_()
+        bias = exposure.bias.detach().requires_grad_()
+        exp = exposure._replace(gain=gain, bias=bias)
+        live += [gain, bias]
     out, _ = render_full(params, gm.active, cam, opts, bins=bins,
                          need_normal=opts.normals_in_tracking,
                          tile_ids=tile_ids, tile_valid=tile_valid,
                          phase=phase, coarse_stride=coarse_stride)
-    loss, aux = mapping_loss(out, gt_sub, lcfg)
-    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-    grads = G.Params(*(torch.zeros_like(p) if g is None else g
-                       for p, g in zip(params, grads)))
+    loss, aux = mapping_loss(out, gt_sub, lcfg, exposure=exp)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(live, grads)]
+    g_exp = grads[5:]
+    grads = G.Params(*grads[:5])
 
     overflow = bins.overflow
     if phase is not None:
@@ -172,8 +187,10 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
             "n_shrunk": bins.n_shrunk, "demand": bins.demand}
     gm = G.adam_step(gm, grads, dict(mcfg.lrs), mcfg.betas, mcfg.eps,
                      isotropic=mcfg.isotropic)
-    return gm, {"loss": loss.detach(),
-                **{k: v.detach() for k, v in aux.items()}, **diag}
+    if lcfg.enable_exposure and bool(do_exposure):
+        exposure = exposure_adam_step(exposure, g_exp[0], g_exp[1], exp_sched)
+    return gm, exposure, {"loss": loss.detach(),
+                          **{k: v.detach() for k, v in aux.items()}, **diag}
 
 
 def _coarse_map_phases(grid, stride: int, device):
@@ -209,6 +226,7 @@ def mapping_loop(gm: G.GaussianMap, w2cs: torch.Tensor, gts: torch.Tensor,
     Returns (gm, aux) with the binning diagnostics folded over every
     iteration and ``losses``, the loss of every iteration."""
     dev = gts.device
+    dummy_exp = init_exposure(dev)
     n_phase = coarse_stride * coarse_stride
     phases = pvalid = None
     if coarse_stride > 1:
@@ -225,8 +243,9 @@ def mapping_loop(gm: G.GaussianMap, w2cs: torch.Tensor, gts: torch.Tensor,
             else:
                 ph = (phase0 + g_idx * rebin_every + j) % n_phase
                 ids, wt = phases[ph], pvalid[ph]
-            gm, aux = mapping_step(
-                gm, w2c, gts[g_idx], cam_proj, opts, mcfg, lcfg, bins=bins,
+            gm, _, aux = mapping_step(
+                gm, w2c, gts[g_idx], dummy_exp, False, LrSchedule(0.0, 0.0, 1),
+                cam_proj, opts, mcfg, lcfg, bins=bins,
                 tile_ids=ids, tile_valid=wt, phase=ph,
                 coarse_stride=coarse_stride if phases is not None else 0)
             diags.append(aux)

@@ -40,7 +40,9 @@ def test_port_imports_no_jax():
                 "ops.raster_forward", "ops.raster_backward", "ops.gather",
                 "ops.raster", "render", "models.gaussians", "models.frame",
                 "slam.loss", "slam.init_map", "slam.densify", "slam.steps",
-                "data.synthetic", "convert"):
+                "data.synthetic", "convert", "utils.config", "utils.stage",
+                "utils.fence", "models.descriptor", "models.submap",
+                "slam.frontend"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 

@@ -275,7 +275,7 @@ def test_kernel_math_matches_plain(host_math, use_sa, nn, subset):
 
     d_out = rng.normal(size=ho.shape).astype(np.float32)
     d_out[:, 10:] = 0.0
-    pg = TRB.raster_backward_plain(
+    pg = TRB.raster_backward_stash_plain(
         torch.tensor(pattrs), torch.tensor(ts_s), torch.tensor(te_s),
         torch.tensor(hst), torch.tensor(hk), torch.tensor(ho),
         torch.tensor(d_out), **kw).numpy()
@@ -315,5 +315,5 @@ def test_cuda_kernels_match_plain(cuda_device, use_sa):
     d_out[:, 10:] = 0.0
     args = (a, t0, t1, kst, kk, ko, d_out)
     kg = TRB.raster_backward_stash(*args, **kw)
-    pg = TRB.raster_backward_plain(*args, **kw)
+    pg = TRB.raster_backward_stash_plain(*args, **kw)
     assert_grad_close(kg.cpu().numpy(), pg.cpu().numpy(), 1e-3)
