@@ -11,10 +11,13 @@ names, so tests feed both packages the same map and pose this way.
 
 ``frontend_state_from_jax`` reads a JAX ``Frontend`` (through numpy
 only) and returns the port ``Frontend``'s state as a dict keyed by its
-attribute names, so a test can set both frontends to the same state.
+attribute names, so a test can set both frontends to the same state;
+``backend_state_from_jax`` does the same for a JAX ``Backend``, and
+``localmap_from_jax`` converts one JAX ``LocalMap``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import random
 
@@ -23,6 +26,7 @@ import torch
 
 from .models.frame import ExposureState, Frame, PoseState
 from .models.gaussians import PARAM_FIELDS, GaussianMap, Params
+from .models.submap import LocalMap, Localmaps
 from .render import PairCache
 from .utils.config import SystemConfig
 
@@ -117,14 +121,6 @@ def frontend_state_from_jax(jf, device="cuda") -> dict:
     in ``sys`` and a pending speculative binning ``_spec``."""
     device = torch.device(device)
     gm = _map_from(jf.map, device)
-    sys = SystemConfig.from_config(jf.config, backend=jf.sys.opts.backend,
-                                   component="frontend", device=device)
-    jo = jf.sys.opts
-    sys = dataclasses.replace(sys, opts=sys.opts._replace(
-        pair_budget_factor=jo.pair_budget_factor, pair_cap=jo.pair_cap,
-        max_tiles_per_gaussian=jo.max_tiles_per_gaussian))
-    rng = random.Random()
-    rng.setstate(jf.rng.getstate())
     spec = None
     if jf._spec is not None and jf._spec[0] is jf.map:
         _, cache, pose, w2c = jf._spec
@@ -145,7 +141,88 @@ def frontend_state_from_jax(jf, device="cuda") -> dict:
         "tracking_flag": bool(jf.tracking_flag),
         "cur_lmid": int(jf.cur_lmid),
         "n_active_host": int(jf.n_active_host),
-        "rng": rng,
-        "sys": sys,
+        "rng": _rng_copy(jf.rng),
+        "sys": _sys_from(jf.config, jf.sys, "frontend", device),
         "_spec": spec,
+    }
+
+
+def _rng_copy(rng) -> random.Random:
+    out = random.Random()
+    out.setstate(rng.getstate())
+    return out
+
+
+def _sys_from(config, jsys, component, device) -> SystemConfig:
+    """The port's SystemConfig for ``config`` with the (possibly
+    escalated) pair budgets of the JAX one."""
+    sys = SystemConfig.from_config(config, backend=jsys.opts.backend,
+                                   component=component, device=device)
+    jo = jsys.opts
+    return dataclasses.replace(sys, opts=sys.opts._replace(
+        pair_budget_factor=jo.pair_budget_factor, pair_cap=jo.pair_cap,
+        max_tiles_per_gaussian=jo.max_tiles_per_gaussian))
+
+
+def _exposure_from(e, device) -> ExposureState | None:
+    if e is None:
+        return None
+    return ExposureState(_tensor(e.gain, device), _tensor(e.bias, device),
+                         _tensor(e.m, device), _tensor(e.v, device),
+                         int(np.asarray(e.step)))
+
+
+def localmap_from_jax(lm, device="cuda") -> LocalMap:
+    """A JAX LocalMap as the port's: frames (frozen poses, kept images),
+    the donor snapshot (if not yet merged), descriptor, transform and
+    exposure (if started), mapping_times and the host count."""
+    device = torch.device(device)
+    snap = None
+    if lm.map_params is not None:
+        params, active, n_active = lm.map_params
+        snap = (_params(params, device),
+                torch.as_tensor(np.array(active, bool), device=device),
+                torch.as_tensor(np.array(n_active, np.int32), device=device))
+    return LocalMap(
+        lmid=int(lm.lmid), frames=[_frame_from(f, device) for f in lm.frames],
+        map_params=snap, tracking_ok=bool(lm.tracking_ok),
+        saved_idxs=list(lm.saved_idxs),
+        ref2f0=None if lm.ref2f0 is None else np.array(lm.ref2f0),
+        transform=(None if lm.transform is None
+                   else pose_from_numpy(lm.transform, device)),
+        exposure=_exposure_from(lm.exposure, device),
+        map_desc=None if lm.map_desc is None else np.array(lm.map_desc),
+        mapping_times=int(lm.mapping_times),
+        n_active_host=(None if lm.n_active_host is None
+                       else int(lm.n_active_host)))
+
+
+def backend_state_from_jax(jb, device="cuda") -> dict:
+    """The state of the JAX Backend ``jb`` as the port Backend's
+    attributes (``vars(backend).update(...)``): the global map, the
+    LocalMaps with their transforms and descriptor matrix, ``cur_lmid``,
+    ``n_active_host``, ``_peak_hist``, the RNG state, the task queue, the
+    covisible submaps, the coarse-phase counters, the (possibly escalated)
+    pair budgets in ``sys``, the exposure placeholder and the records."""
+    device = torch.device(device)
+    lms = Localmaps()
+    for lm in jb.local_maps:
+        lms.add_localmap(localmap_from_jax(lm, device))
+    return {
+        "map": None if jb.map is None else _map_from(jb.map, device),
+        "local_maps": lms,
+        "cur_lmid": int(jb.cur_lmid),
+        "n_active_host": int(jb.n_active_host),
+        "_peak_hist": [int(p) for p in jb._peak_hist],
+        "bucket_flips": int(getattr(jb, "bucket_flips", 0)),
+        "rng": _rng_copy(jb.rng),
+        "task_queue": collections.deque(
+            tuple(t) for t in list(jb.task_queue.queue)),
+        "covis_idxs": [int(i) for i in jb.covis_idxs],
+        "_map_phase": int(jb._map_phase),
+        "_map_phase_pre": int(jb._map_phase_pre),
+        "sys": _sys_from(jb.config, jb.sys, "backend", device),
+        "exposure": _exposure_from(jb.exposure, device),
+        "ape_rec": list(jb.ape_rec),
+        "totalpts_rec": [int(n) for n in jb.totalpts_rec],
     }

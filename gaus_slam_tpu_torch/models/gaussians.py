@@ -133,9 +133,11 @@ def _unpack_wide(dst: torch.Tensor):
     return unpack(0), unpack(5), unpack(10), dst[:, offs[-1]] > 0.5
 
 
-def _append_rows(gm: GaussianMap, new: Params, valid: torch.Tensor) -> GaussianMap:
+def add_params(gm: GaussianMap, new: Params, valid: torch.Tensor) -> GaussianMap:
     """Compact the ``valid`` rows of ``new`` onto rows [n_active, ...)
-    with zeroed moments; rows past capacity are dropped."""
+    with zeroed moments; rows past capacity are dropped. The backend's
+    merge appends a submap's snapshot this way (Backend.py:227 ->
+    Gaussians.add_params), as does densification."""
     C = gm.capacity
     vi = valid.to(torch.int32)
     rank = torch.cumsum(vi, 0) - vi
@@ -177,7 +179,22 @@ def add_gaussians(gm: GaussianMap, points, colors, normals, init_scale,
         opacity_logit=torch.zeros((n, 1), dtype=torch.float32, device=dev),
         rgb=colors.float(),
     )
-    return _append_rows(gm, new, valid)
+    return add_params(gm, new, valid)
+
+
+def transform(gm: GaussianMap, transfer: torch.Tensor) -> GaussianMap:
+    """Rigid transform of the whole map (transform_gaussians,
+    Gaussians.py:404-416): xyz and quats move, their Adam moments reset."""
+    from ..ops.se3 import quat_multiply, rotmat_to_quat
+
+    R, t = transfer[:3, :3], transfer[:3, 3]
+    params = gm.params._replace(
+        xyz=gm.params.xyz @ R.T + t,
+        quats=quat_multiply(rotmat_to_quat(R)[None, :], gm.params.quats))
+    zeros3, zeros4 = torch.zeros_like(gm.m.xyz), torch.zeros_like(gm.m.quats)
+    return gm._replace(params=params,
+                       m=gm.m._replace(xyz=zeros3, quats=zeros4),
+                       v=gm.v._replace(xyz=zeros3, quats=zeros4))
 
 
 def prune(gm: GaussianMap, prune_mask: torch.Tensor) -> GaussianMap:

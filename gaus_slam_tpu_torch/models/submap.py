@@ -1,5 +1,5 @@
-"""Frontend submap container (port of the LocalMap part of
-gaus_slam_tpu/models/submap.py; reference scene/Frame.py:202-262).
+"""Submap containers (port of gaus_slam_tpu/models/submap.py; reference
+scene/Frame.py:202-322).
 
 A LocalMap freezes a frontend submap at cut time: it rebases all frame
 poses to be relative to the first frame (so the backend can re-pose the
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.se3 import pose_matrix
-from .descriptor import describe_frames
+from .descriptor import describe_frames, query_covisible
 from .frame import ExposureState, PoseState, init_exposure, init_pose
 
 
@@ -109,3 +109,45 @@ class LocalMap:
     def get_w2c(self) -> torch.Tensor:
         assert self.transform is not None
         return self.transform.w2c
+
+
+class Localmaps(list):
+    """Submap list + descriptor matrix + covisibility query
+    (scene/Frame.py:264-322)."""
+
+    def __init__(self):
+        super().__init__()
+        self.map_descs = None  # host [num, reps, D]
+
+    def add_localmap(self, lm: LocalMap):
+        self.append(lm)
+        d = lm.map_desc[None]
+        self.map_descs = d if self.map_descs is None else np.concatenate(
+            [self.map_descs, d])
+
+    def query_covisable(self, lm_idx: int, num_kf: int = 10):
+        return query_covisible(self.map_descs, self.map_descs[lm_idx], num_kf)
+
+    def _frames_in_time_order(self):
+        """(LocalMap, Frame) of every frame once, in time order: each
+        submap's frames but its last (the next submap's first), then the
+        last frame of the last submap (Frame.py:298-308)."""
+        out = []
+        for lm in self:
+            for f in lm.frames[:-1]:
+                if f.time_idx == len(out) and lm.transform is not None:
+                    out.append((lm, f))
+        out.append((self[-1], self[-1].frames[-1]))
+        return out
+
+    def get_w2cs(self):
+        """Per-frame estimated w2cs (frame-in-submap @ submap transform),
+        host float32 arrays in time order."""
+        pairs = self._frames_in_time_order()
+        est = torch.stack([torch.as_tensor(f.est_w2c, dtype=torch.float32)
+                           for _, f in pairs])
+        tf = torch.stack([lm.get_w2c.detach() for lm, _ in pairs])
+        return list((est.to(tf.device) @ tf).cpu().numpy())
+
+    def get_gt_w2cs(self):
+        return [np.asarray(f.gt_w2c) for _, f in self._frames_in_time_order()]

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
-SOURCES = ("raster_forward", "raster_backward", "gather")
+SOURCES = ("raster_forward", "raster_backward", "gather", "bf16_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the backward's forward recompute must

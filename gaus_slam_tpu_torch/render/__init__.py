@@ -27,7 +27,8 @@ from ..ops import binning as B
 from ..ops.camera import Camera
 from ..ops.preprocess import preprocess_t
 from ..ops.raster import RenderSettings, render_pairs
-from ..ops.se3 import pose_matrix, quat_multiply_rows, quat_normalize
+from ..ops.se3 import (pose_matrix, quat_multiply, quat_multiply_rows,
+                       quat_normalize, rotmat_to_quat)
 
 
 class RenderOptions(NamedTuple):
@@ -293,11 +294,16 @@ def bin_for_tracking(gm: GaussianMap, cam0: Camera, opts: RenderOptions,
 
 def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
                     opts: RenderOptions, tile_ids=None,
-                    pair_hi: int | None = None):
+                    pair_hi: int | None = None, pre_w2c=None):
     """Tracking-mode render: pair-cached map moved by the live pose.
 
     ``pair_hi`` slices the (phase-major) cache to its first ``pair_hi``
-    pair rows; a tile whose range extends past the slice renders EMPTY."""
+    pair rows; a tile whose range extends past the slice renders EMPTY.
+
+    ``pre_w2c``: a fixed [4, 4] composed left of the live pose, so the
+    effective camera is ``pre_w2c @ pose_matrix(quat, trans)`` (backend
+    tracking: the live submap transform under a fixed frame-in-submap
+    pose); the detached quaternion rotation is then q_pre * q."""
     if pair_hi is not None and pair_hi < cache.raw_t.shape[1]:
         start_c = torch.clamp(cache.tile_start, max=pair_hi)
         stop_c = torch.where(cache.tile_stop <= pair_hi, cache.tile_stop,
@@ -306,6 +312,10 @@ def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
                                tile_start=start_c, tile_stop=stop_c)
     w2c = pose_matrix(pose_quat, pose_trans)
     q = quat_normalize(pose_quat)
+    if pre_w2c is not None:
+        w2c = pre_w2c @ w2c
+        q = quat_multiply(rotmat_to_quat(pre_w2c[:3, :3])[None, :],
+                          q[None, :])[0]
     cam_eye = cam_proj.replace_w2c(
         torch.eye(4, dtype=torch.float32, device=cache.raw_t.device))
     xyz_cam_t = w2c[:3, :3] @ cache.xyz_t + w2c[:3, 3][:, None]

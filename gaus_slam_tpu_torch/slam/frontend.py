@@ -82,9 +82,10 @@ def _host_inv_se3(m: np.ndarray) -> np.ndarray:
 
 
 class Frontend:
-    def __init__(self, config: dict, to_backend, backend: str = "pallas",
-                 device="cuda"):
+    def __init__(self, config: dict, to_backend, wandb_run=None,
+                 backend: str = "pallas", device="cuda"):
         self.config = config
+        self.wandb_run = wandb_run
         self.device = torch.device(device)
         self.sys = SystemConfig.from_config(config, backend=backend,
                                             component="frontend",
@@ -558,6 +559,26 @@ class Frontend:
             )
             self.cur_lmid += 1
             self.to_backend.put(lm)
+
+    # ------------------------------------------------------------------
+    def update_common_visualization(self):
+        """Frontend dashboards (Frontend.py:231-242): local map point
+        count and per-frame depth-L1, plus wandb series when enabled."""
+        from ..utils import viz
+
+        out_dir = self.config.get("vis_base_dir", "output")
+        os.makedirs(out_dir, exist_ok=True)
+        viz.save_series(self.numpts_rec,
+                        os.path.join(out_dir, "frontend_numpts.png"))
+        viz.save_series(self.depth_l1_rec,
+                        os.path.join(out_dir, "depth_l1.png"))
+        if self.wandb_run is not None:
+            self.wandb_run.log({
+                "frontend_numpts": self.numpts_rec[-1] if self.numpts_rec
+                else 0,
+                "depth_l1": self.depth_l1_rec[-1] if self.depth_l1_rec
+                else 0.0,
+            })
 
     # ------------------------------------------------------------------
     def time_stats(self) -> dict:

@@ -18,8 +18,9 @@ from ..models.frame import (ExposureState, LrSchedule, PoseState,
                             exposure_adam_step, init_exposure, pose_adam_step)
 from ..ops.camera import Camera
 from ..ops.se3 import invert_se3, pose_params_from_matrix
-from ..render import (PairCache, RenderOptions, bin_full, phase_budget,
-                      render_full, render_tracking, track_coarse_budget)
+from ..render import (PairCache, RenderOptions, bin_for_tracking, bin_full,
+                      phase_budget, render_full, render_tracking,
+                      track_coarse_budget)
 from .loss import LossConfig, mapping_loss, tracking_loss
 
 
@@ -146,12 +147,18 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
                  exposure: ExposureState, do_exposure, exp_sched: LrSchedule,
                  cam_proj: Camera, opts: RenderOptions, mcfg: MapConfig,
                  lcfg: LossConfig, bins=None, tile_ids=None, tile_valid=None,
-                 phase: int | None = None, coarse_stride: int = 0):
+                 phase: int | None = None, coarse_stride: int = 0,
+                 frame_exp: torch.Tensor | None = None):
     """One mapping iteration: render at a fixed pose with the map
     parameters live, then one Adam step. Under ``lcfg.enable_exposure``
     the (gain, bias) of ``exposure`` are live in the loss too, and step
     when ``do_exposure`` (a host bool here; a device bool in JAX).
-    Returns (gm, exposure, aux)."""
+
+    ``frame_exp``: optional [2] (gain, bias) of the frame's frozen
+    exposure, composed with the live one as the reference's
+    get_frame_exposure (scene/Frame.py:250-257): A = gain * f_gain,
+    B = gain * f_bias + bias; the gradient reaches the live pair through
+    the composition. Returns (gm, exposure, aux)."""
     cam = cam_proj.replace_w2c(w2c.detach())
     if bins is None:
         bins = bin_full(gm.params, gm.active, cam, opts,
@@ -164,7 +171,11 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
     if lcfg.enable_exposure:
         gain = exposure.gain.detach().requires_grad_()
         bias = exposure.bias.detach().requires_grad_()
-        exp = exposure._replace(gain=gain, bias=bias)
+        if frame_exp is None:
+            exp = exposure._replace(gain=gain, bias=bias)
+        else:
+            exp = exposure._replace(gain=gain * frame_exp[0],
+                                    bias=gain * frame_exp[1] + bias)
         live += [gain, bias]
     out, _ = render_full(params, gm.active, cam, opts, bins=bins,
                          need_normal=opts.normals_in_tracking,
@@ -253,3 +264,54 @@ def mapping_loop(gm: G.GaussianMap, w2cs: torch.Tensor, gts: torch.Tensor,
     folded = fold_diags(diags)
     losses = torch.stack(losses)
     return gm, {**folded, "loss": losses[-1], "losses": losses}
+
+
+def backend_tracking_step(gm: G.GaussianMap, pose: PoseState,
+                          frame_w2c: torch.Tensor, gt_tiled: torch.Tensor,
+                          cam_proj: Camera, opts: RenderOptions,
+                          tcfg: TrackConfig, lcfg: LossConfig,
+                          exposure: ExposureState | None = None,
+                          frame_exp: torch.Tensor | None = None):
+    """Backend tracking step (Backend.tracking, Backend.py:81-99): the
+    global map is fixed and only the submap transform ``pose`` moves.
+
+    Through the pair cache: bin at the effective pose frame_w2c @ pose,
+    then render_tracking with ``pre_w2c=frame_w2c`` and the live
+    transform, so the pose gradient flows through the composed means as
+    in frontend tracking. ``exposure`` / ``frame_exp``: the composed
+    exposure of Backend.py:86-92, applied detached (tracking never steps
+    the exposure). Returns (pose, aux)."""
+    exp = None
+    if exposure is not None and lcfg.enable_exposure:
+        fe = (frame_exp if frame_exp is not None
+              else torch.tensor([1.0, 0.0], device=exposure.gain.device))
+        exp = exposure._replace(
+            gain=(exposure.gain * fe[0]).detach(),
+            bias=(exposure.gain * fe[1] + exposure.bias).detach())
+    cache = bin_for_tracking(gm, cam_proj.replace_w2c(frame_w2c @ pose.w2c),
+                             opts)
+    quat = pose.quat.detach().requires_grad_()
+    trans = pose.trans.detach().requires_grad_()
+    out = render_tracking(cache, quat, trans, cam_proj, opts,
+                          pre_w2c=frame_w2c)
+    loss, aux = tracking_loss(out, gt_tiled, lcfg, exposure=exp)
+    g_q, g_t = torch.autograd.grad(loss, (quat, trans))
+    pose = pose_adam_step(pose, g_q, g_t, tcfg.rot_sched, tcfg.trans_sched,
+                          tcfg.betas)
+    return pose, {"loss": loss.detach(), "depth_l1": aux["depth_l1"].detach(),
+                  "overflow": cache.overflow, "n_shrunk": cache.n_shrunk,
+                  "demand": cache.demand}
+
+
+def ba_step(gm, pose, frame_w2c, gt_tiled, exposure, cam_proj, opts, mcfg,
+            lcfg, exp_sched, frame_exp=None):
+    """Backend "ba" task (Backend.py:130-155): a mapping step at the
+    composed pose frame_w2c @ pose, plus a step-count advance of the
+    submap transform. The reference's Renderer_mapping detaches that pose
+    (render/__init__.py:60), so the transform receives no gradient; the
+    exposure steps whenever it is on (no mapping_times gate).
+    Returns (gm, pose, exposure, aux)."""
+    gm, exposure, aux = mapping_step(
+        gm, frame_w2c @ pose.w2c, gt_tiled, exposure, lcfg.enable_exposure,
+        exp_sched, cam_proj, opts, mcfg, lcfg, frame_exp=frame_exp)
+    return gm, pose._replace(step=pose.step + 1), exposure, aux

@@ -7,8 +7,8 @@ mutated in place with the probed camera height/width/intrinsics.
 ``SystemConfig`` converts the dict into the static config objects the
 step functions take, with the same values as the JAX package's for the
 same dict; the camera lives on ``device``. ``MapConfig`` has no
-``gs_stats`` yet: the backend's gs_densify statistics come with the
-backend slice (the frontend never reads them).
+``gs_stats``: only gs_densify reads those statistics, and the Backend
+refuses gs_densify until it is ported.
 """
 from __future__ import annotations
 

@@ -42,7 +42,11 @@ def test_port_imports_no_jax():
                 "slam.loss", "slam.init_map", "slam.densify", "slam.steps",
                 "data.synthetic", "convert", "utils.config", "utils.stage",
                 "utils.fence", "models.descriptor", "models.submap",
-                "slam.frontend"):
+                "slam.frontend", "slam.backend", "utils.trajectory",
+                "utils.image_metrics", "utils.eval", "utils.ply",
+                "utils.scene_io", "utils.viz", "data", "scripts",
+                "scripts.gaus", "ops.bf16_probe", "tools",
+                "tools.bf16_probe"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
