@@ -10,35 +10,49 @@
 // detached inside SA's fusion and live in the middepth output; SA's
 // statistics (D, D2 prefixes, T_pref) are detached inside conf.
 //
-// Design: one CTA per rendered tile, one thread per pixel. For each block
-// k = kexit-1 .. 0 the CTA restages the block's attributes, reloads the
-// block's incoming carry from the forward's stash and reruns the block
-// forward (composite_block, bit-identical to K1 because the library is
-// built with -fmad=false), recording per pair the exclusive log-sum and
-// the exclusive statistics in per-thread local arrays. It then walks the
-// block's pairs in reverse with suffix accumulators, turning the pixel
-// state's cotangent into per-(pair, pixel) attribute gradients and the
-// cotangent of the block's incoming state (the carry for block k-1).
-// T_pref is recomputed as T_in * exp(cumx), never by dividing by (1-a).
+// Design: one CTA per rendered tile, one thread per pixel, three CTAs per
+// SM (the tiles' sweeps are near-equal in length on the frontend's data:
+// launching the longest first measured no gain). For each block
+// k = kexit-1 .. 0 the CTA restages the block's attributes (with a
+// cull radius per pair) and reloads the block's incoming carry from the
+// forward's stash. A first pass re-walks the block (pair_step,
+// bit-identical to K1 because the library is built with -fmad=false) for
+// the block's BlockInfo, keeping in registers a 128-bit mask of the pairs
+// that touched the pixel and, in a ring in shared memory
+// ([3][REC_CAP][256] floats), the running values (log-sum and statistics
+// prefixes) before each of them: the pixel's records. A pair that surely
+// misses a pixel (a conservative test on its two squared distances,
+// without the division or the exp) skips its geometry. The reverse walk
+// then visits the pairs last first with suffix accumulators, turning the
+// pixel state's cotangent into per-(pair, pixel) attribute gradients and
+// the cotangent of the block's incoming state (the carry for block k-1);
+// it skips the pairs outside a pixel's mask, a warp skips a pair none of
+// its pixels touched, and a pixel that more than REC_CAP pairs of the
+// block touched re-runs the block's masked pairs from its start for the
+// records the ring no longer holds. The first cotangent comes from the
+// forward's output and the loss cotangent in the kernel (cot_from_out).
+// T_pref is recomputed as T_in * exp(cum), never by dividing by (1-a).
 //
-// Per-pair reduction over the 256 pixels: warp shuffles (a warp whose
-// lanes all miss the pair skips them), then the 8 warp partials of 32
-// pairs are summed in shared memory in a fixed order — deterministic.
+// Per-pair sum over the 256 pixels: a warp reduce-scatter (31 shuffles,
+// lane q ends with row q's warp sum; a warp whose lanes all miss the pair
+// skips it), then the 8 warp partials of a round are summed in shared
+// memory in a fixed order — deterministic, no atomics.
 //
 // Ordering hazard of the TPU version (a 128-block shared by two
 // neighbouring tiles was a read-modify-write on a sequential grid): here
 // the tiles of one launch have disjoint pair ranges, and a pair's
 // gradient is exactly zero in every tile but the one whose range holds
 // it (pair_valid masks it out). So each CTA stores only the columns of
-// its own range, plain stores and no atomics; no second pass is needed.
+// its own range, plain stores and no atomics; no second pass is needed,
+// and the result does not depend on the order the tiles run in.
 // Columns no tile swept (past kexit, or outside tile_ids) keep the zeros
 // the wrapper allocated.
 //
 // What bounds it: operations, as the forward. The function needs the
 // forward's per-pair values and ~82 more FLOP per accepted (pair, pixel)
 // for the vjp and the sum over pixels; this design also recomputes the
-// pair's geometry in pair_grad and runs 21 warp reductions per pair that
-// any pixel of a warp touched. chip_smoke.py computes the bound.
+// geometry of the pairs the cull keeps in the first pass and of the
+// touched pairs in the walk. chip_smoke.py computes the bound.
 //
 // K5 (raster_backward_restash_kernel) replaces pallas_backward.py::
 // raster_backward (kernel _kernel), the backward of the reference render
@@ -55,69 +69,92 @@
 using namespace gs;
 
 constexpr int WARPS = P / 32;
-constexpr int GROUP = 32;  // pairs reduced per shared-memory round
+// CTAs per SM the launch bounds ask for (the shared memory below allows
+// 3). At 3 the compiler caps a thread at 80 registers and spills a few
+// words; that measured faster than 2 CTAs at ~100 registers without spills.
+constexpr int MIN_BLOCKS = 3;
+
+// Shared memory of one CTA, in floats: the staged block, the pixels'
+// rings of records and the warp partials of one round.
+constexpr int SM_SA = ATTR_C * CHUNK;
+constexpr int SM_REC = 3 * REC_CAP * P;
+constexpr int SM_PART = WARPS * BWD_GROUP * GRAD_C;
+constexpr size_t SWEEP_SMEM = sizeof(float) * (SM_SA + SM_REC + SM_PART);
 
 // The reverse sweep of one CTA over blocks K-1 .. 0 of its tile (K2 and
 // K5): block k's incoming carry comes from stash row soff + k; c enters
 // as the cotangent of the tile's final pixel state.
 template <bool USE_SA, bool NN>
 __device__ __forceinline__ void reverse_sweep(
-    float* sa, const float* __restrict__ attrs, int R, const TileWalk& tw,
+    float* smem, const float* __restrict__ attrs, int R, const TileWalk& tw,
     int K, const float* stash, int soff, float px, float py,
     Cot c, float* __restrict__ d_attrs) {
-  __shared__ float part[WARPS][GROUP][GRAD_C];
-  // per-pixel, per-pair records of the block's forward recompute
-  // (per-thread local memory)
-  float cumx[CHUNK], pre1[CHUNK], pre2[CHUNK];
+  float* sa = smem;
+  float* rec = sa + SM_SA;
+  float* part = rec + SM_REC;  // [WARPS][BWD_GROUP][GRAD_C]
   const int p = threadIdx.x;
   const int lane = p & 31, warp = p >> 5;
   const int start = tw.start, stop = tw.stop;
   for (int k = K - 1; k >= 0; --k) {
-    const int64_t gstart = (int64_t)(tw.blk0 + k) * CHUNK;
+    const int gstart = (tw.blk0 + k) * CHUNK;
+    const float* srow = stash + ((int64_t)(soff + k) * STASH_C) * P + p;
     __syncthreads();
-    stage_block(sa, attrs, R, gstart);
-    PixState s = state_from_stash(
-        stash + ((int64_t)(soff + k) * STASH_C) * P + p, P);
+    stage_block<true>(sa, attrs, R, gstart);
+    const PixState s = state_from_stash(srow, P);
     const float T_in = s.T;
     const bool live = s.done < 0.5f;
     __syncthreads();
-    const BlockInfo bi = composite_block<USE_SA, NN, true>(
-        s, sa, (int)gstart, start, stop, px, py, cumx, pre1, pre2);
-
+    StepMask mask;
+    int n_rec;
+    const BlockInfo bi = block_info<USE_SA>(s, sa, gstart, start, stop, px,
+                                            py, p, rec, mask, n_rec);
+    // the ring holds records n_lo .. n_rec - 1 (per-thread columns: no
+    // barrier)
+    int n_lo = n_rec > REC_CAP ? n_rec - REC_CAP : 0;
     RevCarry rc = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
-    for (int grp = CHUNK / GROUP - 1; grp >= 0; --grp) {
+    for (int g = BWD_NGROUP - 1; g >= 0; --g) {
+      const int g0 = gstart + g * BWD_GROUP;
+      // a group outside the tile's range holds none of its pairs (the
+      // same for every thread of the CTA)
+      if (g0 >= stop || g0 + BWD_GROUP <= start) continue;
 #pragma unroll 1
-      for (int jj = GROUP - 1; jj >= 0; --jj) {
-        const int j = grp * GROUP + jj;
-        float gv[GRAD_C];
-        const bool okf = pair_grad<USE_SA, NN>(
-            sa, j, (int)gstart + j, start, stop, px, py, T_in, live, bi, c,
-            cumx, pre1, pre2, rc, gv);
-        // reduce over the warp's 32 pixels (skipped when none touched)
-        if (__any_sync(0xffffffffu, okf)) {
-#pragma unroll
-          for (int q = 0; q < GRAD_C; ++q) {
-            float v = gv[q];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v += __shfl_down_sync(0xffffffffu, v, off);
-            if (lane == 0) part[warp][jj][q] = v;
-          }
-        } else if (lane == 0) {
-#pragma unroll
-          for (int q = 0; q < GRAD_C; ++q) part[warp][jj][q] = 0.f;
+      for (int jj = BWD_GROUP - 1; jj >= 0; --jj) {
+        const int j = g * BWD_GROUP + jj;
+        const bool in_mask = mask_test(mask, j);
+        float* prow = part + (warp * BWD_GROUP + jj) * GRAD_C;
+        if (!__any_sync(0xffffffffu, in_mask)) {
+          if (lane < GRAD_C) prow[lane] = 0.f;
+          continue;
         }
+        float gv[GRAD_C];
+        if (in_mask) {
+          const int n = --n_rec;
+          if (n < n_lo) {
+            n_lo = n + 1 > REC_CAP ? n + 1 - REC_CAP : 0;
+            refill_records<USE_SA>(state_from_stash(srow, P), sa, gstart,
+                                   start, stop, px, py, p, mask, n_lo, n + 1,
+                                   rec);
+          }
+          pair_grad<USE_SA, NN>(sa, j, g0 + jj, start, stop, px, py, T_in,
+                                live, bi, c, get_rec(rec, n, p), rc, gv);
+        } else {
+#pragma unroll
+          for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
+        }
+        const float row = warp_reduce_scatter(gv, lane);
+        if (lane < GRAD_C) prow[lane] = row;
       }
       __syncthreads();
       // sum the 8 warp partials in a fixed order; store only the columns
       // of this tile's own range
-      for (int e = p; e < GROUP * GRAD_C; e += P) {
-        const int q = e / GROUP, jj = e % GROUP;
-        const int gi = (int)gstart + grp * GROUP + jj;
+      for (int e = p; e < BWD_GROUP * GRAD_C; e += P) {
+        const int q = e / BWD_GROUP, jj = e % BWD_GROUP;
+        const int gi = g0 + jj;
         float v = 0.f;
 #pragma unroll
-        for (int w8 = 0; w8 < WARPS; ++w8) v += part[w8][jj][q];
+        for (int w8 = 0; w8 < WARPS; ++w8)
+          v += part[(w8 * BWD_GROUP + jj) * GRAD_C + q];
         if (gi >= start && gi < stop) d_attrs[(int64_t)q * R + gi] = v;
       }
       __syncthreads();
@@ -127,22 +164,23 @@ __device__ __forceinline__ void reverse_sweep(
 }
 
 template <bool USE_SA, bool NN>
-__global__ void __launch_bounds__(P) raster_backward_kernel(
-    const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids,
-    const int* __restrict__ tstart, const int* __restrict__ tstop,
-    const int* __restrict__ soff, const int* __restrict__ kexit,
-    const float* __restrict__ stash, int stash_rows,
-    const float* __restrict__ dstate0, int tiles_x,
+__global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_kernel(
+    const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids, const int* __restrict__ tstart,
+    const int* __restrict__ tstop, const int* __restrict__ soff,
+    const int* __restrict__ kexit, const float* __restrict__ stash,
+    int stash_rows, const float* __restrict__ saved_out,
+    const float* __restrict__ d_out, int tiles_x,
     float* __restrict__ d_attrs) {
-  __shared__ float sa[ATTR_C * CHUNK];
+  extern __shared__ float smem[];
   const int i = blockIdx.x;
   const int p = threadIdx.x;
   const int t = tile_ids[i];
   // ranges clamped to the slab and blocks to the stash, as in K1
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
-  const Cot c = load_cot(dstate0 + (int64_t)i * OUT_C * P + p, P);
+  const int64_t row = (int64_t)i * OUT_C * P + p;
+  const Cot c = cot_from_out<USE_SA>(saved_out + row, d_out + row, P);
   reverse_sweep<USE_SA, NN>(
-      sa, attrs, R, tw, swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows),
+      smem, attrs, R, tw, swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows),
       stash, soff[i], pixel_x(t, tiles_x, p), pixel_y(t, tiles_x, p), c,
       d_attrs);
 }
@@ -151,13 +189,13 @@ __global__ void __launch_bounds__(P) raster_backward_kernel(
 // the global scratch `stash` at K1's layout, then the reverse sweep
 // (phase B) reads it back. Every tile of the grid, tile i = CTA i.
 template <bool USE_SA, bool NN>
-__global__ void __launch_bounds__(P) raster_backward_restash_kernel(
+__global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_restash_kernel(
     const float* __restrict__ attrs, int R, const int* __restrict__ tstart,
     const int* __restrict__ tstop, const int* __restrict__ soff,
-    float* stash, int stash_rows,
-    const float* __restrict__ dstate0, int tiles_x,
+    float* stash, int stash_rows, const float* __restrict__ saved_out,
+    const float* __restrict__ d_out, int tiles_x,
     float* __restrict__ d_attrs) {
-  __shared__ float sa[ATTR_C * CHUNK];
+  extern __shared__ float smem[];
   const int i = blockIdx.x;
   const int p = threadIdx.x;
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
@@ -168,57 +206,73 @@ __global__ void __launch_bounds__(P) raster_backward_restash_kernel(
   // program order suffices between the phases (no __restrict__ on the
   // scratch: it must not be read through the non-coherent cache)
   const int kex = forward_walk<true, USE_SA, NN>(
-      s, sa, attrs, R, tw, reforward_blocks(tw.nblk), px, py, stash, soff[i],
-      stash_rows);
-  const Cot c = load_cot(dstate0 + (int64_t)i * OUT_C * P + p, P);
+      s, smem, attrs, R, tw, reforward_blocks(tw.nblk), px, py, stash,
+      soff[i], stash_rows);
+  const int64_t row = (int64_t)i * OUT_C * P + p;
+  const Cot c = cot_from_out<USE_SA>(saved_out + row, d_out + row, P);
   reverse_sweep<USE_SA, NN>(
-      sa, attrs, R, tw, swept_blocks(kex, tw.nblk, soff[i], stash_rows),
+      smem, attrs, R, tw, swept_blocks(kex, tw.nblk, soff[i], stash_rows),
       stash, soff[i], px, py, c, d_attrs);
+}
+
+// Launch with the sweep's dynamic shared memory (above the 48 KB default,
+// so each instantiation opts in first); returns the first error.
+template <typename Kernel, typename... Args>
+static cudaError_t launch_sweep(Kernel kernel, int n, cudaStream_t stream,
+                                Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<n, P, SWEEP_SMEM, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 extern "C" int raster_backward(const float* attrs, int R, const int* tile_ids,
                                const int* tile_start, const int* tile_stop,
                                const int* soff, const int* kexit,
                                const float* stash, int stash_rows,
-                               const float* dstate0, int n_sub, int tiles_x,
-                               int use_sa, int need_normal, float* d_attrs,
+                               const float* saved_out, const float* d_out,
+                               int n_sub, int tiles_x, int use_sa,
+                               int need_normal, float* d_attrs,
                                cudaStream_t stream) {
-  if (n_sub > 0) {
-    dim3 grid(n_sub);
+  if (n_sub <= 0) return (int)cudaGetLastError();
+  cudaError_t err;
 #define GS_LAUNCH(SA, N)                                                    \
-  raster_backward_kernel<SA, N><<<grid, P, 0, stream>>>(                    \
-      attrs, R, tile_ids, tile_start, tile_stop, soff, kexit, stash,        \
-      stash_rows, dstate0, tiles_x, d_attrs)
-    if (use_sa) {
-      if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
-    } else {
-      if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
-    }
-#undef GS_LAUNCH
+  err = launch_sweep(raster_backward_kernel<SA, N>, n_sub, stream, attrs,   \
+                     R, tile_ids, tile_start, tile_stop, soff, kexit, stash, \
+                     stash_rows, saved_out, d_out, tiles_x, d_attrs)
+  if (use_sa) {
+    if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+  } else {
+    if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
   }
-  return (int)cudaGetLastError();
+#undef GS_LAUNCH
+  return (int)err;
 }
 
 extern "C" int raster_backward_restash(const float* attrs, int R,
                                        const int* tile_start,
                                        const int* tile_stop, const int* soff,
                                        float* stash, int stash_rows,
-                                       const float* dstate0, int n_tiles,
+                                       const float* saved_out,
+                                       const float* d_out, int n_tiles,
                                        int tiles_x, int use_sa,
                                        int need_normal, float* d_attrs,
                                        cudaStream_t stream) {
-  if (n_tiles > 0) {
-    dim3 grid(n_tiles);
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  cudaError_t err;
 #define GS_LAUNCH(SA, N)                                                    \
-  raster_backward_restash_kernel<SA, N><<<grid, P, 0, stream>>>(            \
-      attrs, R, tile_start, tile_stop, soff, stash, stash_rows, dstate0,    \
-      tiles_x, d_attrs)
-    if (use_sa) {
-      if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
-    } else {
-      if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
-    }
-#undef GS_LAUNCH
+  err = launch_sweep(raster_backward_restash_kernel<SA, N>, n_tiles,        \
+                     stream, attrs, R, tile_start, tile_stop, soff, stash,  \
+                     stash_rows, saved_out, d_out, tiles_x, d_attrs)
+  if (use_sa) {
+    if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+  } else {
+    if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
   }
-  return (int)cudaGetLastError();
+#undef GS_LAUNCH
+  return (int)err;
 }
+
+// The sweep's dynamic shared memory per CTA, for the build report.
+extern "C" int sweep_smem_bytes() { return (int)SWEEP_SMEM; }

@@ -17,9 +17,12 @@
 // T_pref is computed as T_in * exp(running sum of log1p(-a)), as the JAX
 // kernel does, never by dividing by (1 - a).
 //
-// The library is compiled with -fmad=false: the backward kernel reruns
-// composite_block from the stashed carry and must reproduce the forward
-// kernel's values (and so its accept/terminate decisions) bit for bit.
+// The library is compiled with -fmad=false: the backward kernel re-walks
+// each block from the stashed carry through the same pair_step and must
+// reproduce the forward kernel's values (and so its accept/terminate
+// decisions) bit for bit. The backward's own vjp arithmetic (pair_grad,
+// carry_cotangent) needs no such match and fuses its multiply-adds with
+// explicit fmaf, which -fmad=false leaves alone.
 //
 // Everything above stage_block also compiles as plain C++ (GS_FN is
 // `inline` there): csrc/pixel_math_host.cpp runs the same per-pixel math,
@@ -126,6 +129,35 @@ GS_FN float dist_m(float d_raw) {
   return M_SCALE * (1.f - NEAR_N / fmaxf(d_raw, (float)1e-6));
 }
 
+// The backward stages, in the slab's first pad row, each pair's cull
+// radius: the rho beyond which op * exp(-rho / 2) < ALPHA_MIN, widened
+// by a relative and an absolute 2^-10, far above float rounding; -1 for
+// a pair that no pixel can accept (op < ALPHA_MIN; exp(-rho / 2) <= 1).
+constexpr int RHO_ROW = GRAD_C;
+
+GS_FN float rho_cull(float op) {
+  const float m = 1.f / 1024.f;
+  return op < ALPHA_MIN ? -1.f : 2.f * logf(op / ALPHA_MIN) * (1.f + m) + m;
+}
+
+// Whether pair j surely fails pixel (px, py)'s alpha test: both of its
+// squared distances exceed the cull radius. The 3D one is compared as
+// p_x^2 + p_y^2 > lim * p_z^2, without the division; NaN compares false,
+// so a pair with NaN in it is never culled. A culled pair has okf false;
+// it leaves Run as it was (SA's prefixes add 0 * d_raw, which is 0
+// whenever the pair's geometry is finite), so the backward's first pass
+// skips its geometry altogether.
+GS_FN bool pair_culled(const float* sa, int j, float px, float py) {
+  const float lim = A(sa, RHO_ROW, j);
+  const float dx = A(sa, 12, j) - px;
+  const float dy = A(sa, 13, j) - py;
+  if (!(FILTER_INV_SQUARE * (dx * dx + dy * dy) > lim)) return false;
+  const float p_x = px * A(sa, 0, j) + py * A(sa, 3, j) + A(sa, 6, j);
+  const float p_y = px * A(sa, 1, j) + py * A(sa, 4, j) + A(sa, 7, j);
+  const float p_z = px * A(sa, 2, j) + py * A(sa, 5, j) + A(sa, 8, j);
+  return p_x * p_x + p_y * p_y > lim * (p_z * p_z);
+}
+
 // What the backward needs from a block's forward recompute.
 struct BlockInfo {
   float E;       // exp(sum of log1p(-a) over accepted pairs)
@@ -134,53 +166,84 @@ struct BlockInfo {
   int med_j;     // block-local index of the median pair, -1 if none
 };
 
-// Composite one block for one pixel, updating `s` as composite_chunk
-// does. STORE records, per pair, the exclusive log-sum (cumx) and the
-// exclusive statistics the backward needs (SA: D and D2 prefixes;
-// non-SA: M1 and M2 prefixes).
-template <bool USE_SA, bool NN, bool STORE>
-GS_FN BlockInfo composite_block(
-    PixState& s, const float* sa, int gstart, int start, int stop,
-    float px, float py, float* cumx, float* pre1, float* pre2) {
+// The running values of a block's walk for one pixel, exclusive of the
+// next pair: the log-sum of (1 - a) over the block so far (cum) and the
+// statistics prefixes (SA: D and D2; without SA: M1 and M2).
+struct Run {
+  float cum, p1, p2;
+};
+
+template <bool USE_SA>
+GS_FN Run run_init(const PixState& s) {
+  Run r;
+  r.cum = 0.f;
+  r.p1 = USE_SA ? s.D : s.M1;
+  r.p2 = USE_SA ? s.D2 : s.M2;
+  return r;
+}
+
+// One pair of a block's walk for one pixel: its geometry, accept decision
+// and weight, with `run` advanced past it. composite_block and the
+// backward's passes all step through here, so they agree bit for bit.
+struct Step {
+  Geom g;
+  bool okf, below, af;
+  float l, T_pref, w;
+};
+
+template <bool USE_SA>
+GS_FN Step pair_step(const float* sa, int j, int gi, int start, int stop,
+                     float px, float py, float T_in, bool live, Run& run) {
+  Step st;
+  pair_geom(sa, j, px, py, st.g);
+  st.okf = pair_ok(st.g, gi >= start && gi < stop, live);
+  const float a_eff = st.okf ? st.g.a_cl : 0.f;
+  st.l = log1pf(-a_eff);
+  st.T_pref = T_in * expf(run.cum);
+  run.cum = run.cum + st.l;
+  st.below = st.T_pref * (1.f - a_eff) < T_EPS;
+  st.af = st.okf && !st.below;
+  st.w = st.af ? st.g.a_cl * st.T_pref : 0.f;
+  if (USE_SA) {
+    const float wd = st.w * st.g.d_raw;
+    run.p1 = run.p1 + wd;
+    run.p2 = run.p2 + wd * st.g.d_raw;
+  } else if (st.af) {
+    const float m = dist_m(st.g.d_raw);
+    const float mw = m * st.w;
+    run.p1 = run.p1 + mw;
+    run.p2 = run.p2 + m * mw;
+  }
+  return st;
+}
+
+// Composite one block for one pixel, updating `s` as composite_chunk does.
+template <bool USE_SA, bool NN>
+GS_FN BlockInfo composite_block(PixState& s, const float* sa, int gstart,
+                                int start, int stop, float px, float py) {
   const float T_in = s.T;
   const bool live = s.done < 0.5f;
   const int idx_base = gstart - start + 1;
-  float cum = 0.f, lsum = 0.f;
+  Run run = run_init<USE_SA>(s);
+  float lsum = 0.f;
   float med_idx = 0.f, mm_new = 0.f, nc_blk = 0.f;
   int med_j = -1;
   bool trig = false;
   float racc = 0.f, gacc = 0.f, bacc = 0.f;
   float nxacc = 0.f, nyacc = 0.f, nzacc = 0.f;
   float Dacc = 0.f, D2acc = 0.f;
-  float M1p = s.M1, M2p = s.M2, dist_add = 0.f, m1_add = 0.f, m2_add = 0.f;
-  float dp = s.D, d2p = s.D2;
+  float dist_add = 0.f, m1_add = 0.f, m2_add = 0.f;
 #pragma unroll 1
   for (int j = 0; j < CHUNK; ++j) {
-    const int gi = gstart + j;
-    Geom g;
-    pair_geom(sa, j, px, py, g);
-    const bool okf = pair_ok(g, gi >= start && gi < stop, live);
-    const float a_eff = okf ? g.a_cl : 0.f;
-    const float l = log1pf(-a_eff);
-    const float T_pref = T_in * expf(cum);
-    if (STORE) cumx[j] = cum;
-    cum = cum + l;
-    const bool below = T_pref * (1.f - a_eff) < T_EPS;
-    const bool af = okf && !below;
-    trig = trig || (okf && below);
-    const float w = af ? g.a_cl * T_pref : 0.f;
-    if (USE_SA) {
-      if (STORE) { pre1[j] = dp; pre2[j] = d2p; }
-      const float wd = w * g.d_raw;
-      dp = dp + wd;
-      d2p = d2p + wd * g.d_raw;
-    } else {
-      if (STORE) { pre1[j] = M1p; pre2[j] = M2p; }
-    }
-    if (!af) continue;
-    lsum = lsum + l;
+    const Run pre = run;
+    const Step st = pair_step<USE_SA>(sa, j, gstart + j, start, stop, px, py,
+                                      T_in, live, run);
+    trig = trig || (st.okf && st.below);
+    if (!st.af) continue;
+    const float w = st.w, d = st.g.d_raw;
+    lsum = lsum + st.l;
     const float gidx = (float)(idx_base + j);
-    if (T_pref > 0.5f) { med_idx = gidx; mm_new = g.d_raw; med_j = j; }
+    if (st.T_pref > 0.5f) { med_idx = gidx; mm_new = d; med_j = j; }
     nc_blk = gidx;
     racc = racc + A(sa, 18, j) * w;
     gacc = gacc + A(sa, 19, j) * w;
@@ -191,16 +254,15 @@ GS_FN BlockInfo composite_block(
       nzacc = nzacc + A(sa, 16, j) * w;
     }
     if (!USE_SA) {
-      const float m = dist_m(g.d_raw);
+      // pre.p1, pre.p2: the exclusive M1, M2 prefixes
+      const float m = dist_m(d);
       const float mw = m * w;
-      const float m2w = m * mw;
-      dist_add = dist_add + (m * m * (1.f - T_pref) + M2p - 2.f * m * M1p) * w;
-      M1p = M1p + mw;
-      M2p = M2p + m2w;
+      dist_add = dist_add +
+                 (m * m * (1.f - st.T_pref) + pre.p2 - 2.f * m * pre.p1) * w;
       m1_add = m1_add + mw;
-      m2_add = m2_add + m2w;
-      Dacc = Dacc + g.d_raw * w;
-      D2acc = D2acc + g.d_raw * g.d_raw * w;
+      m2_add = m2_add + m * mw;
+      Dacc = Dacc + d * w;
+      D2acc = D2acc + d * d * w;
     }
   }
   BlockInfo bi;
@@ -209,33 +271,21 @@ GS_FN BlockInfo composite_block(
   bi.mm_out = med_idx > 0.f ? mm_new : s.mm;
   bi.med_j = med_idx > 0.f ? med_j : -1;
 
-  if (USE_SA && !STORE) {
+  if (USE_SA) {
     // second pass: the fusion weights need the block's final median
     const float mt = bi.mm_out;
-    cum = 0.f;
-    dp = s.D;
-    d2p = s.D2;
+    Run run2 = run_init<true>(s);
 #pragma unroll 1
     for (int j = 0; j < CHUNK; ++j) {
-      const int gi = gstart + j;
-      Geom g;
-      pair_geom(sa, j, px, py, g);
-      const bool okf = pair_ok(g, gi >= start && gi < stop, live);
-      const float a_eff = okf ? g.a_cl : 0.f;
-      const float l = log1pf(-a_eff);
-      const float T_pref = T_in * expf(cum);
-      cum = cum + l;
-      const bool af = okf && !(T_pref * (1.f - a_eff) < T_EPS);
-      const float w = af ? g.a_cl * T_pref : 0.f;
-      if (af) {
-        const float conf = sa_conf(T_pref, dp, d2p, mt, g.d_raw);
-        const float df = conf * g.d_raw + (1.f - conf) * mt;
-        Dacc = Dacc + df * w;
-        D2acc = D2acc + df * df * w;
+      const Run pre = run2;
+      const Step st = pair_step<true>(sa, j, gstart + j, start, stop, px, py,
+                                      T_in, live, run2);
+      if (st.af) {
+        const float conf = sa_conf(st.T_pref, pre.p1, pre.p2, mt, st.g.d_raw);
+        const float df = conf * st.g.d_raw + (1.f - conf) * mt;
+        Dacc = Dacc + df * st.w;
+        D2acc = D2acc + df * df * st.w;
       }
-      const float wd = w * g.d_raw;
-      dp = dp + wd;
-      d2p = d2p + wd * g.d_raw;
     }
   }
 
@@ -271,63 +321,192 @@ struct RevCarry {
   float U;     // sum over later pairs of dL/dT_pref * T_pref
   float S_w;   // sum over later accepted pairs of w
   float S_wm;  // sum over later accepted pairs of w * m
-  float gTin;  // sum over visited pairs of dL/dT_pref * exp(cumx)
+  float gTin;  // sum over visited pairs of dL/dT_pref * exp(cum)
 };
 
+// The reverse sweep sums a pair's gradient over the CTA's warps in rounds
+// of BWD_GROUP pairs (one barrier pair a round).
+constexpr int BWD_GROUP = 16;
+constexpr int BWD_NGROUP = CHUNK / BWD_GROUP;
+
+// A pixel's records: the Run before each pair in its step mask, in pair
+// order, the n-th in slot n % REC_CAP of a ring of [3][REC_CAP][P] floats
+// (column = pixel: a thread reads back only its own column, and a warp's
+// accesses hit 32 banks). The first pass leaves the last REC_CAP of them
+// in the ring; the reverse walk consumes them last first and re-runs the
+// block from its start for the earlier ones (a pixel that more than
+// REC_CAP pairs of one block touch). The CPU tests build the host math
+// with a smaller ring (-DGS_REC_CAP) to drive that re-run.
+#ifndef GS_REC_CAP
+#define GS_REC_CAP 16
+#endif
+constexpr int REC_CAP = GS_REC_CAP;
+
+GS_FN void put_rec(float* rec, int n, int p, const Run& r) {
+  const int slot = n % REC_CAP;
+  rec[(0 * REC_CAP + slot) * P + p] = r.cum;
+  rec[(1 * REC_CAP + slot) * P + p] = r.p1;
+  rec[(2 * REC_CAP + slot) * P + p] = r.p2;
+}
+
+GS_FN Run get_rec(const float* rec, int n, int p) {
+  const int slot = n % REC_CAP;
+  Run r;
+  r.cum = rec[(0 * REC_CAP + slot) * P + p];
+  r.p1 = rec[(1 * REC_CAP + slot) * P + p];
+  r.p2 = rec[(2 * REC_CAP + slot) * P + p];
+  return r;
+}
+
+// A pixel's step mask over the block's 128 pairs: bit j is set where pair
+// j touched the pixel (okf) or moved its prefixes (NaN included). A pair
+// outside the mask leaves Run as it was and gets exactly zero gradient,
+// so the reverse walk and the re-run skip it. Four words, read through
+// selects so that they stay in registers.
+struct StepMask {
+  unsigned w0, w1, w2, w3;
+};
+
+GS_FN bool mask_test(const StepMask& m, int j) {
+  const unsigned w = j < 64 ? (j < 32 ? m.w0 : m.w1) : (j < 96 ? m.w2 : m.w3);
+  return ((w >> (j & 31)) & 1u) != 0u;
+}
+
+GS_FN void mask_set(StepMask& m, int j) {
+  const unsigned b = 1u << (j & 31);
+  if (j < 32) m.w0 |= b;
+  else if (j < 64) m.w1 |= b;
+  else if (j < 96) m.w2 |= b;
+  else m.w3 |= b;
+}
+
+// The backward's first pass over a block for pixel p: the block's walk
+// without its sums (BlockInfo, as composite_block computes it), the step
+// mask, the number of pairs in it (n_rec) and their records in the ring.
+// A pair outside the tile's range, or culled for the pixel, is skipped:
+// neither touches the pixel nor moves its Run. `sa` holds the cull radii
+// (stage_block<true>).
+template <bool USE_SA>
+GS_FN BlockInfo block_info(const PixState& s, const float* sa, int gstart,
+                           int start, int stop, float px, float py, int p,
+                           float* rec, StepMask& mask, int& n_rec) {
+  const float T_in = s.T;
+  const bool live = s.done < 0.5f;
+  const int idx_base = gstart - start + 1;
+  Run run = run_init<USE_SA>(s);
+  float lsum = 0.f, med_idx = 0.f, mm_new = 0.f;
+  int med_j = -1, n = 0;
+  mask.w0 = mask.w1 = mask.w2 = mask.w3 = 0u;
+#pragma unroll 1
+  for (int j = 0; j < CHUNK; ++j) {
+    const int gi = gstart + j;
+    if (gi < start || gi >= stop || pair_culled(sa, j, px, py)) continue;
+    const Run pre = run;
+    const Step st = pair_step<USE_SA>(sa, j, gi, start, stop, px, py, T_in,
+                                      live, run);
+    if (st.okf || run.p1 != pre.p1 || run.p2 != pre.p2) {
+      mask_set(mask, j);
+      put_rec(rec, n++, p, pre);
+    }
+    if (!st.af) continue;
+    lsum = lsum + st.l;
+    if (st.T_pref > 0.5f) {
+      med_idx = (float)(idx_base + j);
+      mm_new = st.g.d_raw;
+      med_j = j;
+    }
+  }
+  n_rec = n;
+  BlockInfo bi;
+  bi.E = expf(lsum);
+  bi.T_out = T_in * bi.E;
+  bi.mm_out = med_idx > 0.f ? mm_new : s.mm;
+  bi.med_j = med_idx > 0.f ? med_j : -1;
+  return bi;
+}
+
+// The records n in [lo, hi) of pixel p back into the ring: the block
+// re-run from its start (the stashed carry s) over the pairs of the step
+// mask only. The pairs it skips leave Run as it was, so the records
+// equal the first pass's values bit for bit (up to a zero's sign).
+template <bool USE_SA>
+GS_FN void refill_records(const PixState& s, const float* sa, int gstart,
+                          int start, int stop, float px, float py, int p,
+                          const StepMask& mask, int lo, int hi, float* rec) {
+  const float T_in = s.T;
+  const bool live = s.done < 0.5f;
+  Run run = run_init<USE_SA>(s);
+  int n = 0;
+#pragma unroll 1
+  for (int j = 0; j < CHUNK && n < hi; ++j) {
+    if (!mask_test(mask, j)) continue;
+    if (n >= lo) put_rec(rec, n, p, run);
+    pair_step<USE_SA>(sa, j, gstart + j, start, stop, px, py, T_in, live, run);
+    ++n;
+  }
+}
+
 // Hand-derived vjp of composite_block for pair j of one pixel, visited
-// in reverse pair order. T_in / live are the block's incoming state,
-// cumx / pre1 / pre2 / bi the records of its forward recompute. Writes
-// the pixel's contribution to the 21 attribute gradients into gv and
-// returns whether the pair touched the pixel at all (okf); a pair that
-// did not contributes exactly zero.
+// in reverse pair order. T_in / live are the block's incoming state, r
+// the pair's record (the Run before it) and bi the block's forward
+// recompute. Writes the pixel's contribution to the 21 attribute
+// gradients into gv and returns whether the pair touched the pixel at all
+// (okf); a pair that did not contributes exactly zero. The geometry and
+// the accept decision repeat the forward's roundings; the vjp arithmetic
+// itself rounds once per fused multiply-add (fmaf), which the library's
+// -fmad=false leaves alone.
 template <bool USE_SA, bool NN>
 GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
                      float px, float py, float T_in, bool live,
-                     const BlockInfo& bi, const Cot& c, const float* cumx,
-                     const float* pre1, const float* pre2, RevCarry& rc,
-                     float* gv) {
+                     const BlockInfo& bi, const Cot& c, const Run& r,
+                     RevCarry& rc, float* gv) {
   for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
   Geom g;
   pair_geom(sa, j, px, py, g);
   if (!pair_ok(g, gi >= start && gi < stop, live)) return false;
   const float a_eff = g.a_cl;
-  const float e = expf(cumx[j]);
+  const float e = expf(r.cum);
   const float T_pref = T_in * e;
   const bool af = !(T_pref * (1.f - a_eff) < T_EPS);
   const float w = af ? g.a_cl * T_pref : 0.f;
   float g_acl = 0.f, g_draw = 0.f, g_Tpref = 0.f;
   if (af) {
     // w = a_cl * T_pref feeds colors, normals, D, D2 (and M1, M2, dist)
-    float g_w = c.r * A(sa, 18, j) + c.g * A(sa, 19, j) + c.b * A(sa, 20, j);
-    if (NN) g_w += c.nx * A(sa, 14, j) + c.ny * A(sa, 15, j) + c.nz * A(sa, 16, j);
+    float g_w = fmaf(c.b, A(sa, 20, j),
+                     fmaf(c.g, A(sa, 19, j), c.r * A(sa, 18, j)));
+    if (NN)
+      g_w = fmaf(c.nz, A(sa, 16, j),
+                 fmaf(c.ny, A(sa, 15, j), fmaf(c.nx, A(sa, 14, j), g_w)));
     if (USE_SA) {
       // d_fused = conf*d_raw + (1-conf)*mm_tgt, conf and mm_tgt detached
-      const float conf = sa_conf(T_pref, pre1[j], pre2[j], bi.mm_out, g.d_raw);
-      const float df = conf * g.d_raw + (1.f - conf) * bi.mm_out;
-      g_w += c.D * df + c.D2 * (df * df);
-      g_draw += conf * (c.D * w + 2.f * c.D2 * df * w);
+      const float conf = sa_conf(T_pref, r.p1, r.p2, bi.mm_out, g.d_raw);
+      const float df = fmaf(conf, g.d_raw, (1.f - conf) * bi.mm_out);
+      g_w = fmaf(c.D2, df * df, fmaf(c.D, df, g_w));
+      g_draw = conf * (w * fmaf(2.f * c.D2, df, c.D));
     } else {
       const float d = g.d_raw;
-      g_w += c.D * d + c.D2 * (d * d);
-      g_draw += c.D * w + 2.f * c.D2 * d * w;
+      g_w = fmaf(c.D2, d * d, fmaf(c.D, d, g_w));
+      g_draw = w * fmaf(2.f * c.D2, d, c.D);
       // dist = sum_i (m_i^2 A_i + M2p_i - 2 m_i M1p_i) w_i with the
-      // exclusive prefixes M1p, M2p and A_i = 1 - T_pref_i (all live)
+      // exclusive prefixes M1p, M2p (the record) and A_i = 1 - T_pref_i
       const float m = dist_m(d);
+      const float m2 = m * m;
       const float Ap = 1.f - T_pref;
-      const float M1p = pre1[j], M2p = pre2[j];
-      g_w += c.M1 * m + c.M2 * (m * m)
-             + c.dist * (m * m * Ap + M2p - 2.f * m * M1p)
-             + c.dist * (m * m * rc.S_w - 2.f * m * rc.S_wm);
-      const float g_m = w * (c.M1 + 2.f * m * c.M2
-                             + 2.f * c.dist * (m * Ap - M1p + m * rc.S_w - rc.S_wm));
-      g_Tpref -= c.dist * m * m * w;
-      if (d > (float)1e-6) g_draw += g_m * M_SCALE * NEAR_N / (d * d);
+      const float own = fmaf(m2, Ap, fmaf(-2.f * m, r.p1, r.p2));
+      const float later = fmaf(m2, rc.S_w, -2.f * m * rc.S_wm);
+      g_w = fmaf(c.dist, own + later, fmaf(c.M2, m2, fmaf(c.M1, m, g_w)));
+      const float g_m =
+          w * fmaf(2.f * c.dist, fmaf(m, Ap + rc.S_w, -r.p1) - rc.S_wm,
+                   fmaf(2.f * m, c.M2, c.M1));
+      g_Tpref = -(c.dist * m2 * w);
+      if (d > (float)1e-6)
+        g_draw = fmaf(g_m, (M_SCALE * NEAR_N) / (d * d), g_draw);
       rc.S_w += w;
-      rc.S_wm += w * m;
+      rc.S_wm = fmaf(w, m, rc.S_wm);
     }
     // the middepth output is the raw depth of the median pair (live)
     if (j == bi.med_j) g_draw += c.mm;
-    g_Tpref += g_w * g.a_cl;
+    g_Tpref = fmaf(g_w, g.a_cl, g_Tpref);
     g_acl = g_w * T_pref;
     gv[18] = w * c.r;
     gv[19] = w * c.g;
@@ -336,16 +515,15 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   }
   // l = log1p(-a_eff) feeds every later pair's T_pref and, if this pair
   // was accepted, T_out = T_in * exp(sum of accepted l)
-  const float g_l = rc.U + (af ? c.T * bi.T_out : 0.f);
-  g_acl += -g_l / (1.f - a_eff);
-  rc.U += g_Tpref * T_pref;
-  rc.gTin += g_Tpref * e;
+  const float g_l = af ? fmaf(c.T, bi.T_out, rc.U) : rc.U;
+  g_acl -= g_l / (1.f - a_eff);
+  rc.U = fmaf(g_Tpref, T_pref, rc.U);
+  rc.gTin = fmaf(g_Tpref, e, rc.gTin);
 
   // alpha_raw = op * exp(-rho / 2), rho = min(rho3d, rho2d); the clamp
   // to ALPHA_MAX passes its gradient through, ties split it evenly
-  const float g_ar = g_acl;
-  gv[17] = g_ar * g.gauss;
-  const float g_rho = (g_ar * A(sa, 17, j)) * g.gauss * -0.5f;
+  gv[17] = g_acl * g.gauss;
+  const float g_rho = (g_acl * A(sa, 17, j)) * (g.gauss * -0.5f);
   float g3, g2;
   if (g.rho3d < g.rho2d) { g3 = g_rho; g2 = 0.f; }
   else if (g.rho2d < g.rho3d) { g3 = 0.f; g2 = g_rho; }
@@ -354,20 +532,20 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   float g_sy = 2.f * g.sy * g3;
   // d_raw = rho3d <= rho2d ? sx*twx + sy*twy + twz : twz
   if (g.use3d) {
-    g_sx += A(sa, 9, j) * g_draw;
-    g_sy += A(sa, 10, j) * g_draw;
+    g_sx = fmaf(A(sa, 9, j), g_draw, g_sx);
+    g_sy = fmaf(A(sa, 10, j), g_draw, g_sy);
     gv[9] = g.sx * g_draw;
     gv[10] = g.sy * g_draw;
   }
   gv[11] = g_draw;
   // rho2d = 100 * ((cx - px)^2 + (cy - py)^2)
-  gv[12] = FILTER_INV_SQUARE * 2.f * g.dx * g2;
-  gv[13] = FILTER_INV_SQUARE * 2.f * g.dy * g2;
+  gv[12] = (FILTER_INV_SQUARE * 2.f) * g.dx * g2;
+  gv[13] = (FILTER_INV_SQUARE * 2.f) * g.dy * g2;
   // (sx, sy) = (p_x, p_y) / p_z, p = px*a0 + py*a1 + a2
   const float g_px = g.inv_pz * g_sx;
   const float g_py = g.inv_pz * g_sy;
-  const float g_inv = g.p_x * g_sx + g.p_y * g_sy;
-  const float g_pz = g.pz_ok ? -g_inv * g.inv_pz * g.inv_pz : 0.f;
+  const float g_inv = fmaf(g.p_x, g_sx, g.p_y * g_sy);
+  const float g_pz = g.pz_ok ? -g_inv * (g.inv_pz * g.inv_pz) : 0.f;
   gv[0] = px * g_px; gv[1] = px * g_py; gv[2] = px * g_pz;
   gv[3] = py * g_px; gv[4] = py * g_py; gv[5] = py * g_pz;
   gv[6] = g_px; gv[7] = g_py; gv[8] = g_pz;
@@ -378,25 +556,61 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
 // carry for the previous block.
 template <bool USE_SA, bool NN>
 GS_FN void carry_cotangent(Cot& c, const BlockInfo& bi, const RevCarry& rc) {
-  c.T = c.T * bi.E + rc.gTin;
+  c.T = fmaf(c.T, bi.E, rc.gTin);
   if (!USE_SA) {
-    c.M1 = c.M1 - 2.f * c.dist * rc.S_wm;
-    c.M2 = c.M2 + c.dist * rc.S_w;
+    c.M1 = fmaf(-2.f * c.dist, rc.S_wm, c.M1);
+    c.M2 = fmaf(c.dist, rc.S_w, c.M2);
   }
   if (bi.med_j >= 0) c.mm = 0.f;
   if (!NN) { c.nx = 0.f; c.ny = 0.f; c.nz = 0.f; }
 }
 
-// Cotangent from the [OUT_C, P] rows of finalize_cotangents.
-GS_FN Cot load_cot(const float* d0, int stride) {
+// The cotangent of a pixel's final state from the forward's output rows
+// (`out`, stride apart; row 8 is the median) and the loss cotangent of
+// those rows (`dout`): the closed-form vjp of compositing.finalize with
+// background 0, as ops/raster_backward.py::finalize_cotangents forms it.
+// With SA, dist = D2 - 2 mm D + mm^2 (1 - T) with mm detached; without,
+// the accumulated distortion.
+template <bool USE_SA>
+GS_FN Cot cot_from_out(const float* out, const float* dout, int stride) {
   Cot c;
-  c.T = d0[0 * stride];
-  c.r = d0[2 * stride]; c.g = d0[3 * stride]; c.b = d0[4 * stride];
-  c.nx = d0[5 * stride]; c.ny = d0[6 * stride]; c.nz = d0[7 * stride];
-  c.D = d0[8 * stride]; c.D2 = d0[9 * stride];
-  c.M1 = d0[10 * stride]; c.M2 = d0[11 * stride]; c.dist = d0[12 * stride];
-  c.mm = d0[13 * stride];
+  const float mm = out[8 * stride];
+  const float dD = dout[3 * stride], dA = dout[4 * stride];
+  const float ddist = dout[9 * stride];
+  c.r = dout[0 * stride]; c.g = dout[1 * stride]; c.b = dout[2 * stride];
+  c.nx = dout[5 * stride]; c.ny = dout[6 * stride]; c.nz = dout[7 * stride];
+  c.mm = dout[8 * stride];
+  c.M1 = 0.f;
+  c.M2 = 0.f;
+  if (USE_SA) {
+    c.D = dD - 2.f * mm * ddist;
+    c.D2 = ddist;
+    c.dist = 0.f;
+    c.T = -dA - mm * mm * ddist;
+  } else {
+    c.D = dD;
+    c.D2 = 0.f;
+    c.dist = ddist;
+    c.T = -dA;
+  }
   return c;
+}
+
+// Warp reduce-scatter of a pair's gradient rows, padded to RS_SLOTS, by
+// recursive halving: at the step of width h (16, 8, 4, 2, 1) a lane holds
+// slots [0, 2h), keeps the half its lane bit h selects (rs_keep) and
+// sends the other half (rs_send) to lane ^ h, which adds it to its own
+// kept half in slot i. After the five steps (31 exchanges) lane l holds
+// the warp's sum of row l. The kernel and csrc/pixel_math_host.cpp's 32
+// simulated lanes both take the halves through these two helpers.
+constexpr int RS_SLOTS = 32;
+
+GS_FN float rs_keep(const float* v, int lane, int h, int i) {
+  return (lane & h) ? v[i + h] : v[i];
+}
+
+GS_FN float rs_send(const float* v, int lane, int h, int i) {
+  return (lane & h) ? v[i] : v[i + h];
 }
 
 // PixState holding a block's incoming carry from its stash row.
@@ -476,11 +690,15 @@ GS_FN float pixel_y(int t, int tiles_x, int p) {
 
 #if defined(__CUDACC__)
 // Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j].
+// With RHO, row RHO_ROW (padding in the slab) gets each pair's cull
+// radius instead.
+template <bool RHO = false>
 __device__ __forceinline__ void stage_block(float* sa, const float* attrs,
                                             int64_t R, int64_t gstart) {
   for (int e = threadIdx.x; e < ATTR_C * CHUNK; e += blockDim.x) {
     const int c = e / CHUNK, j = e % CHUNK;
-    sa[e] = attrs[c * R + gstart + j];
+    sa[e] = RHO && c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
+                                : attrs[c * R + gstart + j];
   }
 }
 
@@ -506,10 +724,38 @@ __device__ __forceinline__ int forward_walk(
       store_stash(stash + ((int64_t)(soff + k) * STASH_C) * P + p, P, s);
     stage_block(sa, attrs, R, gstart);
     __syncthreads();
-    composite_block<USE_SA, NN, false>(s, sa, (int)gstart, tw.start, tw.stop,
-                                       px, py, nullptr, nullptr, nullptr);
+    composite_block<USE_SA, NN>(s, sa, (int)gstart, tw.start, tw.stop, px,
+                                py);
   }
   return k;
+}
+
+// One halving step of width H (a template, so every slot index is a
+// constant and v stays in registers). Slots i and i + H are read before
+// slot i is written; later i read only slots above i.
+template <int H>
+__device__ __forceinline__ void rs_step(float* v, int lane) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = rs_send(v, lane, H, i);
+    v[i] = rs_keep(v, lane, H, i) + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// The warp's sums of gv[q] over its 32 lanes, reduce-scattered: lane q
+// returns the sum of row q (q < GRAD_C; the other lanes return 0).
+__device__ __forceinline__ float warp_reduce_scatter(const float* gv,
+                                                     int lane) {
+  static_assert(RS_SLOTS == 32 && GRAD_C <= RS_SLOTS, "one slot per lane");
+  float v[RS_SLOTS];
+#pragma unroll
+  for (int q = 0; q < RS_SLOTS; ++q) v[q] = q < GRAD_C ? gv[q] : 0.f;
+  rs_step<16>(v, lane);
+  rs_step<8>(v, lane);
+  rs_step<4>(v, lane);
+  rs_step<2>(v, lane);
+  rs_step<1>(v, lane);
+  return v[0];
 }
 #endif
 

@@ -64,31 +64,34 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one nvcc per source, all started
-    together. Returns {name: (library path, ptxas report)}."""
+    together. Returns {name: (library path, ptxas report)}; a library
+    built before reports from the log kept beside it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    reports = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports = {}
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {n: (_lib_path(n), reports.get(n, "")) for n in names}
+    return {n: (_lib_path(n), reports[n]) for n in names}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -9,7 +9,7 @@ produces the depth-ordered per-tile lists under a static pair budget
 
 The gradient reduction (``Binning.slab_scatter_grads`` /
 ``phase_reduce``) lands its per-gaussian run totals through the
-``monotone_row_gather`` kernel (K4, ops/gather.py) on the card under the
+``monotone_row_gather_rows`` kernel (K4, ops/gather.py) on the card under the
 "pallas" / "interpret" render backends, and through the plain gather
 otherwise (the JAX package's routing).
 """
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .gather import monotone_row_gather, monotone_row_gather_plain
+from .gather import monotone_row_gather_rows, monotone_row_gather_rows_plain
 
 SENTINEL = 0x7FFFFFFF
 
@@ -75,14 +75,14 @@ def _segmented_scan(acc: torch.Tensor, keys: torch.Tensor,
     return acc
 
 
-def _land(acc: torch.Tensor, pos: torch.Tensor, d_max: int,
+def _land(acc: torch.Tensor, pos: torch.Tensor,
           backend: str | None) -> torch.Tensor:
-    """Run totals at positions ``pos`` (monotone, steps <= d_max):
-    [R, C] -> [N, C] through the K4 gather ([C, R] -> [C, N] layout) for
-    the "pallas" / "interpret" backends, the plain gather otherwise."""
+    """Run totals at positions ``pos`` (monotone): [R, C] -> [N, C],
+    through the K4 row gather for the "pallas" / "interpret" backends,
+    the plain gather otherwise."""
     if backend in ("pallas", "interpret"):
-        return monotone_row_gather(acc.T.contiguous(), pos, max_step=d_max).T
-    return monotone_row_gather_plain(acc.T, pos).T
+        return monotone_row_gather_rows(acc, pos)
+    return monotone_row_gather_rows_plain(acc, pos)
 
 
 class Binning(NamedTuple):
@@ -144,7 +144,7 @@ class Binning(NamedTuple):
         counts_p = torch.sum(self.slab_phase == phase, dim=0)
         pos = torch.clamp(torch.cumsum(counts_p, 0) - 1, 0,
                           r_phase - 1).to(torch.int32)
-        out = _land(acc, pos, d_max, backend)
+        out = _land(acc, pos, backend)
         exact = torch.logical_not(self.overflow) & ((p1 - p0_al) <= r_phase)
         keep = (counts_p > 0)[:, None] & exact
         return torch.where(keep, out, torch.zeros((), device=dev))
@@ -177,7 +177,7 @@ class Binning(NamedTuple):
         acc = _segmented_scan(grads_sorted, keys_sorted, d_max)
         pos = torch.clamp(torch.cumsum(self.counts, 0) - 1, 0,
                           r - 1).to(torch.int32)
-        out = _land(acc, pos, d_max, backend)
+        out = _land(acc, pos, backend)
         return torch.where((self.counts > 0)[:, None], out,
                            torch.zeros((), device=dev))
 

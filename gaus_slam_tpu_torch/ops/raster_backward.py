@@ -3,7 +3,8 @@ gaus_slam_tpu/ops/pallas_backward.py).
 
 Per-pair attribute gradients [ATTR_C, R] from the loss cotangents of the
 tile-major render buffer. The first cotangent of the pixel state (vjp of
-``compositing.finalize``) has a closed form, ``finalize_cotangents``.
+``compositing.finalize``) has a closed form, ``finalize_cotangents``; the
+kernels form it themselves from the saved output and the loss cotangent.
 
 K2 (``raster_backward_stash``) is the reverse sweep over each tile's
 blocks from the forward's stash: on the card csrc/raster_backward.cu
@@ -27,7 +28,7 @@ import torch
 
 from . import _cuda
 from .binning import TileGrid
-from .compositing import ATTR_C, PixelState, composite_chunk
+from .compositing import ATTR_C, OUT_C, PixelState, composite_chunk
 from .composite_ref import tile_pixel_coords
 from .raster_forward import (CHUNK, STASH_C, _check_inputs, _default_ids,
                              raster_forward_plain, stash_offsets, stash_rows)
@@ -143,27 +144,40 @@ def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
     soff = stash_offsets(ts, te).contiguous()
     kex = kexit.to(torch.int32).contiguous()
     stash = stash.contiguous()
-    bg = torch.zeros(3, device=dev)
-    dstate0 = finalize_cotangents(saved_out, d_out.float(), bg,
-                                  use_sa=use_sa).contiguous()
+    out, dout = _out_rows(saved_out, d_out, n_sub, grid)
     for t, what in ((attrs, torch.float32), (ids, torch.int32),
                     (ts, torch.int32), (te, torch.int32), (kex, torch.int32),
-                    (stash, torch.float32), (dstate0, torch.float32)):
+                    (stash, torch.float32), (out, torch.float32),
+                    (dout, torch.float32)):
         _cuda.require(t, what, "raster_backward")
     d_attrs = torch.zeros((ATTR_C, r), dtype=torch.float32, device=dev)
     fn = _cuda.library("raster_backward").raster_backward
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["raster_backward_stash"] += 1
     _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ids), _cuda.ptr(ts),
                    _cuda.ptr(te), _cuda.ptr(soff), _cuda.ptr(kex),
-                   _cuda.ptr(stash), stash.shape[0], _cuda.ptr(dstate0),
-                   n_sub, grid.tiles_x,
-                   int(use_sa), int(need_normal), _cuda.ptr(d_attrs),
+                   _cuda.ptr(stash), stash.shape[0], _cuda.ptr(out),
+                   _cuda.ptr(dout), n_sub, grid.tiles_x, int(use_sa),
+                   int(need_normal), _cuda.ptr(d_attrs),
                    _cuda.stream()), "raster_backward_stash")
     return d_attrs
+
+
+def _out_rows(saved_out, d_out, n, grid):
+    """The forward's output and the loss cotangent as the kernels read
+    them (contiguous float32 [n, OUT_C, P]): they form the first
+    cotangent themselves (finalize_cotangents' closed form,
+    raster_common.cuh::cot_from_out)."""
+    shape = (n, OUT_C, grid.pixels_per_tile)
+    out = saved_out.detach().float().contiguous()
+    dout = d_out.float().contiguous()
+    if tuple(out.shape) != shape or tuple(dout.shape) != shape:
+        raise ValueError(f"saved_out and d_out must be {shape}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    return out, dout
 
 
 def raster_backward_plain(pair_attrs, tile_start, tile_stop, saved_out, d_out,
@@ -201,22 +215,21 @@ def raster_backward(pair_attrs, tile_start, tile_stop, saved_out, d_out, *,
     n_rows = stash_rows(r, n)
     scratch = torch.empty((n_rows, STASH_C, grid.pixels_per_tile),
                           dtype=torch.float32, device=dev)
-    bg = torch.zeros(3, device=dev)
-    dstate0 = finalize_cotangents(saved_out.float(), d_out.float(), bg,
-                                  use_sa=use_sa).contiguous()
+    out, dout = _out_rows(saved_out, d_out, n, grid)
     for t, what in ((attrs, torch.float32), (ts, torch.int32),
-                    (te, torch.int32), (dstate0, torch.float32)):
+                    (te, torch.int32), (out, torch.float32),
+                    (dout, torch.float32)):
         _cuda.require(t, what, "raster_backward")
     d_attrs = torch.zeros((ATTR_C, r), dtype=torch.float32, device=dev)
     fn = _cuda.library("raster_backward").raster_backward_restash
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["raster_backward"] += 1
     _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ts), _cuda.ptr(te),
                    _cuda.ptr(soff), _cuda.ptr(scratch), n_rows,
-                   _cuda.ptr(dstate0), n, grid.tiles_x, int(use_sa),
-                   int(need_normal), _cuda.ptr(d_attrs), _cuda.stream()),
-                "raster_backward")
+                   _cuda.ptr(out), _cuda.ptr(dout), n, grid.tiles_x,
+                   int(use_sa), int(need_normal), _cuda.ptr(d_attrs),
+                   _cuda.stream()), "raster_backward")
     return d_attrs

@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
                 "utils.image_metrics", "utils.eval", "utils.ply",
                 "utils.scene_io", "utils.viz", "data", "scripts",
                 "scripts.gaus", "ops.bf16_probe", "tools",
-                "tools.bf16_probe"):
+                "tools.bf16_probe", "tools.kernel_ab"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 

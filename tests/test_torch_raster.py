@@ -203,17 +203,30 @@ def test_render_pairs_without_grad_uses_plain_forward():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
+def _build_host_math(tmp_path_factory, *defines):
+    gxx = shutil.which("g++")
+    assert gxx is not None, "g++ is needed to build the kernel math for the CPU"
+    lib = tmp_path_factory.mktemp("pixel_math") / "libpixel_math_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", *defines,
+                    "-shared", "-fPIC", "-o", str(lib),
+                    str(CSRC / "pixel_math_host.cpp")],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
 @pytest.fixture(scope="module")
 def host_math(tmp_path_factory):
     """csrc/pixel_math_host.cpp (the kernels' per-pixel math) built for the
     CPU with g++."""
-    gxx = shutil.which("g++")
-    assert gxx is not None, "g++ is needed to build the kernel math for the CPU"
-    lib = tmp_path_factory.mktemp("pixel_math") / "libpixel_math_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(lib), str(CSRC / "pixel_math_host.cpp")],
-                   check=True, capture_output=True)
-    return ctypes.CDLL(str(lib))
+    return _build_host_math(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def host_math_ring2(tmp_path_factory):
+    """The same math with a ring of 2 records per pixel (the kernel's
+    holds 16), so that most pixels re-run their block for the records
+    the ring no longer holds."""
+    return _build_host_math(tmp_path_factory, "-DGS_REC_CAP=2")
 
 
 def _ptr(a):
@@ -238,24 +251,25 @@ def host_backward(lib, pattrs, ts, te, ids, tiles_x, use_sa, nn, stash,
                   kexit, out, d_out):
     r, n_sub = pattrs.shape[1], len(ids)
     soff = TRF.stash_offsets(torch.tensor(ts), torch.tensor(te)).numpy()
-    d0 = TRB.finalize_cotangents(torch.tensor(out), torch.tensor(d_out),
-                                 torch.zeros(3), use_sa=use_sa).numpy()
     d = np.zeros((24, r), np.float32)
     args = [np.ascontiguousarray(a) for a in
-            (pattrs, ids, ts, te, soff, kexit, stash, d0)]
+            (pattrs, ids, ts, te, soff, kexit, stash, out, d_out)]
     lib.host_raster_backward(_ptr(args[0]), r, *map(_ptr, args[1:7]),
-                             stash.shape[0], _ptr(args[7]), n_sub, tiles_x,
-                             int(use_sa), int(nn), _ptr(d))
+                             stash.shape[0], _ptr(args[7]), _ptr(args[8]),
+                             n_sub, tiles_x, int(use_sa), int(nn), _ptr(d))
     return d
 
 
 @pytest.mark.parametrize("use_sa,nn,subset", [(True, False, False),
                                               (False, True, False),
-                                              (True, True, True)])
+                                              (True, True, True),
+                                              (False, False, True)])
 def test_kernel_math_matches_plain(host_math, use_sa, nn, subset):
     """The CUDA kernels' arithmetic (forward, stash, kexit and the
-    hand-derived reverse sweep) run on the CPU, against the plain
-    versions (torch.autograd through composite_chunk for the gradient)."""
+    hand-derived reverse sweep: first pass with its cull, step masks and
+    each pixel's ring of records, fmaf vjp, warp reduce-scatter) run on
+    the CPU, against the plain versions (torch.autograd through
+    composite_chunk for the gradient)."""
     grid, ts, te, pattrs, rng = scene(2, 1300)
     ids = np.arange(grid.num_tiles, dtype=np.int32)
     if subset:
@@ -283,6 +297,94 @@ def test_kernel_math_matches_plain(host_math, use_sa, nn, subset):
                        use_sa, nn, hst, hk, ho, d_out)
     assert_grad_close(hg, pg, 1e-3)
     assert np.abs(hg).max() > 0.0
+
+
+# rows of a pair's gradient that are zero for every pixel: none, the
+# normals' (no normals), twx / twy (d_raw from twz alone) and cx / cy (the
+# 3D distance wins), and all of them at once
+ZERO_ROWS = [(), (14, 15, 16), (9, 10), (12, 13), (9, 10, 12, 13, 14, 15, 16)]
+
+
+@pytest.mark.parametrize("zero_rows", ZERO_ROWS, ids=str)
+def test_warp_reduce_scatter_sums_rows(host_math, zero_rows):
+    """K2's warp reduce-scatter (the kernel's rs_keep / rs_send lane and
+    slot helpers over 32 simulated lanes): lane q ends with the sum over
+    the lanes of row q, for every row, including rows that are zero on
+    every lane and rows that only a few lanes touch."""
+    rng = np.random.default_rng(len(zero_rows))
+    v = np.zeros((32, 32), np.float32)
+    v[:, :21] = rng.normal(size=(32, 21)) * rng.uniform(0.1, 10.0, 21)
+    v[:, :21] *= rng.uniform(size=(32, 21)) < 0.4   # sparse touches
+    v[:, list(zero_rows)] = 0.0
+    got = np.zeros(32, np.float32)
+    host_math.host_warp_reduce_scatter(_ptr(np.ascontiguousarray(v)),
+                                       _ptr(got))
+    want = v.astype(np.float64).sum(axis=0)
+    scale = np.abs(v).astype(np.float64).sum(axis=0)
+    assert np.all(np.abs(got - want) <= 1e-6 * np.maximum(scale, 1e-30)), \
+        (got - want) / np.maximum(scale, 1e-30)
+    assert np.all(got[21:] == 0.0) and np.all(got[list(zero_rows)] == 0.0)
+
+
+def cull_counts(lib, grid, ts, te, pattrs):
+    """(evaluations, culled, culled yet accepted, most pairs of one block
+    that touch one pixel) over every tile's blocks."""
+    ids = np.arange(grid.num_tiles, dtype=np.int32)
+    out = np.zeros(4, np.int64)
+    a = np.ascontiguousarray(pattrs)
+    lib.host_cull_counts(_ptr(a), a.shape[1], _ptr(ids),
+                         _ptr(ts.astype(np.int32)), _ptr(te.astype(np.int32)),
+                         len(ids), grid.tiles_x, _ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("use_sa,nn", [(True, False), (False, True)])
+def test_record_ring_refill_is_exact(host_math, host_math_ring2, use_sa, nn):
+    """A pixel that more pairs of one block touch than its ring of records
+    holds re-runs the block's touched pairs from the stashed carry for
+    the earlier records: with a ring of 2 nearly every pixel does so, and
+    the gradient equals the kernel's ring of 16 bit for bit."""
+    grid, ts, te, pattrs, rng = scene(3, 1300)
+    assert cull_counts(host_math, grid, ts, te, pattrs)[3] > 2
+    ids = np.arange(grid.num_tiles, dtype=np.int32)
+    ts, te = ts.astype(np.int32), te.astype(np.int32)
+    ho, hst, hk = host_forward(host_math, pattrs, ts, te, ids, grid.tiles_x,
+                               use_sa, nn)
+    d_out = rng.normal(size=ho.shape).astype(np.float32)
+    d_out[:, 10:] = 0.0
+    args = (pattrs, ts, te, ids, grid.tiles_x, use_sa, nn, hst, hk, ho, d_out)
+    g16 = host_backward(host_math, *args)
+    g2 = host_backward(host_math_ring2, *args)
+    assert np.abs(g16).max() > 0.0
+    np.testing.assert_array_equal(g2.view(np.int32), g16.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [2, 5])
+def test_backward_cull_is_conservative(host_math, seed):
+    """The backward's first pass skips a pair its cull test rejects for a
+    pixel (both squared distances past the cull radius, no division or
+    exp): no such pair may pass the alpha test, and on a random scene the
+    test must reject most of the walk."""
+    grid, ts, te, pattrs, _ = scene(seed, 1300)
+    ids = np.arange(grid.num_tiles, dtype=np.int32)
+    evals, culled, wrong, _ = cull_counts(host_math, grid, ts, te, pattrs)
+    assert wrong == 0
+    assert culled > 0.5 * evals, (culled, evals)
+
+
+@pytest.mark.parametrize("use_sa", [True, False])
+def test_cot_from_out_is_finalize_cotangents(host_math, use_sa):
+    """The sweep's first cotangent, formed in the kernel from the saved
+    output and the loss cotangent, equals finalize_cotangents bit for bit."""
+    rng = np.random.default_rng(4)
+    out = rng.normal(size=(3, 16, 256)).astype(np.float32)
+    d_out = rng.normal(size=(3, 16, 256)).astype(np.float32)
+    got = np.zeros_like(out)
+    host_math.host_cot_from_out(_ptr(out), _ptr(d_out), 3, int(use_sa),
+                                _ptr(got))
+    want = TRB.finalize_cotangents(torch.tensor(out), torch.tensor(d_out),
+                                   torch.zeros(3), use_sa=use_sa).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture
@@ -317,3 +419,5 @@ def test_cuda_kernels_match_plain(cuda_device, use_sa):
     kg = TRB.raster_backward_stash(*args, **kw)
     pg = TRB.raster_backward_stash_plain(*args, **kw)
     assert_grad_close(kg.cpu().numpy(), pg.cpu().numpy(), 1e-3)
+    # deterministic: no atomics, a fixed summation order
+    assert torch.equal(TRB.raster_backward_stash(*args, **kw), kg)

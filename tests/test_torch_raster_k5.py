@@ -101,16 +101,14 @@ def test_raster_backward_plain_matches_jax(use_sa, nn):
 def host_k5(lib, pattrs, ts, te, out, d_out, tiles_x, use_sa, nn):
     r, n = pattrs.shape[1], ts.shape[0]
     soff = TRF.stash_offsets(torch.tensor(ts), torch.tensor(te)).numpy()
-    d0 = TRB.finalize_cotangents(torch.tensor(out), torch.tensor(d_out),
-                                 torch.zeros(3), use_sa=use_sa).numpy()
     rows = TRF.stash_rows(r, n)
     scratch = np.zeros((rows, 8, 256), np.float32)
     d = np.zeros((24, r), np.float32)
     args = [np.ascontiguousarray(a) for a in (pattrs, ts, te, soff)]
-    d0 = np.ascontiguousarray(d0)
+    out, d_out = np.ascontiguousarray(out), np.ascontiguousarray(d_out)
     lib.host_raster_backward_restash(
-        _ptr(args[0]), r, *map(_ptr, args[1:]), _ptr(scratch), rows, _ptr(d0),
-        n, tiles_x, int(use_sa), int(nn), _ptr(d))
+        _ptr(args[0]), r, *map(_ptr, args[1:]), _ptr(scratch), rows,
+        _ptr(out), _ptr(d_out), n, tiles_x, int(use_sa), int(nn), _ptr(d))
     return d
 
 
