@@ -14,7 +14,8 @@ line):
    frontend's shapes (a random map from a numpy seed): K1/K3 on out,
    stash and kexit, K2 and K5 on d_attrs against torch.autograd through
    the plain versions (and SA's depth rows against float64), K2 launched
-   twice and bit-equal to itself, K5 bit-equal to K2 on K1's stash, K4
+   twice and bit-equal to itself, K3's out bit-equal to K1's, K5's
+   re-forward stash bit-equal to K1's stash and its gradient to K2's, K4
    (the row-layout gather the reduction calls) bit for bit against its
    plain version and torch.index_select. Prints errors, tolerances, ms
    per call (CUDA events after warm-up; K4, a short kernel, inside a CUDA
@@ -121,6 +122,11 @@ BF16_FLOP_PER_S = 2 * F32_FLOP_PER_S
 #   ray-splat geometry and alpha 38 + (rcp, exp); accept test and
 #   transmittance 7 + (log1p, exp).
 FWD_EVAL = (45, 4)
+# Per evaluation that the cull test rejects (raster_common.cuh::
+# pair_culled: both squared distances past the pair's cull radius), which
+# needs that test alone: the 2D distance 7, the ray's three coordinates
+# 12, the 3D comparison 6; no special function.
+CULL_EVAL = (25, 0)
 # Per accepted (pair, pixel): weight, median test, color, SA prefixes and
 # log-sum 13; SA's fusion weight and fused depth 25 + (rcp, rcp, exp).
 FWD_ACCEPTED = (38, 3)
@@ -360,12 +366,29 @@ def kernel_inputs(gm, cam, opts, stride):
     return bins, {"full": full, "coarse": coarse}
 
 
+def cull_rejects(op, dx, dy, p_x, p_y, p_z):
+    """raster_common.cuh::pair_culled on tensors: both squared distances
+    of a (pair, pixel) past the pair's cull radius rho_cull(op) (-1 where
+    no pixel can pass the alpha test), the 3D one without the division."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.camera import ALPHA_MIN, FILTER_INV_SQUARE
+
+    m = 1.0 / 1024.0
+    lim = torch.where(op < ALPHA_MIN, torch.full_like(op, -1.0),
+                      2.0 * torch.log(op / ALPHA_MIN) * (1.0 + m) + m)
+    return ((FILTER_INV_SQUARE * (dx * dx + dy * dy) > lim)
+            & (p_x * p_x + p_y * p_y > lim * (p_z * p_z)))
+
+
 def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
     """(pair, pixel) work this run's data needs, for the operation bound:
-    (evaluations, accepted). A pixel evaluates its tile's pairs until it
-    terminates, just past its last contributor n_contrib; it accepts a
-    pair at or before n_contrib whose depth and alpha tests pass
-    (composite_chunk's okf). ts / te are the ranges of tiles 0..T-1."""
+    (evaluations, culled, accepted). A pixel evaluates its tile's pairs
+    until it terminates, just past its last contributor n_contrib; of
+    those evaluations, the cull test rejects some without their geometry
+    (cull_rejects); it accepts a pair at or before n_contrib whose depth
+    and alpha tests pass (composite_chunk's okf). ts / te are the ranges
+    of tiles 0..T-1."""
     import torch
 
     from gaus_slam_tpu_torch.ops.camera import (ALPHA_MIN, FILTER_INV_SQUARE,
@@ -376,13 +399,14 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
     lens = (te - ts).clamp(min=0).long()
     nc = out[:, 13]
     upto = torch.minimum(nc.double() + 1.0, lens.double()[:, None])
-    evals = float(torch.where(out[:, 15] > 0.5, upto,
-                              lens.double()[:, None].expand_as(upto)).sum())
+    upto = torch.where(out[:, 15] > 0.5, upto,
+                       lens.double()[:, None].expand_as(upto))
+    evals = float(upto.sum())
     tile = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
     k = torch.arange(tile.numel(), device=dev) - (torch.cumsum(lens, 0)
                                                   - lens)[tile]
     px, py = tile_pixel_coords(grid, torch.arange(lens.numel(), device=dev))
-    accepted = 0
+    accepted = culled = 0
     for c0 in range(0, tile.numel(), chunk):
         t, kk = tile[c0:c0 + chunk], k[c0:c0 + chunk]
         a = pattrs[:, ts.long()[t] + kk].T[..., None]     # [m, 24, 1]
@@ -400,15 +424,22 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
         ok = ((p_z != 0) & (d_raw >= NEAR_N) & (alpha >= ALPHA_MIN)
               & ((kk + 1)[:, None].float() <= nc[t]))
         accepted += int(ok.sum())
-    return evals, float(accepted)
+        ev = kk[:, None].double() < upto[t]
+        culled += int((cull_rejects(a[:, 17], a[:, 12] - x, a[:, 13] - y,
+                                    p_x, p_y, p_z) & ev).sum())
+    return evals, float(culled), float(accepted)
 
 
-def op_bound(evals, accepted, per_accepted, nbytes):
+def op_bound(evals, accepted, per_accepted, nbytes, culled=0.0):
     """(bound ms, 'operations' or 'bytes'): the f32 and special-function
     pipes run side by side, so the operation time is the larger of the
-    two; the bound is the larger of that and the bytes' time."""
-    flop = evals * FWD_EVAL[0] + accepted * per_accepted[0]
-    sfu = evals * FWD_EVAL[1] + accepted * per_accepted[1]
+    two; the bound is the larger of that and the bytes' time. Of the
+    evaluations, the ``culled`` ones cost the cull test alone."""
+    kept = evals - culled
+    flop = (kept * FWD_EVAL[0] + culled * CULL_EVAL[0]
+            + accepted * per_accepted[0])
+    sfu = (kept * FWD_EVAL[1] + culled * CULL_EVAL[1]
+           + accepted * per_accepted[1])
     t_ops = max(flop / F32_FLOP_PER_S, sfu / SFU_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
@@ -581,7 +612,8 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
             # K5 on the same inputs: its own re-forward instead of K1's
             # stash, so the same carries and the same gradient as K2
             k5_args = (pattrs, ts, te, k_out, d_out)
-            k5 = raster_backward(*k5_args, **kw)
+            scratch = torch.zeros_like(k_stash)
+            k5 = raster_backward(*k5_args, scratch=scratch, **kw)
             p5 = raster_backward_plain(*k5_args, **kw)
             p5_64 = raster_backward_plain(pattrs.double(), ts, te,
                                           k_out.double(), d_out.double(), **kw)
@@ -599,8 +631,13 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
                   "K5 disagrees with torch.autograd through the plain version")
             check(bool(torch.equal(k5, k_grad)),
                   "K5 is not bit-equal to K2 on K1's stash")
+            same5 = bool(torch.equal(scratch, k_stash))
+            print(f"[kernels] K5's re-forward stash == K1's stash: {same5}")
+            check(same5, "K5's re-forward stash differs from K1's")
+            del scratch
 
-            evals, accepted = pair_pixel_work(pattrs, ts, te, k_out, opts.grid)
+            evals, culled, accepted = pair_pixel_work(pattrs, ts, te, k_out,
+                                                      opts.grid)
             out_bytes = k_out.numel() * 4
             in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
             stash_bytes = int(k_kexit.sum()) * 8 * 256 * 4
@@ -615,13 +652,25 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
             t_p5 = time_ms(lambda: raster_backward_plain(*k5_args, **kw), 1,
                            warm=1)
 
-            b1 = op_bound(evals, accepted, FWD_ACCEPTED,
-                          in_bytes + out_bytes + stash_bytes)
-            b3 = op_bound(evals, accepted, FWD_ACCEPTED, in_bytes + out_bytes)
-            b2 = op_bound(evals, accepted, BWD_ACCEPTED,
-                          2 * in_bytes + 2 * out_bytes + stash_bytes)
-            b5 = op_bound(evals, accepted, BWD_ACCEPTED,
-                          2 * in_bytes + 2 * out_bytes)
+            work = {
+                "raster_forward_stash": (FWD_ACCEPTED,
+                                         in_bytes + out_bytes + stash_bytes),
+                "raster_forward": (FWD_ACCEPTED, in_bytes + out_bytes),
+                "raster_backward_stash": (
+                    BWD_ACCEPTED, 2 * in_bytes + 2 * out_bytes + stash_bytes),
+                "raster_backward": (BWD_ACCEPTED,
+                                    2 * in_bytes + 2 * out_bytes)}
+            # the bound with culled evaluations at the cull test's cost,
+            # and as counted before (every evaluation at full cost)
+            bounds = {k: op_bound(evals, accepted, per, nb, culled=culled)
+                      for k, (per, nb) in work.items()}
+            print("[kernels] bound ms with culled evaluations at the cull "
+                  "test's cost (every evaluation at full cost): " + ", ".join(
+                      f"{KERNELS[k][0]} {bounds[k][0]:.4f} "
+                      f"({op_bound(evals, accepted, per, nb)[0]:.4f})"
+                      for k, (per, nb) in work.items()))
+            b1, b3 = bounds["raster_forward_stash"], bounds["raster_forward"]
+            b2, b5 = bounds["raster_backward_stash"], bounds["raster_backward"]
             results["raster_forward_stash"] = dict(
                 max_abs_err=err1, ms=t_k1, plain_ms=t_p1, bound_ms=b1[0],
                 bound_by=b1[1], library_ms=None)
@@ -640,8 +689,8 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
             print(f"[kernels] ms: K1 {t_k1:.3f} (plain {t_p1:.1f}, bound "
                   f"{b1[0]:.4f} {b1[1]}), K3 {t_k3:.3f} (bound {b3[0]:.4f}), "
                   f"K2 {t_k2:.3f} (plain {t_p2:.1f}, bound {b2[0]:.4f} "
-                  f"{b2[1]}); (pair, pixel) evaluations {evals:.6g}, "
-                  f"accepted {accepted:.6g}")
+                  f"{b2[1]}); (pair, pixel) evaluations {evals:.6g}, culled "
+                  f"{culled:.6g}, accepted {accepted:.6g}")
 
     # K4 at the reduction's shapes: [R, 24] run totals, pos = run ends of
     # the binning's per-gaussian pair counts, as binning._land calls it

@@ -30,14 +30,12 @@ using namespace gs;
 
 constexpr int WARPS = P / 32;
 
-// stage_block; with rho, the backward's cull radii in row RHO_ROW
-static void stage(float* sa, const float* attrs, int64_t R, int64_t gstart,
-                  bool rho = false) {
+// stage_block: the block, with the walks' cull radii in row RHO_ROW
+static void stage(float* sa, const float* attrs, int64_t R, int64_t gstart) {
   for (int c = 0; c < ATTR_C; ++c)
     for (int j = 0; j < CHUNK; ++j)
-      sa[c * CHUNK + j] = rho && c == RHO_ROW
-                              ? rho_cull(attrs[17 * R + gstart + j])
-                              : attrs[c * R + gstart + j];
+      sa[c * CHUNK + j] = c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
+                                       : attrs[c * R + gstart + j];
 }
 
 // The kernel's warp_reduce_scatter over 32 simulated lanes: v[lane][slot]
@@ -115,7 +113,7 @@ static void backward_tile(int i, const float* attrs, int R, const int* ids,
   const int K = swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows);
   for (int k = K - 1; k >= 0; --k) {
     const int gstart = (tw.blk0 + k) * CHUNK;
-    stage(sa.data(), attrs, R, gstart, true);
+    stage(sa.data(), attrs, R, gstart);
     for (int p = 0; p < P; ++p) {
       s[p] = state_from_stash(
           stash + ((int64_t)(soff[i] + k) * STASH_C) * P + p, P);
@@ -265,7 +263,7 @@ extern "C" void host_cull_counts(const float* attrs, int R, const int* ids,
     const TileWalk tw = tile_walk(ts[i], te[i], R);
     for (int k = 0; k < tw.nblk; ++k) {
       const int gstart = (tw.blk0 + k) * CHUNK;
-      stage(sa.data(), attrs, R, gstart, true);
+      stage(sa.data(), attrs, R, gstart);
       for (int p = 0; p < P; ++p) {
         long long touched = 0;
         for (int j = 0; j < CHUNK; ++j) {

@@ -54,16 +54,20 @@
 // geometry of the pairs the cull keeps in the first pass and of the
 // touched pairs in the walk. chip_smoke.py computes the bound.
 //
-// K5 (raster_backward_restash_kernel) replaces pallas_backward.py::
-// raster_backward (kernel _kernel), the backward of the reference render
-// backend, whose forward keeps no stash. Phase A re-runs K1's block walk
-// (forward_walk, the same code, so its carries equal K1's bit for bit)
-// over at most MAX_CHUNKS_PER_TILE blocks, storing each block's incoming
-// carry in a global scratch at K1's stash layout; the TPU kept it in a
-// 512-block VMEM stash, which would not fit a CTA's shared memory here.
-// Phase B is K2's reverse sweep over that scratch. The function is K2's
-// plus one forward, so it is bound as K2 is; chip_smoke.py gives K2's
-// needed work as its bound.
+// K5 replaces pallas_backward.py::raster_backward (kernel _kernel), the
+// backward of the reference render backend, whose forward keeps no stash.
+// It is two launches on the stream: the re-forward
+// (raster_reforward_kernel: K1's block walk, forward_walk, the same code,
+// so its carries equal K1's bit for bit, over at most MAX_CHUNKS_PER_TILE
+// blocks) stores each block's incoming carry in a global scratch at K1's
+// stash layout and the number of blocks in a scratch kexit; then K2's
+// sweep kernel runs over them. The TPU kept the carries in a 512-block
+// VMEM stash, which would not fit a CTA's shared memory here. Two kernels,
+// so that the re-forward runs as K1 does (five CTAs per SM, no spill)
+// and not under the sweep's 80 registers and three CTAs per SM: K5 takes
+// K1's time plus K2's (tools/kernel_ab.py). The function is K2's plus one
+// forward, so it is bound as K2 is; chip_smoke.py gives K2's needed work
+// as its bound.
 #include "raster_common.cuh"
 
 using namespace gs;
@@ -99,7 +103,7 @@ __device__ __forceinline__ void reverse_sweep(
     const int gstart = (tw.blk0 + k) * CHUNK;
     const float* srow = stash + ((int64_t)(soff + k) * STASH_C) * P + p;
     __syncthreads();
-    stage_block<true>(sa, attrs, R, gstart);
+    stage_block(sa, attrs, R, gstart);
     const PixState s = state_from_stash(srow, P);
     const float T_in = s.T;
     const bool live = s.done < 0.5f;
@@ -185,34 +189,28 @@ __global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_kernel(
       d_attrs);
 }
 
-// K5: the re-forward (phase A) writes each block's incoming carry into
-// the global scratch `stash` at K1's layout, then the reverse sweep
-// (phase B) reads it back. Every tile of the grid, tile i = CTA i.
+// K5's re-forward: each block's incoming carry into the global scratch
+// `stash` at K1's layout, the blocks composited into `kexit` and the
+// tile's index into `ids` (the sweep's tile ids), for every tile of the
+// grid (tile i = CTA i), as K1 walks them.
 template <bool USE_SA, bool NN>
-__global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_restash_kernel(
+__global__ void __launch_bounds__(P) raster_reforward_kernel(
     const float* __restrict__ attrs, int R, const int* __restrict__ tstart,
     const int* __restrict__ tstop, const int* __restrict__ soff,
-    float* stash, int stash_rows, const float* __restrict__ saved_out,
-    const float* __restrict__ d_out, int tiles_x,
-    float* __restrict__ d_attrs) {
-  extern __shared__ float smem[];
+    float* __restrict__ stash, int stash_rows, int tiles_x,
+    int* __restrict__ kexit, int* __restrict__ ids) {
+  __shared__ float sa[FWD_SA];
   const int i = blockIdx.x;
   const int p = threadIdx.x;
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
-  const float px = pixel_x(i, tiles_x, p);
-  const float py = pixel_y(i, tiles_x, p);
   PixState s = init_state();
-  // each thread reads back only the stash entries it wrote itself, so
-  // program order suffices between the phases (no __restrict__ on the
-  // scratch: it must not be read through the non-coherent cache)
-  const int kex = forward_walk<true, USE_SA, NN>(
-      s, smem, attrs, R, tw, reforward_blocks(tw.nblk), px, py, stash,
-      soff[i], stash_rows);
-  const int64_t row = (int64_t)i * OUT_C * P + p;
-  const Cot c = cot_from_out<USE_SA>(saved_out + row, d_out + row, P);
-  reverse_sweep<USE_SA, NN>(
-      smem, attrs, R, tw, swept_blocks(kex, tw.nblk, soff[i], stash_rows),
-      stash, soff[i], px, py, c, d_attrs);
+  const int k = forward_walk<true, USE_SA, NN>(
+      s, sa, attrs, R, tw, reforward_blocks(tw.nblk), pixel_x(i, tiles_x, p),
+      pixel_y(i, tiles_x, p), stash, soff[i], stash_rows);
+  if (p == 0) {
+    kexit[i] = k;
+    ids[i] = i;
+  }
 }
 
 // Launch with the sweep's dynamic shared memory (above the 48 KB default,
@@ -254,6 +252,7 @@ extern "C" int raster_backward_restash(const float* attrs, int R,
                                        const int* tile_start,
                                        const int* tile_stop, const int* soff,
                                        float* stash, int stash_rows,
+                                       int* kexit, int* ids,
                                        const float* saved_out,
                                        const float* d_out, int n_tiles,
                                        int tiles_x, int use_sa,
@@ -262,13 +261,20 @@ extern "C" int raster_backward_restash(const float* attrs, int R,
   if (n_tiles <= 0) return (int)cudaGetLastError();
   cudaError_t err;
 #define GS_LAUNCH(SA, N)                                                    \
-  err = launch_sweep(raster_backward_restash_kernel<SA, N>, n_tiles,        \
-                     stream, attrs, R, tile_start, tile_stop, soff, stash,  \
-                     stash_rows, saved_out, d_out, tiles_x, d_attrs)
+  raster_reforward_kernel<SA, N><<<n_tiles, P, 0, stream>>>(                \
+      attrs, R, tile_start, tile_stop, soff, stash, stash_rows, tiles_x,    \
+      kexit, ids);                                                          \
+  err = cudaGetLastError();                                                 \
+  if (err == cudaSuccess)                                                   \
+    err = launch_sweep(raster_backward_kernel<SA, N>, n_tiles, stream,      \
+                       attrs, R, (const int*)ids, tile_start,               \
+                       tile_stop, soff, (const int*)kexit,                  \
+                       (const float*)stash, stash_rows, saved_out, d_out,   \
+                       tiles_x, d_attrs)
   if (use_sa) {
-    if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+    if (need_normal) { GS_LAUNCH(true, true); } else { GS_LAUNCH(true, false); }
   } else {
-    if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
+    if (need_normal) { GS_LAUNCH(false, true); } else { GS_LAUNCH(false, false); }
   }
 #undef GS_LAUNCH
   return (int)err;

@@ -5,9 +5,12 @@
 // This is ops/compositing.py::composite_chunk written per pixel and in
 // pair order instead of as [128, 256] array math: the triangular-matmul
 // prefix sums of the TPU version become running sums, and the SA median
-// target (the block's final median) needs a second pass over the block.
+// target (the block's final median) needs a second pass, over the pairs
+// the first one found touching the pixel (its step mask).
 // Every semantic choice of the JAX version is kept:
-//   * 128-aligned global blocks with a validity mask (the caller);
+//   * 128-aligned global blocks, of which only the pairs in the tile's
+//     range are walked (the JAX version masks the others: a masked pair of
+//     finite depth moves nothing);
 //   * the 1-based in-tile contributor index idx_base + j;
 //   * raw-depth prefix sums for SA's D and D2 statistics;
 //   * a pair is accepted iff its inclusive product T_pref*(1-a) stays
@@ -129,7 +132,7 @@ GS_FN float dist_m(float d_raw) {
   return M_SCALE * (1.f - NEAR_N / fmaxf(d_raw, (float)1e-6));
 }
 
-// The backward stages, in the slab's first pad row, each pair's cull
+// The walks stage, in the slab's first pad row, each pair's cull
 // radius: the rho beyond which op * exp(-rho / 2) < ALPHA_MIN, widened
 // by a relative and an absolute 2^-10, far above float rounding; -1 for
 // a pair that no pixel can accept (op < ALPHA_MIN; exp(-rho / 2) <= 1).
@@ -145,8 +148,8 @@ GS_FN float rho_cull(float op) {
 // p_x^2 + p_y^2 > lim * p_z^2, without the division; NaN compares false,
 // so a pair with NaN in it is never culled. A culled pair has okf false;
 // it leaves Run as it was (SA's prefixes add 0 * d_raw, which is 0
-// whenever the pair's geometry is finite), so the backward's first pass
-// skips its geometry altogether.
+// whenever the pair's geometry is finite), so the first pass (K1's and
+// the backward's) skips its geometry altogether.
 GS_FN bool pair_culled(const float* sa, int j, float px, float py) {
   const float lim = A(sa, RHO_ROW, j);
   const float dx = A(sa, 12, j) - px;
@@ -157,6 +160,18 @@ GS_FN bool pair_culled(const float* sa, int j, float px, float py) {
   const float p_z = px * A(sa, 2, j) + py * A(sa, 5, j) + A(sa, 8, j);
   return p_x * p_x + p_y * p_y > lim * (p_z * p_z);
 }
+
+// Whether the forward walk skips work that cannot change a value: a pixel
+// that is done at the block start, a pair the cull rejects, a pixel that
+// triggered, and SA's second pass outside the step mask (composite_block
+// argues each). The CPU tests also build the host math with
+// -DGS_FWD_NO_SKIP, which turns every one of them off, and require the
+// same bits.
+#ifdef GS_FWD_NO_SKIP
+constexpr bool FWD_SKIP = false;
+#else
+constexpr bool FWD_SKIP = true;
+#endif
 
 // What the backward needs from a block's forward recompute.
 struct BlockInfo {
@@ -183,8 +198,11 @@ GS_FN Run run_init(const PixState& s) {
 }
 
 // One pair of a block's walk for one pixel: its geometry, accept decision
-// and weight, with `run` advanced past it. composite_block and the
-// backward's passes all step through here, so they agree bit for bit.
+// and weight, with `run` advanced past it.
+// composite_block and the backward's passes all step through here, so they
+// agree bit for bit. A pair that fails the alpha test still takes its
+// log1p(-0) = -0 and exp: computing them only where okf measured slower
+// once the cull comes first (most pairs the cull keeps pass the test).
 struct Step {
   Geom g;
   bool okf, below, af;
@@ -217,33 +235,108 @@ GS_FN Step pair_step(const float* sa, int j, int gi, int start, int stop,
   return st;
 }
 
+// A pixel's step mask over the block's 128 pairs: bit j is set where pair
+// j touched the pixel (okf) or moved its prefixes (NaN included). A pair
+// outside the mask leaves Run as it was and gets exactly zero gradient,
+// so SA's second pass, the reverse walk and the re-run skip it. Four
+// words, read through selects so that they stay in registers.
+struct StepMask {
+  unsigned w0, w1, w2, w3;
+};
+
+GS_FN bool mask_test(const StepMask& m, int j) {
+  const unsigned w = j < 64 ? (j < 32 ? m.w0 : m.w1) : (j < 96 ? m.w2 : m.w3);
+  return ((w >> (j & 31)) & 1u) != 0u;
+}
+
+GS_FN void mask_set(StepMask& m, int j) {
+  const unsigned b = 1u << (j & 31);
+  if (j < 32) m.w0 |= b;
+  else if (j < 64) m.w1 |= b;
+  else if (j < 96) m.w2 |= b;
+  else m.w3 |= b;
+}
+
+GS_FN int ctz32(unsigned w) {
+#if defined(__CUDACC__)
+  return __ffs((int)w) - 1;
+#else
+  return __builtin_ctz(w);
+#endif
+}
+
+// The first pair at or after j in the mask, CHUNK if none.
+GS_FN int mask_next(const StepMask& m, int j) {
+#pragma unroll 1
+  for (; j < CHUNK; j = (j | 31) + 1) {
+    const int wi = j >> 5;
+    const unsigned w =
+        (wi < 2 ? (wi == 0 ? m.w0 : m.w1) : (wi == 2 ? m.w2 : m.w3)) >>
+        (j & 31);
+    if (w != 0u) return j + ctz32(w);
+  }
+  return CHUNK;
+}
+
 // Composite one block for one pixel, updating `s` as composite_chunk does.
+// Only the pairs of the tile's range [start, stop) are walked, each tested
+// by its global index gstart + j, as the backward's first pass does:
+// deriving block-local bounds once per block instead, ptxas (CUDA 12.9)
+// built some instantiations and launch bounds wrong (every pair skipped),
+// with and without spills. The first pass sums colors, normals and
+// (without SA) the depth statistics of the accepted pairs and records the
+// touched pairs in the step mask; with FWD_SKIP it skips, without
+// changing a value:
+//  * every pair of a pixel that is done at the block start (live false):
+//    none is okf, so nothing is accepted, and the Run it would move is
+//    read at accepted pairs only;
+//  * a pair that pair_culled rejects: okf is false and Run stays as it
+//    was (SA's prefixes would add 0 * d_raw, which is +0 for the finite
+//    depth of a culled pair; a pair with NaN in it is never culled);
+//  * every pair after the trigger (an okf pair whose inclusive product
+//    T_pref * (1 - a) fell below T_EPS). cum has taken the trigger's l,
+//    and cum only falls, so a later okf pair has T_pref at most
+//    T_in * exp(cum) just past the trigger, which is the trigger's
+//    T_pref * (1 - a) < T_EPS up to float rounding (a few ulp of exp and
+//    log1p, about 1e-6 relative); its own (1 - a) <= 1 - ALPHA_MIN takes
+//    0.39% off that, far more than the rounding, so it is below too: no
+//    later pair is accepted.
+// A warp whose lanes all skip a pair, or have all left the block, skips it
+// as a whole (a uniform branch). SA's fusion weights need the block's
+// final median, so a second pass re-runs pair_step over the step mask
+// only: the pairs it skips leave run2 as it was and add nothing to Dacc /
+// D2acc, so the sums come out as over the whole block, bit for bit.
 template <bool USE_SA, bool NN>
-GS_FN BlockInfo composite_block(PixState& s, const float* sa, int gstart,
-                                int start, int stop, float px, float py) {
+GS_FN void composite_block(PixState& s, const float* sa, int gstart,
+                           int start, int stop, float px, float py) {
   const float T_in = s.T;
   const bool live = s.done < 0.5f;
   const int idx_base = gstart - start + 1;
   Run run = run_init<USE_SA>(s);
   float lsum = 0.f;
   float med_idx = 0.f, mm_new = 0.f, nc_blk = 0.f;
-  int med_j = -1;
   bool trig = false;
   float racc = 0.f, gacc = 0.f, bacc = 0.f;
   float nxacc = 0.f, nyacc = 0.f, nzacc = 0.f;
   float Dacc = 0.f, D2acc = 0.f;
   float dist_add = 0.f, m1_add = 0.f, m2_add = 0.f;
+  StepMask mask = {0u, 0u, 0u, 0u};
 #pragma unroll 1
   for (int j = 0; j < CHUNK; ++j) {
+    const int gi = gstart + j;
+    if (gi < start || gi >= stop) continue;
+    if (FWD_SKIP && !(live && !trig)) break;
+    if (FWD_SKIP && pair_culled(sa, j, px, py)) continue;
     const Run pre = run;
-    const Step st = pair_step<USE_SA>(sa, j, gstart + j, start, stop, px, py,
-                                      T_in, live, run);
+    const Step st = pair_step<USE_SA>(sa, j, gi, start, stop, px, py, T_in,
+                                      live, run);
     trig = trig || (st.okf && st.below);
+    if (st.okf || run.p1 != pre.p1 || run.p2 != pre.p2) mask_set(mask, j);
     if (!st.af) continue;
     const float w = st.w, d = st.g.d_raw;
     lsum = lsum + st.l;
     const float gidx = (float)(idx_base + j);
-    if (st.T_pref > 0.5f) { med_idx = gidx; mm_new = d; med_j = j; }
+    if (st.T_pref > 0.5f) { med_idx = gidx; mm_new = d; }
     nc_blk = gidx;
     racc = racc + A(sa, 18, j) * w;
     gacc = gacc + A(sa, 19, j) * w;
@@ -265,31 +358,29 @@ GS_FN BlockInfo composite_block(PixState& s, const float* sa, int gstart,
       D2acc = D2acc + d * d * w;
     }
   }
-  BlockInfo bi;
-  bi.E = expf(lsum);
-  bi.T_out = T_in * bi.E;
-  bi.mm_out = med_idx > 0.f ? mm_new : s.mm;
-  bi.med_j = med_idx > 0.f ? med_j : -1;
+  const float mm_out = med_idx > 0.f ? mm_new : s.mm;
 
   if (USE_SA) {
-    // second pass: the fusion weights need the block's final median
-    const float mt = bi.mm_out;
     Run run2 = run_init<true>(s);
 #pragma unroll 1
-    for (int j = 0; j < CHUNK; ++j) {
+    for (int j = FWD_SKIP ? mask_next(mask, 0) : 0; j < CHUNK;
+         j = FWD_SKIP ? mask_next(mask, j + 1) : j + 1) {
+      const int gi = gstart + j;
+      if (gi < start || gi >= stop) continue;
       const Run pre = run2;
-      const Step st = pair_step<true>(sa, j, gstart + j, start, stop, px, py,
-                                      T_in, live, run2);
+      const Step st = pair_step<true>(sa, j, gi, start, stop, px, py, T_in,
+                                      live, run2);
       if (st.af) {
-        const float conf = sa_conf(st.T_pref, pre.p1, pre.p2, mt, st.g.d_raw);
-        const float df = conf * st.g.d_raw + (1.f - conf) * mt;
+        const float conf =
+            sa_conf(st.T_pref, pre.p1, pre.p2, mm_out, st.g.d_raw);
+        const float df = conf * st.g.d_raw + (1.f - conf) * mm_out;
         Dacc = Dacc + df * st.w;
         D2acc = D2acc + df * df * st.w;
       }
     }
   }
 
-  s.T = bi.T_out;
+  s.T = T_in * expf(lsum);
   s.done = fmaxf(s.done, trig ? 1.f : 0.f);
   s.r = s.r + racc;
   s.g = s.g + gacc;
@@ -304,10 +395,9 @@ GS_FN BlockInfo composite_block(PixState& s, const float* sa, int gstart,
     s.M2 = s.M2 + m2_add;
     s.dist = s.dist + dist_add;
   }
-  s.mm = bi.mm_out;
+  s.mm = mm_out;
   s.nc = fmaxf(s.nc, nc_blk);
   s.mc = fmaxf(s.mc, med_idx);
-  return bi;
 }
 
 // Cotangent of one pixel's state, in PixelState field order (done,
@@ -358,34 +448,12 @@ GS_FN Run get_rec(const float* rec, int n, int p) {
   return r;
 }
 
-// A pixel's step mask over the block's 128 pairs: bit j is set where pair
-// j touched the pixel (okf) or moved its prefixes (NaN included). A pair
-// outside the mask leaves Run as it was and gets exactly zero gradient,
-// so the reverse walk and the re-run skip it. Four words, read through
-// selects so that they stay in registers.
-struct StepMask {
-  unsigned w0, w1, w2, w3;
-};
-
-GS_FN bool mask_test(const StepMask& m, int j) {
-  const unsigned w = j < 64 ? (j < 32 ? m.w0 : m.w1) : (j < 96 ? m.w2 : m.w3);
-  return ((w >> (j & 31)) & 1u) != 0u;
-}
-
-GS_FN void mask_set(StepMask& m, int j) {
-  const unsigned b = 1u << (j & 31);
-  if (j < 32) m.w0 |= b;
-  else if (j < 64) m.w1 |= b;
-  else if (j < 96) m.w2 |= b;
-  else m.w3 |= b;
-}
-
 // The backward's first pass over a block for pixel p: the block's walk
 // without its sums (BlockInfo, as composite_block computes it), the step
 // mask, the number of pairs in it (n_rec) and their records in the ring.
 // A pair outside the tile's range, or culled for the pixel, is skipped:
 // neither touches the pixel nor moves its Run. `sa` holds the cull radii
-// (stage_block<true>).
+// (stage_block).
 template <bool USE_SA>
 GS_FN BlockInfo block_info(const PixState& s, const float* sa, int gstart,
                            int start, int stop, float px, float py, int p,
@@ -689,44 +757,87 @@ GS_FN float pixel_y(int t, int tiles_x, int p) {
 }
 
 #if defined(__CUDACC__)
-// Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j].
-// With RHO, row RHO_ROW (padding in the slab) gets each pair's cull
-// radius instead.
-template <bool RHO = false>
+// Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j],
+// with each pair's cull radius in row RHO_ROW (padding in the slab).
 __device__ __forceinline__ void stage_block(float* sa, const float* attrs,
                                             int64_t R, int64_t gstart) {
   for (int e = threadIdx.x; e < ATTR_C * CHUNK; e += blockDim.x) {
     const int c = e / CHUNK, j = e % CHUNK;
-    sa[e] = RHO && c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
-                                : attrs[c * R + gstart + j];
+    sa[e] = c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
+                         : attrs[c * R + gstart + j];
   }
+}
+
+// Shared memory of the forward walk, in floats: two staged blocks.
+constexpr int FWD_SA = 2 * ATTR_C * CHUNK;
+
+// Start copying block `gstart` of the [ATTR_C, R] slab into `sa` as
+// sa[c][j] with cp.async (16 bytes a copy, straight to shared memory, one
+// commit group per block); the pad row RHO_ROW is left to the caller. The
+// slab's rows must be 16-byte aligned (the wrappers see to it).
+__device__ __forceinline__ void stage_async(float* sa, const float* attrs,
+                                            int64_t R, int64_t gstart) {
+  constexpr int Q = CHUNK / 4;  // 16-byte pieces of a row
+  for (int e = threadIdx.x; e < ATTR_C * Q; e += blockDim.x) {
+    const int c = e / Q, q = e % Q;
+    if (c == RHO_ROW) continue;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(sa + c * CHUNK + 4 * q);
+    const size_t src = __cvta_generic_to_global(attrs + c * R + gstart + 4 * q);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // One CTA's forward walk over the first `nblk` blocks of its tile, from
 // the pixel state `s` (K1, K3, and K5's re-forward): each block staged
-// once in `sa`, every pixel compositing it; the walk stops once every
-// pixel of the tile has terminated. With STASH, each block's incoming
-// carry goes to stash row soff + k (rows past stash_rows are skipped).
-// Returns the number of blocks composited.
+// once, with its pairs' cull radii, every pixel compositing it; the walk
+// stops once every pixel of the tile has terminated. `sa` holds FWD_SA
+// floats, two buffers: block k + 1 is copied into one (stage_async) while
+// block k is composited from the other; threads 0..CHUNK-1 load block
+// k + 1's opacities into a register as its copy starts and write its cull
+// radii (the pad row RHO_ROW) once block k is composited. With STASH,
+// each block's incoming carry goes to stash row soff + k (rows past
+// stash_rows are skipped). Returns the number of blocks composited.
 template <bool STASH, bool USE_SA, bool NN>
 __device__ __forceinline__ int forward_walk(
     PixState& s, float* sa, const float* __restrict__ attrs, int R,
     const TileWalk& tw, int nblk, float px, float py, float* stash,
     int soff, int stash_rows) {
   const int p = threadIdx.x;
+  const int64_t g0 = (int64_t)tw.blk0 * CHUNK;
+  if (nblk > 0) {
+    stage_async(sa, attrs, R, g0);
+    if (p < CHUNK) sa[RHO_ROW * CHUNK + p] = rho_cull(attrs[17 * R + g0 + p]);
+  }
   int k = 0;
   for (; k < nblk; ++k) {
-    // exit once every pixel of the tile has terminated (this barrier
-    // also orders the previous block's reads of `sa` before the restage)
+    // exit once every pixel of the tile has terminated (this barrier also
+    // orders the reads of block k - 1 before its buffer takes block k + 1)
     if (__syncthreads_and(s.done >= 0.5f)) break;
-    const int64_t gstart = (int64_t)(tw.blk0 + k) * CHUNK;
+    const int64_t gstart = g0 + (int64_t)k * CHUNK;
+    float* cur = sa + (k & 1) * (ATTR_C * CHUNK);
+    float* nxt = sa + ((k + 1) & 1) * (ATTR_C * CHUNK);
+    const bool more = k + 1 < nblk;
+    float op_next = 0.f;
+    if (more) {
+      stage_async(nxt, attrs, R, gstart + CHUNK);
+      if (p < CHUNK) op_next = attrs[17 * R + gstart + CHUNK + p];
+    }
     if (STASH && soff + k < stash_rows)
       store_stash(stash + ((int64_t)(soff + k) * STASH_C) * P + p, P, s);
-    stage_block(sa, attrs, R, gstart);
+    // block k's copies landed (this thread's), then everyone's
+    if (more) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    composite_block<USE_SA, NN>(s, sa, (int)gstart, tw.start, tw.stop, px,
+    composite_block<USE_SA, NN>(s, cur, (int)gstart, tw.start, tw.stop, px,
                                 py);
+    if (more && p < CHUNK) nxt[RHO_ROW * CHUNK + p] = rho_cull(op_next);
   }
+  // a walk that stopped early leaves block k + 1's copies in flight
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   return k;
 }
 

@@ -7,25 +7,35 @@
 //
 // Design: one CTA per rendered tile, one thread per pixel (16x16 = 256).
 // The tile's pair range [start, stop) is walked in 128-aligned global
-// blocks floor(start/128) .. ceil(stop/128) with a validity mask; each
-// block's [24, 128] attributes are staged once in shared memory and every
-// pixel composites the block sequentially (raster_common.cuh,
-// forward_walk, which K5's re-forward shares). The tile
-// exits when every pixel is done (__syncthreads_and). K1 writes each
-// block's incoming carry (T done D D2 M1 M2 mm) to the stash at row
-// soff[tile] + k and the number of blocks it composited to kexit.
+// blocks floor(start/128) .. ceil(stop/128); each block's [24, 128]
+// attributes are staged once in shared memory, with each pair's cull
+// radius in the slab's pad row, and every pixel composites the block
+// (raster_common.cuh: forward_walk and composite_block, which K5's
+// re-forward shares). The tile exits when
+// every pixel is done (__syncthreads_and). K1 writes each block's incoming
+// carry (T done D D2 M1 M2 mm) to the stash at row soff[tile] + k and the
+// number of blocks it composited to kexit.
 //
 // What bounds it: per (pair, pixel) the function needs ~45 f32 FLOP and
-// 4 special-function results (reciprocal, exp, log1p, exp), and ~38 FLOP
-// and 3 more for each pair the pixel accepts (SA's fusion), against 96
-// bytes of attributes read once per block by the whole CTA: bound by
-// operations, the special-function unit first (chip_smoke.py computes the
-// bound from the run's data). This design spends more: SA's median target
-// needs a second pass over the block, geometry included. It keeps the
-// attributes in shared memory (broadcast reads), the pixel state in
-// registers, and stops a tile as soon as all its pixels terminate.
-// Pixels that terminated early still walk the remaining pairs of the
-// block (masked): a later change can compact them.
+// 4 special-function results (reciprocal, exp, log1p, exp) where the cull
+// test keeps the pair, 25 FLOP where it rejects it, and ~38 FLOP and 3
+// more for each pair the pixel accepts (SA's fusion), against 96 bytes of
+// attributes read once per block by the whole CTA: bound by operations
+// (chip_smoke.py computes the bound from the run's data). On phase 2's
+// data the cull rejects ~95% of the walk and a pixel touches ~5.6 pairs
+// of a block; a walk over every pair spends half its time in SA's second
+// pass over the whole block, and most of the rest in the geometry and
+// special functions of pairs that miss the pixel. So the first pass tests
+// the cull before any geometry (a warp whose lanes all reject a pair skips
+// it) and records the touched pairs in a 128-bit step mask; SA's second
+// pass re-runs those pairs only; a pixel that is done, or has triggered
+// inside the block, leaves it. None of these changes a bit of out, stash or kexit
+// (raster_common.cuh argues each; the CPU tests build the math without
+// them, -DGS_FWD_NO_SKIP, and compare). The attributes stay in shared
+// memory (broadcast reads), two blocks of them: block k + 1 is copied
+// with cp.async while block k is composited. The pixel state stays in
+// registers; four CTAs per SM, the compiler's own choice: asking for five
+// or six spilled and was slower (tools/kernel_ab.py).
 #include "raster_common.cuh"
 
 using namespace gs;
@@ -37,7 +47,7 @@ __global__ void __launch_bounds__(P) raster_forward_kernel(
     const int* __restrict__ soff, int tiles_x, int stash_rows,
     float* __restrict__ out, float* __restrict__ stash,
     int* __restrict__ kexit) {
-  __shared__ float sa[ATTR_C * CHUNK];
+  __shared__ float sa[FWD_SA];
   const int i = blockIdx.x;
   const int p = threadIdx.x;
   const int t = tile_ids[i];

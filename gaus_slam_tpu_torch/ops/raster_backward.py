@@ -15,9 +15,9 @@ blocks from the forward's stash: on the card csrc/raster_backward.cu
 K5 (``raster_backward``) is the backward of the reference render
 backend, whose forward keeps no stash: per tile it first re-runs K1's
 block walk (at most ``MAX_CHUNKS_PER_TILE`` blocks) into a scratch stash
-laid out as K1's, then runs K2's reverse sweep over it. On the card both
-phases are one kernel (raster_backward.cu), on the CPU
-``raster_backward_plain``. Its forward (``composite_ref.render_tiles``)
+laid out as K1's, then runs K2's reverse sweep over it. On the card the
+two phases are two kernels of raster_backward.cu launched by one C call,
+on the CPU ``raster_backward_plain``. Its forward (``composite_ref.render_tiles``)
 has no per-tile cap, so a tile with more than 64k pairs would differ.
 """
 from __future__ import annotations
@@ -30,8 +30,9 @@ from . import _cuda
 from .binning import TileGrid
 from .compositing import ATTR_C, OUT_C, PixelState, composite_chunk
 from .composite_ref import tile_pixel_coords
-from .raster_forward import (CHUNK, STASH_C, _check_inputs, _default_ids,
-                             raster_forward_plain, stash_offsets, stash_rows)
+from .raster_forward import (CHUNK, STASH_C, _aligned, _check_inputs,
+                             _default_ids, raster_forward_plain,
+                             stash_offsets, stash_rows)
 
 # Blocks K5's re-forward visits per tile at most (64k pairs), as the TPU
 # kernel's on-chip stash held; csrc/raster_common.cuh has the same bound.
@@ -194,10 +195,14 @@ def raster_backward_plain(pair_attrs, tile_start, tile_stop, saved_out, d_out,
 
 
 def raster_backward(pair_attrs, tile_start, tile_stop, saved_out, d_out, *,
-                    grid: TileGrid, use_sa=True, need_normal=True):
+                    grid: TileGrid, use_sa=True, need_normal=True,
+                    scratch: torch.Tensor | None = None):
     """K5: d_attrs [ATTR_C, R] for the rows of every tile of the grid;
     ``saved_out`` is the forward's output (SA's cotangent reads its
-    median). The scratch stash costs the same bytes as K1's."""
+    median). The scratch stash costs the same bytes as K1's; a caller may
+    pass its own (float32 [stash_rows(R, T), STASH_C, P] on the card),
+    which then holds the re-forward's stash in K1's layout (rows past a
+    tile's kexit untouched)."""
     if not pair_attrs.is_cuda:
         return raster_backward_plain(pair_attrs, tile_start, tile_stop,
                                      saved_out, d_out, grid=grid,
@@ -208,27 +213,34 @@ def raster_backward(pair_attrs, tile_start, tile_stop, saved_out, d_out, *,
     if tile_start.shape != (n,) or tile_stop.shape != (n,):
         raise ValueError(f"raster_backward takes the ranges of all {n} "
                          f"tiles, got {tuple(tile_start.shape)}")
-    attrs = pair_attrs.detach().contiguous()
+    attrs = _aligned(pair_attrs.detach().contiguous())
     ts = tile_start.to(torch.int32).contiguous()
     te = tile_stop.to(torch.int32).contiguous()
     soff = stash_offsets(ts, te).contiguous()
     n_rows = stash_rows(r, n)
-    scratch = torch.empty((n_rows, STASH_C, grid.pixels_per_tile),
-                          dtype=torch.float32, device=dev)
+    shape = (n_rows, STASH_C, grid.pixels_per_tile)
+    if scratch is None:
+        scratch = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif tuple(scratch.shape) != shape:
+        raise ValueError(f"scratch must be {shape}, got "
+                         f"{tuple(scratch.shape)}")
     out, dout = _out_rows(saved_out, d_out, n, grid)
     for t, what in ((attrs, torch.float32), (ts, torch.int32),
                     (te, torch.int32), (out, torch.float32),
-                    (dout, torch.float32)):
+                    (dout, torch.float32), (scratch, torch.float32)):
         _cuda.require(t, what, "raster_backward")
+    # the re-forward's kexit and tile ids, which the sweep reads
+    kexit_ids = torch.empty((2, n), dtype=torch.int32, device=dev)
     d_attrs = torch.zeros((ATTR_C, r), dtype=torch.float32, device=dev)
     fn = _cuda.library("raster_backward").raster_backward_restash
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["raster_backward"] += 1
     _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ts), _cuda.ptr(te),
                    _cuda.ptr(soff), _cuda.ptr(scratch), n_rows,
+                   _cuda.ptr(kexit_ids[0]), _cuda.ptr(kexit_ids[1]),
                    _cuda.ptr(out), _cuda.ptr(dout), n, grid.tiles_x,
                    int(use_sa), int(need_normal), _cuda.ptr(d_attrs),
                    _cuda.stream()), "raster_backward")

@@ -51,6 +51,13 @@ def _check_inputs(pair_attrs, grid):
     return r
 
 
+def _aligned(attrs):
+    """The slab as the forward walk copies it (16 bytes at a time, with
+    cp.async): on a 16-byte boundary, copied there if its storage starts
+    elsewhere."""
+    return attrs if attrs.data_ptr() % 16 == 0 else attrs.clone()
+
+
 def _default_ids(grid, tile_ids, device):
     if tile_ids is None:
         return torch.arange(grid.num_tiles, dtype=torch.int32, device=device)
@@ -118,7 +125,7 @@ def _launch(pair_attrs, tile_start, tile_stop, grid, use_sa, need_normal,
     ids = _default_ids(grid, tile_ids, dev).contiguous()
     n_sub = ids.shape[0]
     P = grid.pixels_per_tile
-    attrs = pair_attrs.detach().contiguous()
+    attrs = _aligned(pair_attrs.detach().contiguous())
     ts = tile_start.to(torch.int32).contiguous()
     te = tile_stop.to(torch.int32).contiguous()
     for t, what in ((attrs, torch.float32), (ids, torch.int32),

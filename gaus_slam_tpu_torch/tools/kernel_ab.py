@@ -1,27 +1,37 @@
-"""A/B timing of the reverse sweep (K2, K5) and the row gather (K4)
-against an older version of the kernels, on chip_smoke.py's phase-2 full
-case (340x600, 836 tiles), with variants that each remove one cost.
+"""A/B timing of the forward walk (K1, K3, and K5's re-forward) and of the
+reverse sweep (K2) against an older version of the kernels, on
+chip_smoke.py's phase-2 cases (340x600: all 836 tiles, and the stride-3
+tile subset of the coarse tracking path), with variants that each remove
+one cost.
 
 Run on a card, from the repository root, with an older ``csrc/`` beside
-the tree (one whose sweep still takes the first cotangent from its
-caller, before the kernels formed it themselves):
+the tree (one whose K2 / K5 already form the first cotangent themselves):
 
     git archive <rev> gaus_slam_tpu_torch/csrc | tar -x -C build/old
     python -m gaus_slam_tpu_torch.tools.kernel_ab \\
         --old build/old/gaus_slam_tpu_torch/csrc [--out DIR]
 
-Every variant is a copy of a source with one textual patch, built by its
-own nvcc (all at once) into ``--out``; the ptxas reports (registers,
-spills, shared memory) go there too. Variants of the old sweep attribute
-its time to four causes: the 21 warp trees of the per-pair sum elided,
-the per-pixel records elided (values wrong: a bound on moving them on
-chip), the whole library at -fmad=true (a bound on explicit fmaf), and
-the tiles launched longest first (the inputs permuted). Variants of the
-current sweep take back one of its parts each (and its tiles, too, are
-launched longest first). Times are CUDA events around 10 launches (K4:
-50 launches in one CUDA graph), rounds interleaved, the median printed;
-every variant's output is compared with the current kernel's. The last
-line is a JSON summary.
+Every variant is a copy of a source with textual patches or extra nvcc
+flags, built by its own nvcc (all at once) into ``--out``; each copy also
+gets a C function that reports its CTAs per SM, and the ptxas reports
+(registers, spills) of every instantiation are printed. Variants of the
+old K1 attribute its time to causes, each removing one: SA's second pass
+elided (values wrong), the backward's cull in the first pass (bit-equal),
+log1p and the prefix exp only for pairs that pass the alpha test
+(bit-equal), the block staged only once (values wrong: a bound on
+overlapping the copy), the whole library at -fmad=true (a bound on
+explicit fmaf), and two to six CTAs per SM asked of ptxas.
+Variants of the current K1: every skip of the forward walk off
+(-DGS_FWD_NO_SKIP), the block staged once (values wrong), -fmad=true, and
+two to six CTAs per SM asked of ptxas, with the skips and without.
+
+Checks, bit for bit: every K1 variant's out / stash / kexit against the
+old K1 on both cases, SA on and off, normals on and off (the variants that
+change values fail it by design); K3's out against K1's; K5's re-forward stash against K1's, K5's gradient against K2's, and
+the current K2 against the old. Times are CUDA events around 10 launches
+(K5: 5), rounds interleaved (forward, then reverse order), the median
+printed; the timed case is the full one, SA on, normals off, as phase 2
+times it. The last line is a JSON summary.
 """
 from __future__ import annotations
 
@@ -29,54 +39,96 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-REDUCE_OLD = """        if (__any_sync(0xffffffffu, okf)) {
-#pragma unroll
-          for (int q = 0; q < GRAD_C; ++q) {
-            float v = gv[q];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v += __shfl_down_sync(0xffffffffu, v, off);
-            if (lane == 0) part[warp][jj][q] = v;
-          }
-        } else if (lane == 0) {"""
-REDUCE_OLD_ELIDED = """        if (__any_sync(0xffffffffu, okf)) {
-          float v = 0.f;
-#pragma unroll
-          for (int q = 0; q < GRAD_C; ++q) v += gv[q];
-          if (lane < GRAD_C) part[warp][jj][lane] = v * 0.f;
-        } else if (lane == 0) {"""
-# the old sweep's per-pixel records (local-memory arrays) elided
-RECORDS_ELIDED = [
-    ("if (STORE) cumx[j] = cum;", ""),
-    ("if (STORE) { pre1[j] = dp; pre2[j] = d2p; }", ""),
-    ("if (STORE) { pre1[j] = M1p; pre2[j] = M2p; }", ""),
-    ("const float e = expf(cumx[j]);", "const float e = expf(rc.gTin * 0.f);"),
-    ("sa_conf(T_pref, pre1[j], pre2[j],", "sa_conf(T_pref, rc.S_w, rc.S_wm,"),
-    ("const float M1p = pre1[j], M2p = pre2[j];",
-     "const float M1p = rc.S_w, M2p = rc.S_wm;"),
-]
+FWD, COM, BWD = "raster_forward.cu", "raster_common.cuh", "raster_backward.cu"
 
-RS_CALL = """        const float row = warp_reduce_scatter(gv, lane);
-        if (lane < GRAD_C) prow[lane] = row;"""
-TREES = """#pragma unroll
-        for (int q = 0; q < GRAD_C; ++q) {
-          float v = gv[q];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_down_sync(0xffffffffu, v, off);
-          if (lane == 0) prow[q] = v;
-        }"""
-RS_ELIDED = """        float v = 0.f;
-#pragma unroll
-        for (int q = 0; q < GRAD_C; ++q) v += gv[q];
-        if (lane < GRAD_C) prow[lane] = v * 0.f;"""
-MIN_BLOCKS = "constexpr int MIN_BLOCKS = 3;"
-CULL = "|| pair_culled(sa, j, px, py)) continue;"
+# patches of the old forward walk (before the cull-first redesign), one
+# cause each
+SA2 = ("  if (USE_SA) {\n    // second pass: the fusion weights need the "
+       "block's final median")
+SA2_ELIDED = "  if (false) {\n    // second pass elided"
+FIRST_LOOP = """  for (int j = 0; j < CHUNK; ++j) {
+    const Run pre = run;
+    const Step st = pair_step<USE_SA>(sa, j, gstart + j, start, stop, px, py,
+                                      T_in, live, run);
+    trig = trig || (st.okf && st.below);"""
+FIRST_LOOP_CULL = FIRST_LOOP.replace(
+    "++j) {\n", "++j) {\n    if (pair_culled(sa, j, px, py)) continue;\n")
+STAGE = "    stage_block(sa, attrs, R, gstart);"
+EAGER_SFU = """  st.l = log1pf(-a_eff);
+  st.T_pref = T_in * expf(run.cum);
+  run.cum = run.cum + st.l;
+  st.below = st.T_pref * (1.f - a_eff) < T_EPS;"""
+LAZY_SFU = """  st.l = -0.f;
+  st.T_pref = T_in;
+  st.below = false;
+  if (st.okf) {
+    st.l = log1pf(-a_eff);
+    st.T_pref = T_in * expf(run.cum);
+    run.cum = run.cum + st.l;
+    st.below = st.T_pref * (1.f - a_eff) < T_EPS;
+  }"""
+# the current walk stages block k + 1 (copy and cull radii) during block k;
+# staged once, every block reads block 0's buffer, as the old variant does
+NEW_STAGE = [("    if (more) {\n      stage_async(",
+              "    if (false) {\n      stage_async("),
+             ("    if (more && p < CHUNK) nxt[", "    if (false) nxt["),
+             ("    float* cur = sa + (k & 1) * (ATTR_C * CHUNK);",
+              "    float* cur = sa;")]
+BOUNDS = "__global__ void __launch_bounds__(P) raster_forward_kernel("
+
+# appended to every copy of raster_forward.cu / raster_backward.cu: the
+# CTAs per SM of each instantiation, from the occupancy calculator
+OCC_FWD = """
+extern "C" int ab_occupancy(int stash, int sa, int nn) {
+  int n = -1;
+#define GS_OCC(S, A, N) if (stash == S && sa == A && nn == N) \\
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor( \\
+      &n, raster_forward_kernel<(S) != 0, (A) != 0, (N) != 0>, P, 0)
+  GS_OCC(1, 1, 1); GS_OCC(1, 1, 0); GS_OCC(1, 0, 1); GS_OCC(1, 0, 0);
+  GS_OCC(0, 1, 1); GS_OCC(0, 1, 0); GS_OCC(0, 0, 1); GS_OCC(0, 0, 0);
+#undef GS_OCC
+  return n;
+}
+"""
+OCC_BWD = """
+extern "C" int ab_occupancy(int restash, int sa, int nn) {
+  int n = -1;
+#define GS_OCC(K, A, N, SMEM) if (sa == A && nn == N) { \\
+  cudaFuncSetAttribute(K<(A) != 0, (N) != 0>, \\
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, \\
+                       (int)SMEM); \\
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K<(A) != 0, (N) != 0>, \\
+                                                P, SMEM); }
+  if (restash) {
+    GS_OCC(K5_FIRST, 1, 1, K5_SMEM); GS_OCC(K5_FIRST, 1, 0, K5_SMEM);
+    GS_OCC(K5_FIRST, 0, 1, K5_SMEM); GS_OCC(K5_FIRST, 0, 0, K5_SMEM);
+  } else {
+    GS_OCC(raster_backward_kernel, 1, 1, SWEEP_SMEM);
+    GS_OCC(raster_backward_kernel, 1, 0, SWEEP_SMEM);
+    GS_OCC(raster_backward_kernel, 0, 1, SWEEP_SMEM);
+    GS_OCC(raster_backward_kernel, 0, 0, SWEEP_SMEM);
+  }
+#undef GS_OCC
+  return n;
+}
+"""
+# K5's first kernel: one fused kernel (raster_backward_restash_kernel,
+# with the sweep's shared memory) before the forward walk's redesign, a
+# separate re-forward kernel (raster_reforward_kernel) since
+K5_SPLIT = "raster_reforward_kernel"
+
+
+def occ_bwd(text):
+    split = K5_SPLIT in text
+    return OCC_BWD.replace("K5_FIRST", K5_SPLIT if split else
+                           "raster_backward_restash_kernel").replace(
+        "K5_SMEM", "0" if split else "SWEEP_SMEM")
 
 
 def _patched(text, patches):
@@ -88,67 +140,124 @@ def _patched(text, patches):
 
 
 def variants(cur: Path, old: Path, flags):
-    """{name: (raster_backward.cu, raster_common.cuh, nvcc flags, abi)}."""
-    bwd = (cur / "raster_backward.cu").read_text()
-    com = (cur / "raster_common.cuh").read_text()
-    obwd = (old / "raster_backward.cu").read_text()
-    ocom = (old / "raster_common.cuh").read_text()
+    """{name: (main source, {file: text}, nvcc flags)}: the old and the
+    current K1 (raster_forward.cu) and K2 / K5 (raster_backward.cu). A
+    variant whose patch does not apply to its source is left out."""
+    src = {d: {f: (d / f).read_text() for f in (FWD, COM, BWD)}
+           for d in (cur, old)}
     fmad = [f if f != "-fmad=false" else "-fmad=true" for f in flags]
-    return {
-        "old": (obwd, ocom, flags, "old"),
-        "old_trees_elided": (_patched(obwd, [(REDUCE_OLD, REDUCE_OLD_ELIDED)]),
-                             ocom, flags, "old"),
-        "old_records_elided": (obwd, _patched(ocom, RECORDS_ELIDED), flags,
-                               "old"),
-        "old_fmad_true": (obwd, ocom, fmad, "old"),
-        "new": (bwd, com, flags, "new"),
-        "new_21_trees": (_patched(bwd, [(RS_CALL, TREES)]), com, flags, "new"),
-        "new_reduction_elided": (_patched(bwd, [(RS_CALL, RS_ELIDED)]), com,
-                                 flags, "new"),
-        "new_no_cull": (bwd, _patched(com, [(CULL, "|| false) continue;")]),
-                        flags, "new"),
-        "new_min_blocks_2": (_patched(bwd, [(MIN_BLOCKS, MIN_BLOCKS.replace(
-            "3", "2"))]), com, flags, "new"),
-        "new_rec_cap_8": (bwd, com, flags + ["-DGS_REC_CAP=8"], "new"),
+
+    def old_fwd(fwd_patches=(), com_patches=(), fl=flags):
+        return (FWD, {FWD: _patched(src[old][FWD], fwd_patches),
+                      COM: _patched(src[old][COM], com_patches)}, fl)
+
+    def cur_fwd(defines=(), fwd_patches=(), com_patches=(), fl=flags):
+        return (FWD, {FWD: _patched(src[cur][FWD], fwd_patches),
+                      COM: _patched(src[cur][COM], com_patches)},
+                fl + list(defines))
+
+    def opt(make, *a, **kw):
+        try:
+            return make(*a, **kw)
+        except ValueError as e:
+            print(f"[ab] variant left out: {e}", flush=True)
+            return None
+
+    vs = {
+        "k1_old": old_fwd(),
+        "k1_old_sa2_elided": opt(old_fwd, com_patches=[(SA2, SA2_ELIDED)]),
+        "k1_old_cull": opt(old_fwd, com_patches=[
+            (FIRST_LOOP, FIRST_LOOP_CULL),
+            (STAGE, STAGE.replace("stage_block(", "stage_block<true>("))]),
+        "k1_old_lazy_sfu": opt(old_fwd, com_patches=[(EAGER_SFU, LAZY_SFU)]),
+        "k1_old_stage_once": opt(old_fwd, com_patches=[
+            (STAGE, STAGE.replace("    stage", "    if (k == 0) stage"))]),
+        "k1_old_fmad_true": old_fwd(fl=fmad),
+        "k1_new": cur_fwd(),
+        "k1_new_no_skip": cur_fwd(["-DGS_FWD_NO_SKIP"]),
+        "k1_new_stage_once": opt(cur_fwd, com_patches=NEW_STAGE),
+        "k1_new_fmad_true": cur_fwd(fl=fmad),
+        "bwd_old": (BWD, {BWD: src[old][BWD], COM: src[old][COM]}, flags),
+        "bwd_new": (BWD, {BWD: src[cur][BWD], COM: src[cur][COM]}, flags),
+        "bwd_new_no_skip": (BWD, {BWD: src[cur][BWD], COM: src[cur][COM]},
+                            flags + ["-DGS_FWD_NO_SKIP"]),
     }
+    for n in (2, 3, 4, 5, 6):
+        vs[f"k1_old_min_blocks_{n}"] = opt(old_fwd, fwd_patches=[
+            (BOUNDS, BOUNDS.replace("(P)", f"(P, {n})"))])
+        vs[f"k1_new_min_blocks_{n}"] = opt(cur_fwd, fwd_patches=[
+            (BOUNDS, BOUNDS.replace("(P)", f"(P, {n})"))])
+        vs[f"k1_new_no_skip_min_blocks_{n}"] = opt(
+            cur_fwd, ["-DGS_FWD_NO_SKIP"],
+            fwd_patches=[(BOUNDS, BOUNDS.replace("(P)", f"(P, {n})"))])
+    return {k: v for k, v in vs.items() if v is not None}
 
 
-def build(vs, old: Path, out: Path, nvcc):
-    """Every variant (and the old gather) by its own nvcc, all at once."""
+ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)I((?:Lb[01]E)+)E")
+REGS = re.compile(r"Used (\d+) registers")
+SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_table(log):
+    """[(kernel<flags>, registers, spill store bytes, spill load bytes)]
+    from an -Xptxas -v report."""
+    rows, entry, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = ENTRY.search(line)
+        if m:
+            entry = m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E",
+                                                           m.group(2))) + ">"
+            continue
+        m = SPILL.search(line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = REGS.search(line)
+        if m and entry and "ab_occupancy" not in entry:
+            rows.append((entry, int(m.group(1)), *spill))
+            entry = None
+    return rows
+
+
+def build(vs, out: Path, nvcc):
+    """Every variant by its own nvcc, all at once; {name: (CDLL, ptxas
+    rows)}."""
     procs = {}
-    for name, (bwd, com, flags, _) in vs.items():
+    for name, (main, files, flags) in vs.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "raster_backward.cu").write_text(bwd)
-        (d / "raster_common.cuh").write_text(com)
-        lib = d / "libk2.so"
+        for f, text in files.items():
+            if f == main:
+                text += OCC_FWD if main == FWD else occ_bwd(text)
+            (d / f).write_text(text)
+        lib = d / "libk.so"
         procs[name] = (subprocess.Popen(
-            [nvcc, *flags, "-o", str(lib), str(d / "raster_backward.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    from gaus_slam_tpu_torch.ops import _cuda
-    lib = out / "libgather_old.so"
-    procs["gather_old"] = (subprocess.Popen(
-        [nvcc, *_cuda.NVCC_FLAGS, "-o", str(lib), str(old / "gather.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+            [nvcc, *flags, "-o", str(lib), str(d / main)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
+            K5_SPLIT in files.get(BWD, ""))
     libs = {}
-    for name, (p, lib) in procs.items():
+    for name, (p, lib, split) in procs.items():
         log, _ = p.communicate()
         (out / f"{name}.ptxas.log").write_text(log)
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ab] {name}: {line.strip()}")
-        libs[name] = ctypes.CDLL(str(lib))
+        rows = ptxas_table(log)
+        print(f"[ab] {name}: " + "; ".join(
+            f"{e} {r} regs, spill {s}/{l} B" for e, r, s, l in rows),
+            flush=True)
+        libs[name] = (ctypes.CDLL(str(lib)), rows, split)
     return libs
 
 
-def touch_stats(pattrs, ts, te, stash, kex, soff, grid, rec_cap=16):
-    """How much of the sweep's walk touches a pixel: per walked (block,
-    pixel) whether it is live and how many pairs pass its alpha test
-    (okf), per (block, pair, warp) whether any lane is touched."""
+def touch_stats(pattrs, ts, te, stash, kex, soff, grid):
+    """The forward walk's work, per walked (block, pixel): live share,
+    pairs passing the alpha test (okf) per live one, the share of the
+    live in-range (pair, pixel) evaluations the cull rejects, and per
+    (block, pair, warp) the share with a live lane that the cull keeps
+    or that okf touches."""
     import torch
 
+    import chip_smoke as cs
     from gaus_slam_tpu_torch.ops.camera import (ALPHA_MIN, FILTER_INV_SQUARE,
                                                 NEAR_N)
     from gaus_slam_tpu_torch.ops.composite_ref import tile_pixel_coords
@@ -160,8 +269,8 @@ def touch_stats(pattrs, ts, te, stash, kex, soff, grid, rec_cap=16):
     kl = kex.long()
     tile = torch.repeat_interleave(torch.arange(n, device=dev), kl)
     k = torch.arange(tile.numel(), device=dev) - (torch.cumsum(kl, 0) - kl)[tile]
-    live_n = okf_sum = touched = 0.0
-    okf_max = over = 0
+    acc = dict(live=0.0, okf=0.0, evals=0.0, culled=0.0, warp_kept=0.0,
+               warp_okf=0.0)
     nb = tile.numel()
     for c0 in range(0, nb, 32):
         t, kk = tile[c0:c0 + 32], k[c0:c0 + 32]
@@ -187,20 +296,23 @@ def touch_stats(pattrs, ts, te, stash, kex, soff, grid, rec_cap=16):
         d = torch.where(r3 <= r2, sx * A(9) + sy * A(10) + A(11),
                         A(11).expand_as(sx))
         alpha = A(17) * torch.exp(-0.5 * torch.minimum(r3, r2))
-        ok = (ok_z & (d >= NEAR_N) & (alpha >= ALPHA_MIN) & valid[..., None]
-              & live[:, None, :])
-        live_n += float(live.float().sum())
-        cnt = ok.sum(1)                                           # [b, P]
-        okf_sum += float(cnt.float().sum())
-        okf_max = max(okf_max, int(cnt.max()))
-        over += int((cnt > rec_cap).sum())
-        touched += float(ok.reshape(ok.shape[0], 128, 8, 32).any(-1)
-                         .float().sum())
-    stats = dict(blocks=nb, live_share=live_n / (nb * 256),
-                 okf_per_live_mean=okf_sum / max(live_n, 1.0),
-                 okf_per_live_max=okf_max,
-                 over_rec_cap_share=over / (nb * 256),
-                 pair_warp_touched_share=touched / (nb * 128 * 8))
+        walk = valid[..., None] & live[:, None, :]
+        ok = (ok_z & (d >= NEAR_N) & (alpha >= ALPHA_MIN)) & walk
+        culled = cs.cull_rejects(A(17), A(12) - x, A(13) - y, p_x, p_y,
+                                 p_z) & walk
+        kept = walk & ~culled
+        acc["live"] += float(live.float().sum())
+        acc["okf"] += float(ok.float().sum())
+        acc["evals"] += float(walk.float().sum())
+        acc["culled"] += float(culled.float().sum())
+        for name, m in (("warp_kept", kept), ("warp_okf", ok)):
+            acc[name] += float(m.reshape(m.shape[0], 128, 8, 32).any(-1)
+                               .float().sum())
+    stats = dict(blocks=nb, live_share=acc["live"] / (nb * 256),
+                 okf_per_live=acc["okf"] / max(acc["live"], 1.0),
+                 culled_share=acc["culled"] / max(acc["evals"], 1.0),
+                 pair_warp_kept_share=acc["warp_kept"] / (nb * 128 * 8),
+                 pair_warp_okf_share=acc["warp_okf"] / (nb * 128 * 8))
     print(f"[ab] walked (block, pixel): {stats}", flush=True)
     return stats
 
@@ -219,11 +331,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     from gaus_slam_tpu_torch.ops import _cuda
-    from gaus_slam_tpu_torch.ops.gather import (monotone_row_gather_rows,
-                                                monotone_row_gather_rows_plain)
-    from gaus_slam_tpu_torch.ops.raster_backward import (
-        finalize_cotangents, raster_backward, raster_backward_stash)
-    from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward_stash,
+    from gaus_slam_tpu_torch.ops.raster_backward import (raster_backward,
+                                                         raster_backward_stash)
+    from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
+                                                        raster_forward_stash,
                                                         stash_offsets,
                                                         stash_rows)
 
@@ -236,168 +347,173 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     t0 = time.time()
     vs = variants(_cuda.CSRC, args.old, list(_cuda.NVCC_FLAGS))
-    libs = build(vs, args.old, args.out, _cuda._nvcc())
+    libs = build(vs, args.out, _cuda._nvcc())
     print(f"[ab] built {len(libs)} libraries in {time.time() - t0:.1f} s",
           flush=True)
+    summary = {"card": card, "k1": {}, "k3": {}, "k5": {}, "k2": {},
+               "ptxas": {}, "ctas_per_sm": {}}
+    for name, (lib, rows, _) in libs.items():
+        summary["ptxas"][name] = rows
+        lib.ab_occupancy.argtypes = [ctypes.c_int] * 3
+        if name.startswith("k1"):
+            summary["ctas_per_sm"][name] = {
+                f"{s}{a}{n}": lib.ab_occupancy(s, a, n)
+                for s in (1, 0) for a in (1, 0) for n in (1, 0)}
+        else:
+            summary["ctas_per_sm"][name] = {
+                f"{k}{a}{n}": lib.ab_occupancy(k, a, n)
+                for k in (1, 0) for a in (1, 0) for n in (1, 0)}
+        print(f"[ab] {name}: CTAs per SM {summary['ctas_per_sm'][name]}",
+              flush=True)
 
     cfg, ds, sys_cfg, capacity = cs.make_setup(dev)
     opts = sys_cfg.opts
     gm = cs.random_map(ds, sys_cfg.cam, capacity, dev)
-    bins, cases = cs.kernel_inputs(gm, sys_cfg.cam, opts,
-                                   sys_cfg.track_front.coarse_stride)
+    _, cases = cs.kernel_inputs(gm, sys_cfg.cam, opts,
+                                sys_cfg.track_front.coarse_stride)
+    P, I, V = _cuda.ptr, ctypes.c_int, ctypes.c_void_p
+    tiles_x = opts.grid.tiles_x
+
+    def k1_call(lib, case, sa, nn, want_stash=True):
+        pattrs, ts, te, ids = cases[case]
+        n_sub, r = int(ts.shape[0]), int(pattrs.shape[1])
+        ids = (torch.arange(n_sub, device=dev) if ids is None else ids) \
+            .to(torch.int32).contiguous()
+        ts32, te32 = ts.to(torch.int32).contiguous(), te.to(torch.int32).contiguous()
+        soff = stash_offsets(ts32, te32).contiguous()
+        nrows = stash_rows(r, n_sub)
+        out = torch.empty((n_sub, 16, 256), device=dev)
+        stash = torch.zeros((nrows, 8, 256), device=dev)
+        kexit = torch.zeros((n_sub,), dtype=torch.int32, device=dev)
+        fn = lib.raster_forward
+        fn.argtypes = [V, I] + [V] * 4 + [I] * 6 + [V] * 4
+
+        def run():
+            rc = fn(P(pattrs), r, P(ids), P(ts32), P(te32), P(soff), n_sub,
+                    tiles_x, int(sa), int(nn), int(want_stash), nrows, P(out),
+                    P(stash), P(kexit), _cuda.stream())
+            assert rc == 0, rc
+            return out, stash, kexit
+        return run
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # bit-equality with the old K1 on every case (both cases, SA and
+    # normals on and off), for every K1 variant, and of K3 with K1
+    k1o, k1n = libs["k1_old"][0], libs["k1_new"][0]
+    combos = [(c, sa, nn) for c in cases for sa in (True, False)
+              for nn in (False, True)]
+    refs = {cb: [x.clone() for x in k1_call(k1o, *cb)()] for cb in combos}
+    eq = {}
+    for cb in combos:
+        n = k1_call(k1n, *cb)()
+        k3 = k1_call(k1n, *cb, want_stash=False)()[0]
+        tag = f"{cb[0]} sa={int(cb[1])} nn={int(cb[2])}"
+        eq[tag] = dict(k1_equal_old=same(n, refs[cb]),
+                       k3_out_equal_k1=bool(torch.equal(k3, n[0])))
+        print(f"[ab] {tag}: {eq[tag]}", flush=True)
+    summary["k1"]["equal"] = eq
+    for name, (lib, _, _) in libs.items():
+        if name.startswith("k1"):
+            n_eq = sum(same(k1_call(lib, *cb)(), refs[cb]) for cb in combos)
+            summary["k1"].setdefault(name, {})["cases_equal_old"] = n_eq
+            print(f"[ab] {name}: out / stash / kexit bit-equal to the old K1 "
+                  f"on {n_eq} of {len(combos)} cases", flush=True)
+
+    # K5's re-forward stash and gradient, the current K2 against the old
     pattrs, ts, te, _ = cases["full"]
-    kw = dict(grid=opts.grid, use_sa=True, need_normal=False)
-    k_out, k_stash, k_kexit = raster_forward_stash(pattrs, ts, te, **kw)
-    rng = np.random.default_rng(1)
     n_sub, r = int(ts.shape[0]), int(pattrs.shape[1])
-    d_out = torch.zeros_like(k_out)
-    d_out[:, :10] = torch.as_tensor(
-        rng.normal(size=(n_sub, 10, 256)).astype(np.float32), device=dev)
-    ids = torch.arange(n_sub, dtype=torch.int32, device=dev)
     ts32, te32 = ts.to(torch.int32).contiguous(), te.to(torch.int32).contiguous()
     soff = stash_offsets(ts32, te32).contiguous()
-    kex = k_kexit.to(torch.int32).contiguous()
-    d0 = finalize_cotangents(k_out, d_out, torch.zeros(3, device=dev),
-                             use_sa=True).contiguous()
-    # the tiles as they come, and permuted longest kexit first (the CTAs
-    # take them in launch order)
-    as_is = dict(ids=ids, ts=ts32, te=te32, soff=soff, kex=kex, d0=d0,
-                 out=k_out, dout=d_out)
-    perm = torch.argsort(kex.long(), descending=True, stable=True)
-    by_kexit = {k: v[perm].contiguous() for k, v in as_is.items()}
-    print(f"[ab] case full: {n_sub} tiles, R {r}, pairs "
-          f"{int((te - ts).clamp(min=0).sum())}, swept blocks {int(kex.sum())}"
-          f" (max {int(kex.max())} per tile)", flush=True)
-    P, I, V = _cuda.ptr, ctypes.c_int, ctypes.c_void_p
+    ids = torch.arange(n_sub, dtype=torch.int32, device=dev)
+    nrows = stash_rows(r, n_sub)
+    rng = np.random.default_rng(1)
+    d_out = torch.zeros((n_sub, 16, 256), device=dev)
+    d_out[:, :10] = torch.as_tensor(
+        rng.normal(size=(n_sub, 10, 256)).astype(np.float32), device=dev)
 
-    def old_call(lib, a):
-        fn = lib.raster_backward
-        fn.argtypes = [V, I] + [V] * 6 + [I, V] + [I] * 4 + [V] * 2
-        out = torch.zeros((24, r), dtype=torch.float32, device=dev)
-
-        def run():
-            rc = fn(P(pattrs), r, P(a["ids"]), P(a["ts"]), P(a["te"]),
-                    P(a["soff"]), P(a["kex"]), P(k_stash), k_stash.shape[0],
-                    P(a["d0"]), n_sub, opts.grid.tiles_x, 1, 0, P(out),
-                    _cuda.stream())
-            assert rc == 0, rc
-            return out
-        return run
-
-    def new_call(lib, a):
+    def k2_call(lib, out, stash, kexit, sa):
         fn = lib.raster_backward
         fn.argtypes = [V, I] + [V] * 6 + [I] + [V] * 2 + [I] * 4 + [V] * 2
-        out = torch.zeros((24, r), dtype=torch.float32, device=dev)
+        g = torch.zeros((24, r), device=dev)
+        kex = kexit.to(torch.int32).contiguous()
 
         def run():
-            rc = fn(P(pattrs), r, P(a["ids"]), P(a["ts"]), P(a["te"]),
-                    P(a["soff"]), P(a["kex"]), P(k_stash), k_stash.shape[0],
-                    P(a["out"]), P(a["dout"]), n_sub, opts.grid.tiles_x, 1, 0,
-                    P(out), _cuda.stream())
-            assert rc == 0, rc
-            return out
+            assert fn(P(pattrs), r, P(ids), P(ts32), P(te32), P(soff), P(kex),
+                      P(stash), nrows, P(out), P(d_out), n_sub, tiles_x,
+                      int(sa), 0, P(g), _cuda.stream()) == 0
+            return g
         return run
 
-    stats = touch_stats(pattrs, ts32, te32, k_stash, kex, soff, opts.grid)
-    runs = {n: (old_call if vs[n][3] == "old" else new_call)(lib, as_is)
-            for n, lib in libs.items() if n in vs}
-    runs["old_tiles_by_kexit"] = old_call(libs["old"], by_kexit)
-    runs["new_tiles_by_kexit"] = new_call(libs["new"], by_kexit)
-    bargs = (pattrs, ts, te, k_stash, k_kexit, k_out, d_out)
-    old_kernel = runs["old"]
+    def k5_call(name, out, sa):
+        lib, _, split = libs[name]
+        fn = lib.raster_backward_restash
+        # the split K5 takes a scratch kexit and tile ids after the stash
+        fn.argtypes = ([V, I] + [V] * 4 + [I] + [V] * (4 if split else 2)
+                       + [I] * 4 + [V] * 2)
+        g = torch.zeros((24, r), device=dev)
+        scratch = torch.zeros((nrows, 8, 256), device=dev)
+        kex_ids = torch.zeros((2, n_sub), dtype=torch.int32, device=dev)
+        kex = [P(kex_ids[0]), P(kex_ids[1])] if split else []
 
-    def old_wrapper():
-        # the old wrapper: finalize_cotangents' eager launches, then K2
-        d0.copy_(finalize_cotangents(k_out, d_out, torch.zeros(3, device=dev),
-                                     use_sa=True))
-        return old_kernel()
-    runs["old_wrapper"] = old_wrapper
-    runs["new_wrapper"] = lambda: raster_backward_stash(*bargs, **kw)
-    ref = runs["new"]().clone()
-    old_ref = runs["old"]().clone()
-    torch.cuda.synchronize()
-    summary = {"card": card, "touch": stats, "k2": {}, "k5": {}, "k4": {}}
-    for name, fn in runs.items():
-        g = fn().clone()
-        torch.cuda.synchronize()
-        rel = max(float((g[c] - old_ref[c]).norm() / old_ref[c].norm())
-                  for c in range(21) if float(old_ref[c].norm()) > 0)
-        eq = bool(torch.equal(g, ref))
-        print(f"[ab] {name}: bit-equal to new {eq}; largest relative L2 "
-              f"row difference from old {rel:.2e}", flush=True)
-        summary["k2"][name] = {"equal_to_new": eq, "rel_l2_vs_old": rel}
+        def run():
+            assert fn(P(pattrs), r, P(ts32), P(te32), P(soff), P(scratch),
+                      nrows, *kex, P(out), P(d_out), n_sub, tiles_x, int(sa),
+                      0, P(g), _cuda.stream()) == 0
+            return g, scratch
+        return run
+
+    b_old, b_new = libs["bwd_old"][0], libs["bwd_new"][0]
+    for sa in (True, False):
+        out, stash, kexit = [x.clone() for x in k1_call(k1n, "full", sa, False)()]
+        g2n = k2_call(b_new, out, stash, kexit, sa)().clone()
+        g2o = k2_call(b_old, out, stash, kexit, sa)().clone()
+        g5, s5 = [x.clone() for x in k5_call("bwd_new", out, sa)()]
+        tag = f"sa={int(sa)}"
+        summary["k5"][tag] = dict(
+            k5_stash_equal_k1=bool(torch.equal(s5, stash)),
+            k5_grad_equal_k2=bool(torch.equal(g5, g2n)),
+            k2_equal_old=bool(torch.equal(g2n, g2o)))
+        print(f"[ab] K5 / K2 full {tag}: {summary['k5'][tag]}", flush=True)
+
+    out, stash, kexit = [x.clone() for x in k1_call(k1n, "full", True, False)()]
+    print(f"[ab] case full: {n_sub} tiles, R {r}, pairs "
+          f"{int((te - ts).clamp(min=0).sum())}, composited blocks "
+          f"{int(kexit.sum())} (max {int(kexit.max())} per tile)", flush=True)
+    summary["touch"] = touch_stats(pattrs, ts32, te32, stash, kexit, soff,
+                                   opts.grid)
+    kw = dict(grid=opts.grid, use_sa=True, need_normal=False)
+    runs = {name: k1_call(lib, "full", True, False)
+            for name, (lib, _, _) in libs.items() if name.startswith("k1")}
+    runs["k1_wrapper"] = lambda: raster_forward_stash(pattrs, ts, te, **kw)
+    runs["k3_old"] = k1_call(k1o, "full", True, False, want_stash=False)
+    runs["k3_new"] = k1_call(k1n, "full", True, False, want_stash=False)
+    runs["k3_wrapper"] = lambda: raster_forward(pattrs, ts, te, **kw)
+    runs["k2_old"] = k2_call(b_old, out, stash, kexit, True)
+    runs["k2_new"] = k2_call(b_new, out, stash, kexit, True)
+    runs["k2_new_no_skip"] = k2_call(libs["bwd_new_no_skip"][0], out, stash,
+                                     kexit, True)
+    runs["k5_old"] = k5_call("bwd_old", out, True)
+    runs["k5_new"] = k5_call("bwd_new", out, True)
+    runs["k5_new_no_skip"] = k5_call("bwd_new_no_skip", out, True)
+    runs["k5_wrapper"] = lambda: raster_backward(pattrs, ts, te, out, d_out,
+                                                 **kw)
+    runs["k2_wrapper"] = lambda: raster_backward_stash(
+        pattrs, ts, te, stash, kexit, out, d_out, **kw)
+    e = same(runs["k1_wrapper"](), refs[("full", True, False)])
+    summary["k1"]["k1_wrapper"] = {"equal_old": e}
+    print(f"[ab] k1_wrapper: bit-equal to the old K1: {e}", flush=True)
     times = {n: [] for n in runs}
     for _ in range(args.rounds):
         for n in list(runs) + list(reversed(list(runs))):
-            times[n].append(cs.time_ms(runs[n], 10))
+            reps = 5 if n.startswith(("k5", "k2")) else 10
+            times[n].append(cs.time_ms(runs[n], reps))
     for n, t in times.items():
-        summary["k2"][n]["ms"] = float(np.median(t))
-        print(f"[ab] K2 {n}: ms {np.median(t):.4f} "
+        group = n.split("_")[0]
+        summary[group].setdefault(n, {})["ms"] = float(np.median(t))
+        print(f"[ab] {n}: ms {np.median(t):.4f} "
               f"(all {' '.join('%.4f' % x for x in t)})", flush=True)
-
-    # K5: the old kernel through ctypes, the new through its wrapper
-    fn5 = libs["old"].raster_backward_restash
-    fn5.argtypes = [V, I] + [V] * 4 + [I, V] + [I] * 4 + [V] * 2
-    nrows = stash_rows(r, n_sub)
-    scratch = torch.empty((nrows, 8, 256), device=dev)
-    out5 = torch.zeros((24, r), device=dev)
-
-    def k5_old():
-        assert fn5(P(pattrs), r, P(ts32), P(te32), P(soff), P(scratch), nrows,
-                   P(d0), n_sub, opts.grid.tiles_x, 1, 0, P(out5),
-                   _cuda.stream()) == 0
-        return out5
-
-    def k5_new():
-        return raster_backward(pattrs, ts, te, k_out, d_out, **kw)
-    eq5 = bool(torch.equal(k5_new(), ref))
-    eq5_old = bool(torch.equal(k5_old().clone(), old_ref))
-    t5 = {"old": [], "new": []}
-    for _ in range(args.rounds):
-        for n, f in (("old", k5_old), ("new", k5_new), ("new", k5_new),
-                     ("old", k5_old)):
-            t5[n].append(cs.time_ms(f, 5))
-    summary["k5"] = {"new_equal_to_new_k2": eq5, "old_equal_to_old_k2": eq5_old,
-                     **{f"{n}_ms": float(np.median(v)) for n, v in t5.items()}}
-    print(f"[ab] K5: {summary['k5']}", flush=True)
-
-    # K4 at the reduction's shapes: the old [C, R] kernel (alone, and as
-    # the old _land called it, after a transposed copy), the row kernel,
-    # index_select on either layout and the plain version
-    rr = int(bins.pair_gauss.shape[0])
-    acc = torch.as_tensor(rng.normal(size=(rr, 24)).astype(np.float32),
-                          device=dev)
-    pos = torch.clamp(torch.cumsum(bins.counts, 0) - 1, 0, rr - 1).to(torch.int32)
-    pos_l, n = pos.long(), int(pos.numel())
-    fn4 = libs["gather_old"].monotone_row_gather
-    fn4.argtypes = [V] * 3 + [I] * 3 + [V]
-    out_t = torch.empty((24, n), device=dev)
-
-    def k4_old(data_t):
-        assert fn4(P(data_t), P(pos), P(out_t), rr, n, 24, _cuda.stream()) == 0
-        return out_t
-    data_t = acc.T.contiguous()
-    new4 = monotone_row_gather_rows(acc, pos)
-    summary["k4"]["bit_exact"] = bool(
-        torch.equal(new4, monotone_row_gather_rows_plain(acc, pos))
-        and torch.equal(new4, k4_old(data_t).T)
-        and torch.equal(new4, torch.index_select(acc, 0, pos_l)))
-    t4 = {}
-    for _ in range(args.rounds):
-        for name, f in (
-                ("old_kernel", lambda: k4_old(data_t)),
-                ("old_land", lambda: k4_old(acc.T.contiguous())),
-                ("new_rows", lambda: monotone_row_gather_rows(acc, pos)),
-                ("index_select_rows", lambda: torch.index_select(acc, 0, pos_l)),
-                ("index_select_cols",
-                 lambda: torch.index_select(data_t, 1, pos_l)),
-                ("plain_rows", lambda: monotone_row_gather_rows_plain(acc, pos))):
-            t4.setdefault(name, []).append(cs.time_graph_ms(f, 50))
-    distinct = int(torch.unique(pos).numel())
-    bound = (distinct * 24 + n * 24 + n) * 4 / cs.HBM_BYTES_PER_S * 1e3
-    summary["k4"].update(n=n, r=rr, distinct=distinct, bound_ms=bound,
-                         **{f"{k}_ms": float(np.median(v)) for k, v in t4.items()})
-    print(f"[ab] K4: {summary['k4']}", flush=True)
     print(f"[card] {cs.card_line()}", flush=True)
     (args.out / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary))
