@@ -63,6 +63,23 @@ line):
    (chain, dtype) cases against the plain version at the probe's
    [4096, 512] shape, and its time (50 launches in a CUDA graph), rate,
    bound and bf16/f32 ratio per chain.
+8. From disk: the synthetic scene's first 12 frames (seed 0, the driver's
+   trajectory) written at 340x600 as a ReplicaV2 tree (rgb/depth PNG
+   through utils/png.py, depth in millimetres, traj_w_c.txt) with a
+   camera profile that utils/yaml_lite.py must read back; every frame
+   must read back bit-equal through the loader and through the PNG
+   reader. The driver runs from that tree with backend.save_ckpt,
+   eval.eval_mesh and $LPIPS_WEIGHTS on a random-weights .npz (numpy
+   seed), then again, resumed from the checkpoint at the first cut
+   (frame 10). Each run must clear phase 6's ATE and first-submap PSNR
+   bounds, score the mesh with an F-score in (0, 1] (eval_final prints
+   and leaves the keys out when the mesh evaluation fails), give a
+   finite LPIPS, launch K1-K4, and launch K3 inside fuse_render_mesh.
+   Then scripts/eval.py on the saved scene must reproduce result.json's
+   PSNR to 1e-4, and scripts/vis_final.py must write 4 views and a mesh.
+   Prints ms per loaded frame, checkpoint write and restore ms, fusion ms
+   per view, TSDF extract ms, LPIPS ms per frame and the F-score,
+   precision and recall beside the card's name and power limit.
 Then one JSON line with every kernel's numbers (launches per phase), the
 card line, and {"ok": true, "device": {...}} as the last line.
 """
@@ -985,7 +1002,12 @@ class DriverProbe:
         import collections
 
         self.inside = {"backend": collections.Counter(),
-                       "eval": collections.Counter()}
+                       "eval": collections.Counter(),
+                       "mesh": collections.Counter()}
+        # wall ms of the checkpoint writes / restores, LPIPS calls, TSDF
+        # integrations (one per fused view) and extractions, and whole
+        # fuse_render_mesh calls
+        self.ms = collections.defaultdict(list)
         self.tasks = collections.defaultdict(list)
         self.merges = []
         self.t_loop = self.t_eval = None
@@ -1008,18 +1030,44 @@ class DriverProbe:
             _cuda.LAUNCHES.update(saved)
             _cuda.LAUNCHES.update(inside)
 
+    def _timed(self, key, fn):
+        import torch
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.ms[key].append(1e3 * (time.perf_counter() - t0))
+        return wrapped
+
     def __enter__(self):
         import torch
 
         from gaus_slam_tpu_torch.slam import backend as B
         from gaus_slam_tpu_torch.slam import frontend as F
+        from gaus_slam_tpu_torch.utils import checkpoint as C
         from gaus_slam_tpu_torch.utils import eval as E
+        from gaus_slam_tpu_torch.utils import eval_mesh as M
+        from gaus_slam_tpu_torch.utils import tsdf as T
 
         self._orig = (B.Backend.process_localmap, B.Backend.process,
                       F.Frontend.process_frame, E.eval_final,
                       F.Frontend.tracking)
+        self._timed_orig = [(o, n, getattr(o, n)) for o, n in (
+            (C, "save_run_state"), (C, "restore_run_state"), (E, "lpips"),
+            (M, "fuse_render_mesh"), (T.TSDFVolume, "integrate"),
+            (T.TSDFVolume, "extract_mesh"))]
         merge, process, frame, ev, track = self._orig
         probe = self
+        for owner, name, fn in self._timed_orig:
+            timed = self._timed(name, fn)
+            if name == "fuse_render_mesh":
+                timed = (lambda t: lambda *a, **kw: probe._counted(
+                    "mesh", t, *a, **kw))(timed)
+            setattr(owner, name, timed)
 
         def tracking(fe, frame_, **kw):
             r = track(fe, frame_, **kw)
@@ -1083,13 +1131,16 @@ class DriverProbe:
         (B.Backend.process_localmap, B.Backend.process,
          F.Frontend.process_frame, E.eval_final,
          F.Frontend.tracking) = self._orig
+        for owner, name, fn in self._timed_orig:
+            setattr(owner, name, fn)
         return False
 
 
-def run_driver(label, env, dev):
-    """rgbd_slam on configs/synthetic/config.py with ``env`` (SYN_*), the
-    stash kernels, output under output/chip_smoke/<label>. Returns
-    (result, launches of the whole run, DriverProbe, seconds, out dir)."""
+def run_driver(label, env, dev, edit=None, resume_from=None):
+    """rgbd_slam on configs/synthetic/config.py with ``env`` (SYN_*) and
+    ``edit(config)`` applied, the stash kernels, output under
+    output/chip_smoke/<label>. Returns (result, launches of the whole run,
+    DriverProbe, seconds, out dir)."""
     import shutil
 
     import torch
@@ -1100,12 +1151,15 @@ def run_driver(label, env, dev):
     out = out_dir(label)
     shutil.rmtree(out, ignore_errors=True)
     cfg = config_from_env(dict(env, SYN_OUT=out))
+    if edit is not None:
+        edit(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
     with DriverProbe() as probe:
-        result = rgbd_slam(cfg, backend="pallas", device=dev)
+        result = rgbd_slam(cfg, backend="pallas", device=dev,
+                           resume_from=resume_from)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
@@ -1234,6 +1288,240 @@ def phase_driver_full(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: from disk, checkpoint and resume, mesh and LPIPS
+
+
+N_FRAMES_DISK = 12     # one cut, at frame 10 (submaps of 10 frames)
+SEQ = "synthetic_seed0"
+
+
+def write_disk_scene(root, n):
+    """The synthetic scene's first n frames (seed 0) as a ReplicaV2 tree
+    under root (rgb/rgb_%04d.png, depth/depth_%04d.png in millimetres,
+    traj_w_c.txt) through utils/png.py, and a camera profile beside it.
+    Returns (profile path, [(color u8, depth u16)])."""
+    import shutil
+
+    from gaus_slam_tpu_torch.data.synthetic import SyntheticDataset
+    from gaus_slam_tpu_torch.utils import yaml_lite
+    from gaus_slam_tpu_torch.utils.png import write_png
+
+    shutil.rmtree(root, ignore_errors=True)
+    d = os.path.join(root, SEQ, "imap", "00")
+    os.makedirs(os.path.join(d, "rgb"))
+    os.makedirs(os.path.join(d, "depth"))
+    # the trajectory the driver streams: its speed depends on the
+    # sequence length, which the config sets to num_frames_total
+    cfg = config_from_env(dict(SYN_H=str(H), SYN_W=str(W),
+                               SYN_FRAMES=str(n)))
+    ds = SyntheticDataset(height=H, width=W, seed=0,
+                          num_frames=cfg["data"]["num_frames_total"])
+    frames, poses = [], []
+    for i in range(n):
+        color, depth, _, c2w = ds[i]
+        c8 = np.clip(np.round(color), 0, 255).astype(np.uint8)
+        depth = np.asarray(depth)
+        depth = depth[..., 0] if depth.ndim == 3 else depth
+        d16 = np.round(depth * 1000.0).astype(np.uint16)
+        write_png(os.path.join(d, "rgb", f"rgb_{i:04d}.png"), c8)
+        write_png(os.path.join(d, "depth", f"depth_{i:04d}.png"), d16)
+        frames.append((c8, d16))
+        poses.append(np.asarray(c2w, np.float64).ravel())
+    np.savetxt(os.path.join(d, "traj_w_c.txt"), poses, fmt="%.17g")
+    k = ds.intrinsics
+    cam = dict(image_height=H, image_width=W, fx=float(k[0, 0]),
+               fy=float(k[1, 1]), cx=float(k[0, 2]), cy=float(k[1, 2]),
+               png_depth_scale=1000.0, crop_edge=0)
+    prof = os.path.join(root, "replica_v2_synthetic.yaml")
+    with open(prof, "w") as f:
+        f.write("# the synthetic scene's camera, ReplicaV2 layout\n"
+                "dataset_name: replicav2\ncamera_params:\n"
+                + "".join(f"  {key}: {v!r}\n" for key, v in cam.items()))
+    parsed = yaml_lite.load(prof)
+    check(parsed == {"dataset_name": "replicav2", "camera_params": cam},
+          f"phase 8: yaml_lite read the profile as {parsed}")
+    return prof, frames
+
+
+def lpips_weights(path, seed=0):
+    """Random AlexNet-LPIPS weights in the export schema (numpy seed):
+    the LPIPS value only proves the path."""
+    from gaus_slam_tpu_torch.utils.lpips import ALEX_CFG
+
+    rng = np.random.default_rng(seed)
+    w, in_ch = {}, 3
+    for i, (oc, k, _, _) in enumerate(ALEX_CFG):
+        w[f"conv{i}_w"] = rng.normal(0, 0.1, (oc, in_ch, k, k)).astype(
+            np.float32)
+        w[f"conv{i}_b"] = rng.normal(0, 0.1, (oc,)).astype(np.float32)
+        w[f"lin{i}_w"] = rng.uniform(0, 1, (oc,)).astype(np.float32)
+        in_ch = oc
+    np.savez(path, **w)
+
+
+def disk_run_checks(label, result, launches, probe, out, first):
+    """The bounds of phase 6 and the mesh, LPIPS and launch checks of one
+    phase-8 driver run; ``first``: the first submap's [first, last] frame
+    (its last opens the next submap). Returns the first submap's PSNR."""
+    ate = result["ATE RMSE"]
+    psnrs = np.loadtxt(os.path.join(out, "psnr.txt"))
+    own = psnrs[first[0]:first[1]]
+    f, prec, rec = (result.get(k) for k in
+                    ("Mesh F-score", "Mesh precision", "Mesh recall"))
+    print(f"[{label}] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}); PSNR "
+          f"{result['PSNR']:.6g} over all frames, {own.mean():.6g} over the "
+          f"first submap's {len(own)} (bound > {PSNR_MIN}); mesh F-score "
+          f"{f} precision {prec} recall {rec}; LPIPS {result['LPIPS']}")
+    print(f"[{label}] launches inside fuse_render_mesh "
+          f"{json.dumps(dict(probe.inside['mesh']))}")
+    check(np.isfinite(ate) and ate < T_ERR_ABS,
+          f"phase 8 ({label}): ATE RMSE {ate} not < {T_ERR_ABS}")
+    check(len(own) > 0 and np.isfinite(own).all() and own.mean() > PSNR_MIN,
+          f"phase 8 ({label}): PSNR {own.mean()} over the first submap's "
+          f"frames not > {PSNR_MIN}")
+    # eval_final keeps the JAX package's try around the mesh evaluation:
+    # a failure there prints and leaves these keys out
+    check(isinstance(f, float) and 0.0 < f <= 1.0,
+          f"phase 8 ({label}): mesh F-score {f!r} not in (0, 1]: the mesh "
+          f"evaluation failed")
+    check(np.isfinite(result["LPIPS"]),
+          f"phase 8 ({label}): LPIPS {result['LPIPS']} is not finite")
+    for name in STASH_PATH:
+        check(launches.get(name, 0) > 0,
+              f"phase 8 ({label}): {name} never launched in the driver")
+    check(probe.inside["mesh"].get("raster_forward", 0) > 0,
+          f"phase 8 ({label}): K3 never launched inside fuse_render_mesh")
+    return own
+
+
+def phase_disk(dev, card):
+    """Phase 8: the driver from a ReplicaV2 tree on disk, with checkpoints,
+    mesh evaluation and LPIPS, resumed from its checkpoint; then the
+    port's eval and vis_final scripts on the saved scene."""
+    import collections
+
+    import torch
+
+    from gaus_slam_tpu_torch.data import basedataset as B
+    from gaus_slam_tpu_torch.data import get_dataset
+    from gaus_slam_tpu_torch.scripts import eval as eval_script
+    from gaus_slam_tpu_torch.scripts import vis_final
+    from gaus_slam_tpu_torch.utils.png import read_png
+
+    root = out_dir("disk_data")
+    prof, frames = write_disk_scene(root, N_FRAMES_DISK)
+    data = dict(dataset_name="replicav2", basedir=root, sequence=SEQ,
+                gradslam_data_cfg=prof, desired_image_height=H,
+                desired_image_width=W, start=0, end=-1, stride=1,
+                num_frames=N_FRAMES_DISK)
+    ds = get_dataset(data)
+    check(len(ds) == N_FRAMES_DISK, f"phase 8: {len(ds)} frames on disk")
+    t0 = time.perf_counter()
+    loaded = [ds[i] for i in range(len(ds))]
+    load_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+    t0 = time.perf_counter()
+    raw = [(read_png(c), read_png(d))
+           for c, d in zip(ds.color_paths, ds.depth_paths)]
+    png_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+    for i, ((c8, d16), (color, depth, _, _), (c_png, d_png)) in enumerate(
+            zip(frames, loaded, raw)):
+        check(np.array_equal(color, c8.astype(np.float32))
+              and np.array_equal(depth[..., 0],
+                                 d16.astype(np.float32) / 1000.0)
+              and np.array_equal(c_png, c8) and np.array_equal(d_png, d16),
+              f"phase 8: frame {i} does not read back as written")
+    reader = ("cv2" if B.cv2 is not None else
+              "imageio" if B.imageio is not None else "utils/png.py")
+
+    weights = os.path.join(root, "lpips_random.npz")
+    lpips_weights(weights)
+    old_env = os.environ.get("LPIPS_WEIGHTS")
+    os.environ["LPIPS_WEIGHTS"] = weights
+
+    def edit(cfg):
+        cfg["data"] = dict(data)
+        cfg["backend"]["save_ckpt"] = True
+        cfg["eval"]["eval_mesh"] = True
+
+    env = dict(SYN_H=str(H), SYN_W=str(W), SYN_FRAMES=str(N_FRAMES_DISK))
+    try:
+        result, launches, probe, secs, out = run_driver(
+            "disk", env, dev, edit=edit)
+        first = probe.merges[0]["frames"]
+        own = disk_run_checks("disk", result, launches, probe, out, first)
+        ckpt = os.path.join(out, "ckpt")
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)
+        check(meta["next_frame_idx"] == 11 and len(meta["localmaps"]) == 1,
+              f"phase 8: the checkpoint is at frame "
+              f"{meta['next_frame_idx']} with {len(meta['localmaps'])} "
+              f"submaps, not the first cut's (frame 11, 1 submap)")
+        resumed, r_launches, r_probe, r_secs, r_out = run_driver(
+            "disk_resumed", env, dev, edit=edit, resume_from=ckpt)
+        check(len(r_probe.ms["restore_run_state"]) == 1,
+              "phase 8: the resumed run restored no checkpoint")
+        check(r_probe.merges and r_probe.merges[0]["lmid"] == 1,
+              "phase 8: the resumed run did not continue from the second "
+              "submap")
+        disk_run_checks("disk_resumed", resumed, r_launches, r_probe, r_out,
+                        first)
+
+        # the port's scripts on the first run's saved scene
+        scene = os.path.join(out, "scene")
+        with open(os.path.join(out, "result.json")) as f:
+            want = json.load(f)["PSNR"]
+        t0 = time.perf_counter()
+        kind = torch.device(dev).type
+        again = eval_script.main([scene, "--device", kind])
+        eval_s = time.perf_counter() - t0
+        print(f"[disk] scripts/eval.py on the saved scene: PSNR "
+              f"{again['PSNR']:.8g} against result.json's {want:.8g} "
+              f"({eval_s:.1f} s)")
+        check(abs(again["PSNR"] - want) <= 1e-4,
+              f"phase 8: scripts/eval.py gives PSNR {again['PSNR']}, "
+              f"result.json {want}")
+        vis_mesh = collections.Counter()
+        from gaus_slam_tpu_torch.ops import _cuda
+        _cuda.LAUNCHES.clear()
+        written = vis_final.main([scene, "--device", kind, "--num_views",
+                                  "4", "--mesh"])
+        torch.cuda.synchronize()
+        vis_mesh.update(_cuda.LAUNCHES)
+        check(len(written) == 5 and all(os.path.exists(p) for p in written),
+              f"phase 8: scripts/vis_final.py wrote {written}")
+        check(vis_mesh.get("raster_forward", 0) > 0,
+              "phase 8: K3 never launched in scripts/vis_final.py")
+    finally:
+        if old_env is None:
+            os.environ.pop("LPIPS_WEIGHTS", None)
+        else:
+            os.environ["LPIPS_WEIGHTS"] = old_env
+
+    ms = probe.ms
+    views = len(ms["integrate"])
+    fuse = sum(ms["fuse_render_mesh"])
+    extract = sum(ms["extract_mesh"])
+    print(f"[disk] {card}: {load_ms:.3f} ms per loaded frame ({W}x{H} PNG "
+          f"color + depth read by {reader}; utils/png.py alone "
+          f"{png_ms:.3f} ms); "
+          f"checkpoint write {ms['save_run_state']} ms, restore "
+          f"{r_probe.ms['restore_run_state']} ms; fusion "
+          f"{(fuse - extract) / max(views, 1):.2f} ms per view over {views} "
+          f"views (render, readback and TSDF integrate; the integrate "
+          f"{np.mean(ms['integrate']):.2f} ms of it), TSDF extract "
+          f"{extract:.1f} ms; LPIPS "
+          f"{np.mean(ms['lpips']):.3f} ms per frame; F-score "
+          f"{result['Mesh F-score']:.6f} precision "
+          f"{result['Mesh precision']:.6f} recall {result['Mesh recall']:.6f}"
+          f"; first run {secs:.1f} s, resumed run {r_secs:.1f} s; vis_final "
+          f"launches {json.dumps(dict(vis_mesh))}")
+    print(f"[disk] first submap PSNR {own.mean():.6g}")
+    total = collections.Counter(launches)
+    total.update(r_launches)
+    return dict(total)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: K6
 
 
@@ -1268,7 +1556,7 @@ def phase_bf16_probe(dev):
 
     torch.cuda.synchronize()
     _cuda.LAUNCHES.clear()
-    check(tool.main() == 0, "the bf16 probe's entry point failed")
+    check(tool.main([]) == 0, "the bf16 probe's entry point failed")
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     check(launches.get("bf16_probe", 0) > 0, "K6 never launched by its "
@@ -1351,12 +1639,14 @@ def main() -> int:
         small_launches = phase_driver_small(dev)
         full_launches, probe = phase_driver_full(dev)
         k6_launches, numbers["bf16_probe"] = phase_bf16_probe(dev)
+        disk_launches = phase_disk(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     phases = {"3": launches, "3b": ref_launches, "5": small_launches,
               "6": full_launches, "6 backend": dict(probe.inside["backend"]),
-              "6 eval_final": dict(probe.inside["eval"]), "7": k6_launches}
+              "6 eval_final": dict(probe.inside["eval"]), "7": k6_launches,
+              "8": disk_launches}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase

@@ -14,6 +14,10 @@ only) and returns the port ``Frontend``'s state as a dict keyed by its
 attribute names, so a test can set both frontends to the same state;
 ``backend_state_from_jax`` does the same for a JAX ``Backend``, and
 ``localmap_from_jax`` converts one JAX ``LocalMap``.
+
+``run_state_from_jax`` carries a JAX checkpoint (the orbax tree that the
+JAX ``restore_run_state`` reads back, and its meta.json) into the port's
+checkpoint layout, for ``utils.checkpoint.apply_run_state``.
 """
 from __future__ import annotations
 
@@ -226,3 +230,13 @@ def backend_state_from_jax(jb, device="cuda") -> dict:
         "ape_rec": list(jb.ape_rec),
         "totalpts_rec": [int(n) for n in jb.totalpts_rec],
     }
+
+
+def run_state_from_jax(state: dict, meta: dict) -> tuple[dict, dict]:
+    """(arrays, meta) of the port's checkpoint from a JAX run state: the
+    nested tree of a JAX checkpoint's arrays (``frontend_map``,
+    ``backend_map``, ``transforms``, ``exposures``; any array type that
+    numpy reads) and its meta.json, whose schema the port shares."""
+    from .utils.checkpoint import _flatten
+
+    return _flatten(state), dict(meta)

@@ -1,6 +1,6 @@
-"""Datasets of the port (reference datasets/__init__.py:4-28): the
-procedural synthetic scene. The file-based loaders of the JAX package
-(data/basedataset.py: Replica, TUM, ScanNet, ...) are not ported yet."""
+"""Dataset factory (port of gaus_slam_tpu/data/__init__.py; reference
+datasets/__init__.py:4-28): the procedural synthetic scene, and every
+file-based loader of ``basedataset.DATASET_REGISTRY``."""
 from __future__ import annotations
 
 
@@ -15,7 +15,19 @@ def get_dataset(data_cfg: dict):
             num_frames=data_cfg.get("num_frames_total", 60),
             seed=data_cfg.get("seed", 0),
         )
-    raise NotImplementedError(
-        f"dataset {name!r}: the port has the synthetic scene only; the "
-        f"file-based loaders wait for ROADMAP queue 1 item 2 (dataset "
-        f"loaders, data/basedataset.py)")
+
+    from .basedataset import DATASET_REGISTRY
+
+    if name not in DATASET_REGISTRY:
+        raise ValueError(f"Unknown dataset {name}")
+    cls = DATASET_REGISTRY[name]
+    return cls(
+        config_path=data_cfg.get("gradslam_data_cfg"),
+        basedir=data_cfg["basedir"],
+        sequence=data_cfg["sequence"],
+        start=data_cfg.get("start", 0),
+        end=data_cfg.get("end", -1),
+        stride=data_cfg.get("stride", 1),
+        desired_height=data_cfg.get("desired_image_height", 480),
+        desired_width=data_cfg.get("desired_image_width", 640),
+    )

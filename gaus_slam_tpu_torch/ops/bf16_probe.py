@@ -11,9 +11,10 @@ array's dtype (float32 or bfloat16), as the JAX kernel bodies write them:
 
 ``probe_plain`` is the chain in PyTorch, rounding to the dtype after
 every operation; ``probe`` launches csrc/bf16_probe.cu on a CUDA tensor
-(one thread per 16-byte vector, packed bf16 pairs) and runs the plain
-version on a CPU tensor. The kernel's f32 FMA rounds once where the
-plain version rounds after the multiply and after the add.
+(16-byte vectors, packed bf16 pairs, one or more vectors per thread with
+the grid sized to the card) and runs the plain version on a CPU tensor.
+The kernel's f32 FMA rounds once where the plain version rounds after
+the multiply and after the add.
 """
 from __future__ import annotations
 
@@ -57,12 +58,16 @@ def probe_plain(x: torch.Tensor, chain: str, n: int) -> torch.Tensor:
     return x
 
 
-def probe(x: torch.Tensor, chain: str, n: int) -> torch.Tensor:
-    """The chain over every element of ``x`` (float32 or bfloat16)."""
+def probe(x: torch.Tensor, chain: str, n: int, vpt: int = 0) -> torch.Tensor:
+    """The chain over every element of ``x`` (float32 or bfloat16).
+    ``vpt``: 16-byte vectors per thread of the kernel, 1, 2 or 4, or 0 to
+    size the grid to the card (the same bits for every choice)."""
     if not x.is_cuda:
         return probe_plain(x, chain, n)
     if chain not in CHAINS:
         raise ValueError(f"unknown chain {chain!r}; one of {tuple(CHAINS)}")
+    if vpt not in (0, 1, 2, 4):
+        raise ValueError(f"bf16_probe: vpt {vpt}; one of 0, 1, 2, 4")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bf16_probe: float32 or bfloat16, got {x.dtype}")
     _cuda.require(x, x.dtype, "bf16_probe x")
@@ -74,10 +79,11 @@ def probe(x: torch.Tensor, chain: str, n: int) -> torch.Tensor:
     out = torch.empty_like(x)
     fn = _cuda.library("bf16_probe").bf16_probe
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["bf16_probe"] += 1
     _cuda.check(fn(_cuda.ptr(x), _cuda.ptr(out), x.numel(), CHAINS[chain], n,
-                   int(x.dtype == torch.bfloat16), _cuda.stream()),
+                   int(x.dtype == torch.bfloat16), vpt, _cuda.stream()),
                 "bf16_probe")
     return out

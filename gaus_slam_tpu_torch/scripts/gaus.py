@@ -2,16 +2,18 @@
 reference scripts/gaus.py).
 
     python -m gaus_slam_tpu_torch.scripts.gaus <config.py> \
-        [--backend pallas|interpret|reference] [--device cuda|cpu]
+        [--backend pallas|interpret|reference] [--device cuda|cpu] \
+        [--resume <vis_base_dir>/ckpt]
 
 Loads the experiment config module, streams the dataset through the
 Frontend, drains every cut submap into the Backend at once, runs the
-final refinement and the evaluation, and saves the scene. The calls and
-their order are those of scripts/gaus.py, except:
-  * the frontend's dashboards are drawn only under backend.common_vis, as
-    the backend's are (matplotlib, which draws them, may be missing on
-    the card's machine);
-  * no --resume: checkpoints wait for ROADMAP queue 1 item 2.
+final refinement and the evaluation, and saves the scene. Under
+``backend.save_ckpt`` a checkpoint is written to <vis_base_dir>/ckpt at
+every submap boundary; ``--resume`` restores one and continues from the
+frame after it. The calls and their order are those of scripts/gaus.py,
+except that the frontend's dashboards are drawn only under
+backend.common_vis, as the backend's are (matplotlib, which draws them,
+may be missing on the card's machine).
 """
 from __future__ import annotations
 
@@ -49,10 +51,12 @@ def make_wandb_run(config: dict):
         return None
 
 
-def rgbd_slam(config: dict, backend: str = "pallas", device="cuda") -> dict:
+def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
+              resume_from: str | None = None) -> dict:
     from ..data import get_dataset
     from ..slam.backend import Backend
     from ..slam.frontend import Frontend
+    from ..utils.checkpoint import restore_run_state, save_run_state
     from ..utils.config import probe_cameras
     from ..utils.eval import eval_final
     from ..utils.scene_io import save_scene
@@ -78,9 +82,15 @@ def rgbd_slam(config: dict, backend: str = "pallas", device="cuda") -> dict:
                        device=device)
     out_dir = config.get("vis_base_dir", "output")
     common_vis = bool(config["backend"].get("common_vis", False))
+    save_ckpt = bool(config["backend"].get("save_ckpt", False))
+    t0_frame = 0
+    if resume_from is not None:
+        t0_frame = restore_run_state(resume_from, frontend, backend_,
+                                     dataset)
+        print(f"resumed from {resume_from} at frame {t0_frame}")
 
     t_start = time.perf_counter()
-    for t in range(num_frames):
+    for t in range(t0_frame, num_frames):
         color, depth, _, c2w = dataset[t]
         depth = np.asarray(depth)
         if depth.ndim == 3:
@@ -92,10 +102,14 @@ def rgbd_slam(config: dict, backend: str = "pallas", device="cuda") -> dict:
             backend_.process_localmap(to_backend.get(), multi_process=False)
             submap_done = True
         if submap_done:
-            # per-submap dashboards (reference gaus.py:92-95)
+            # per-submap dashboards + resumable checkpoint
+            # (reference gaus.py:92-95 + Backend.py:271-331)
             backend_.update_common_visualization()
             if common_vis:
                 frontend.update_common_visualization()
+            if save_ckpt:
+                save_run_state(os.path.join(out_dir, "ckpt"), frontend,
+                               backend_, next_frame_idx=t + 1)
         if t % 25 == 0:
             n_global = (int(backend_.map.n_active)
                         if backend_.map is not None else 0)
@@ -131,12 +145,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "interpret", "reference"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--resume", default=None,
+                    help="resume from a mid-run checkpoint dir")
     args = ap.parse_args(argv)
 
     from ..utils.config import load_config
 
     return rgbd_slam(load_config(args.config), backend=args.backend,
-                     device=args.device)
+                     device=args.device, resume_from=args.resume)
 
 
 if __name__ == "__main__":

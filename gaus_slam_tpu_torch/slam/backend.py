@@ -14,7 +14,8 @@ graph (port of gaus_slam_tpu/slam/backend.py; reference slam/Backend.py).
 The schedule, its knobs and the order of the draws from ``self.rng`` are
 the JAX package's, so the same submaps give the same task queue. One
 device: the multi-device BA mesh, the backend map on a second device
-and gs_densify refuse to start (ROADMAP queue 1).
+and gs_densify refuse to start (ROADMAP queue 1). ``backend.save_ckpt``
+is the driver's (utils/checkpoint.py at every submap boundary).
 """
 from __future__ import annotations
 
@@ -85,10 +86,6 @@ class Backend:
             raise NotImplementedError(
                 "backend.gs_densify: 3DGS clone/split on the global map "
                 "waits for ROADMAP queue 1 item 2 (gs_densify)")
-        if be.get("save_ckpt", False):
-            raise NotImplementedError(
-                "backend.save_ckpt: checkpoints and resume wait for ROADMAP "
-                "queue 1 item 2 (utils/checkpoint.py)")
         _refuse_multi_device(config, self.device)
         self.sys = SystemConfig.from_config(config, backend=backend,
                                             device=self.device)

@@ -5,7 +5,9 @@ Per frame: render at the estimated pose (render_view, K3 on the card),
 PSNR on valid-depth pixels, MS-SSIM, LPIPS (NaN without local weights),
 depth RMSE / L1; trajectory ATE-RMSE after Umeyama alignment. Writes
 result.json and the per-frame .txt dumps with the JAX package's keys.
-The TSDF mesh evaluation (``eval.eval_mesh``) is not ported yet.
+Under ``eval.eval_mesh`` the renders are TSDF-fused into a mesh and
+scored (F-score, precision, recall) by utils/eval_mesh.py, which writes
+reconstruction_metrics.json.
 """
 from __future__ import annotations
 
@@ -46,10 +48,6 @@ def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
                stride: int = 1, save_renders: bool = False,
                device="cuda") -> dict:
     """``dataset`` is indexable -> (color 0..255, depth, K, c2w)."""
-    if config.get("eval", {}).get("eval_mesh", False):
-        raise NotImplementedError(
-            "eval.eval_mesh: the TSDF mesh evaluation waits for ROADMAP "
-            "queue 1 item 2 (eval and artifacts: utils/eval_mesh.py)")
     device = torch.device(device)
     sys_cfg = SystemConfig.from_config(config, backend=backend, device=device)
     cam, opts, lcfg = sys_cfg.cam, sys_cfg.opts, sys_cfg.lcfg
@@ -66,19 +64,19 @@ def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
         gt_depth = np.asarray(depth, np.float32)
         if gt_depth.ndim == 3:
             gt_depth = gt_depth[..., 0]
+        gt_color = torch.as_tensor(gt_np, device=device)
         *scalars, rgb = _eval_frame(
             gm, torch.as_tensor(np.asarray(w2cs[i]), dtype=torch.float32,
                                 device=device),
-            torch.as_tensor(gt_np, device=device),
-            torch.as_tensor(gt_depth, device=device), cam, opts, lcfg)
+            gt_color, torch.as_tensor(gt_depth, device=device), cam, opts,
+            lcfg)
         vals.append(torch.stack(scalars))
         if want_img:
-            rgb_np = rgb.cpu().numpy()
-            lpipss.append(lpips(rgb_np, gt_np))
+            lpipss.append(lpips(rgb, gt_color))
             if save_renders:
                 rd = os.path.join(out_dir, "renders")
                 os.makedirs(rd, exist_ok=True)
-                np.save(os.path.join(rd, f"{i:05d}.npy"), rgb_np)
+                np.save(os.path.join(rd, f"{i:05d}.npy"), rgb.cpu().numpy())
         else:
             lpipss.append(float("nan"))
     # one readback for every frame's metrics
@@ -101,6 +99,30 @@ def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
         "ATE stats": ate,
         "num_gaussians": int(gm.n_active),
     }
+    if config.get("eval", {}).get("eval_mesh", False):
+        # TSDF-fuse the renders, score vs the gt mesh / unseen pointcloud
+        # assets (or the depth-unprojection fallback) and emit
+        # reconstruction_metrics.json (reference utils/eval.py:337-399,
+        # 458-481 + eval_mesh.py:259-291)
+        from .eval_mesh import evaluate_reconstruction, load_gt_mesh_assets
+
+        ecfg = config["eval"]
+        try:
+            gt_mesh, unseen_pc, gt_points = load_gt_mesh_assets(
+                config, dataset)
+            mesh_metrics = evaluate_reconstruction(
+                config, gm, w2cs, gt_points, out_dir=out_dir,
+                backend=backend,
+                mesh_interval=int(ecfg.get("mesh_interval", 5)),
+                voxel_size=float(ecfg.get("voxel_size", 0.01)),
+                gt_mesh=gt_mesh, unseen_pc=unseen_pc, device=device,
+            )
+            result["Mesh F-score"] = mesh_metrics.get("fscore")
+            result["Mesh precision"] = mesh_metrics.get("precision")
+            result["Mesh recall"] = mesh_metrics.get("recall")
+        except Exception as e:  # noqa: BLE001 (ref wraps mesh eval in try)
+            print(f"mesh evaluation failed: {e}")
+
     with open(os.path.join(out_dir, "result.json"), "w") as f:
         json.dump(result, f, indent=2)
     for name, vs in (("psnr", psnrs), ("ssim", ssims), ("lpips", lpipss),

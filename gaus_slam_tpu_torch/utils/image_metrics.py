@@ -5,11 +5,12 @@ The reference evaluates PSNR on valid-depth-masked pixels, MS-SSIM as
 pytorch_msssim does and LPIPS(alex) (utils/eval.py:401-423). SSIM's 11x11
 gaussian window is a depthwise ``F.conv2d``, run without TF32 so that the
 card computes it in float32 as the CPU does. LPIPS needs pretrained
-AlexNet weights: without them ``lpips`` returns NaN, as the JAX package
-does; loading them is a later item (ROADMAP queue 1 item 2).
+AlexNet weights from $LPIPS_WEIGHTS (utils/lpips.py): without them
+``lpips`` returns NaN, as the JAX package does.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -91,18 +92,24 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.prod(torch.stack(vals) ** weights)
 
 
+@functools.lru_cache(maxsize=4)
+def _lpips_model(path: str, device: str):
+    from .lpips import load_lpips
+
+    return load_lpips(path, device)
+
+
 def lpips_available() -> bool:
-    """False without weights ($LPIPS_WEIGHTS unset or missing). Weights
-    that are there are refused: their loader is not ported yet."""
+    """True when $LPIPS_WEIGHTS names a file."""
     path = os.environ.get("LPIPS_WEIGHTS", "")
-    if path and os.path.exists(path):
-        raise NotImplementedError(
-            f"LPIPS weights at {path}: LPIPS(alex) from local weights waits "
-            f"for ROADMAP queue 1 item 2 (eval and artifacts: LPIPS)")
-    return False
+    return bool(path) and os.path.exists(path)
 
 
-def lpips(x: np.ndarray, y: np.ndarray) -> float:
-    """LPIPS(alex): NaN when pretrained weights are unavailable."""
-    lpips_available()
-    return float("nan")
+def lpips(x, y) -> float:
+    """LPIPS(alex) of two [H, W, 3] images in 0..1, on the device of ``x``
+    (the CPU for numpy); NaN when pretrained weights are unavailable."""
+    device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    model = _lpips_model(os.environ.get("LPIPS_WEIGHTS", ""), str(device))
+    if model is None:
+        return float("nan")
+    return float(model(x, y))

@@ -538,16 +538,32 @@ def test_drain_matches_jax(submaps):
 
 @pytest.mark.parametrize("knob", ["gs_densify", "save_ckpt", "backend_device",
                                   "mesh_devices"])
-def test_backend_refuses_multi_device_and_unported_knobs(knob):
-    """gs_densify, checkpoints, a second backend device and a BA mesh of
-    more than one device raise, naming their ROADMAP item; "auto" stays
-    on the one device, as in the JAX package."""
+def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path):
+    """gs_densify, a second backend device and a BA mesh of more than one
+    device raise, naming their ROADMAP item; "auto" stays on the one
+    device, as in the JAX package. backend.save_ckpt is accepted, and a
+    checkpoint of the backend writes meta.json."""
     from gaus_slam_tpu_torch.slam.backend import Backend
 
     cfg = _config(_dataset())
     Backend(dict(cfg, tpu=dict(cfg["tpu"], backend_device="auto",
                                mesh_devices="auto")), device="cpu")
-    if knob in ("gs_densify", "save_ckpt"):
+    if knob == "save_ckpt":
+        import json
+        import queue
+
+        from gaus_slam_tpu_torch.slam.frontend import Frontend
+        from gaus_slam_tpu_torch.utils.checkpoint import save_run_state
+
+        cfg["backend"]["save_ckpt"] = True
+        be = Backend(cfg, device="cpu")
+        fe = Frontend(cfg, queue.Queue(), device="cpu")
+        fe.map = convert.gaussian_map_from_numpy(_scene()[2], "cpu")
+        save_run_state(str(tmp_path / "ckpt"), fe, be, next_frame_idx=3)
+        meta = json.loads((tmp_path / "ckpt" / "meta.json").read_text())
+        assert meta["next_frame_idx"] == 3 and meta["localmaps"] == []
+        return
+    if knob == "gs_densify":
         cfg["backend"][knob] = True
     else:
         cfg["tpu"][knob] = "1" if knob == "backend_device" else 2

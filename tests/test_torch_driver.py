@@ -152,14 +152,18 @@ def test_driver_under_the_reference_backend(tmp_path, monkeypatch):
     assert (tmp_path / "scene" / "gaussians.ply").exists()
 
 
-def test_driver_refuses_what_it_cannot_run(monkeypatch):
-    """No silent CPU fallback without a card; datasets other than the
-    synthetic scene raise, naming their ROADMAP item."""
+def test_driver_refuses_what_it_cannot_run(monkeypatch, tmp_path):
+    """No silent CPU fallback without a card; an unknown dataset name
+    raises ValueError, and "replica" without its directory tree raises the
+    loader's error."""
     from gaus_slam_tpu_torch.data import get_dataset
     from gaus_slam_tpu_torch.scripts.gaus import rgbd_slam
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         rgbd_slam(_config(TINY, "unused"), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset({"dataset_name": "replica"})
+    with pytest.raises(ValueError, match="Unknown dataset"):
+        get_dataset({"dataset_name": "kitti", "basedir": "", "sequence": ""})
+    with pytest.raises(FileNotFoundError, match="traj.txt"):
+        get_dataset({"dataset_name": "replica", "basedir": str(tmp_path),
+                     "sequence": "room0"})

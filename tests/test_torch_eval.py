@@ -132,23 +132,33 @@ class _Head:
 
 
 def test_eval_refuses_mesh_and_lpips_weights(tmp_path, monkeypatch):
+    """eval.eval_mesh and LPIPS weights, refused before the mesh
+    evaluation was ported, now run: result.json gains the mesh metrics'
+    keys and reconstruction_metrics.json is written, and LPIPS is finite
+    with weights present (NaN without)."""
     from gaus_slam_tpu_torch.utils.eval import eval_final
     from gaus_slam_tpu_torch.utils.image_metrics import lpips
+    from test_lpips import _random_weights
 
     ds, _, jgm = _scene()
     cfg = _config(ds)
     gm = convert.gaussian_map_from_numpy(jgm, "cpu")
-    cfg["eval"]["eval_mesh"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_final(cfg, gm, [np.eye(4)], [np.eye(4)], _Head(ds, 1),
-                   out_dir=str(tmp_path), device="cpu")
     img = np.zeros((8, 8, 3), np.float32)
+    monkeypatch.delenv("LPIPS_WEIGHTS", raising=False)
     assert np.isnan(lpips(img, img))
     weights = tmp_path / "lpips.npz"
-    np.savez(weights, lin0_w=np.zeros(1))
+    _random_weights(str(weights), np.random.default_rng(0))
     monkeypatch.setenv("LPIPS_WEIGHTS", str(weights))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lpips(img, img)
+    cfg["eval"]["eval_mesh"] = True
+    cfg["eval"]["voxel_size"] = 0.05
+    res = eval_final(cfg, gm, [np.eye(4)], [np.eye(4)], _Head(ds, 1),
+                     out_dir=str(tmp_path), device="cpu")
+    for k in ("Mesh F-score", "Mesh precision", "Mesh recall"):
+        assert k in res and 0.0 <= res[k] <= 1.0, k
+    assert np.isfinite(res["LPIPS"]) and "lpips_note" not in res
+    assert (tmp_path / "reconstruction_metrics.json").exists()
+    rgb = np.random.default_rng(1).random((64, 64, 3)).astype(np.float32)
+    assert np.isfinite(lpips(rgb, img.repeat(8, 0).repeat(8, 1)))
 
 
 def test_scene_round_trip_between_packages(tmp_path):

@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                 "utils.image_metrics", "utils.eval", "utils.ply",
                 "utils.scene_io", "utils.viz", "data", "scripts",
                 "scripts.gaus", "ops.bf16_probe", "tools",
-                "tools.bf16_probe", "tools.kernel_ab"):
+                "tools.bf16_probe", "tools.kernel_ab", "data.basedataset",
+                "utils.png", "utils.yaml_lite", "utils.tsdf",
+                "utils.eval_mesh", "utils.lpips", "utils.checkpoint",
+                "native", "scripts.eval", "scripts.vis_final"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
