@@ -80,8 +80,34 @@ line):
    Prints ms per loaded frame, checkpoint write and restore ms, fusion ms
    per view, TSDF extract ms, LPIPS ms per frame and the F-score,
    precision and recall beside the card's name and power limit.
-Then one JSON line with every kernel's numbers (launches per phase), the
-card line, and {"ok": true, "device": {...}} as the last line.
+9. The 3DGS render method, the SplaTAM baseline and gs_densify.
+   9a. K1, K3, K2 and K4 on 3DGS pair attributes (phase 2's random map
+   through preprocess_3dgs, anisotropic and isotropic, all tiles and the
+   coarse tracking subset) in their SA-off instantiation: K1's out, stash
+   and kexit within 1e-4 of each channel's scale, K3 bit-equal to K1, K2
+   within 1e-5 worst-row relative L2 of torch.autograd through the plain
+   version, K4 in the 3DGS mapping reduction bit-equal to the plain
+   landing; no (pair, pixel) that pair_culled rejects may pass the alpha
+   test. K1 / K2 / K3 ms per call beside phase 2's SA times, with bounds
+   recounted without SA's per-pair work.
+   9b. The 3DGS ablation (render.method 3dgs, isotropic gaussians, what
+   EXP=1 sets) through the driver: at 48x64 x 12 against the JAX
+   package's CPU numbers in that configuration (SMALL_BOUNDS_3DGS, with
+   phase 5's borderline-keyframe control), then at 340x600 x 30 as phase
+   6 (three merges, eval_final) against phase 6's bounds.
+   K1-K4 must launch and K5 must not.
+   9c. scripts/splatam.py with configs/replica/splatam.py on phase 8's
+   ReplicaV2 tree (340x600 x 12): time.json, result.json and
+   scene/gaussians.ply written, the map capacity grown at least once,
+   finite ATE < T_ERR_ABS and PSNR > 15 dB (tests/test_splatam.py), K1-K4
+   launched; prints tracking and mapping ms from time.json.
+   9d. The driver on phase 8's tree with backend.gs_densify: clone /
+   split / prune counts per densify_and_prune call, which must run at
+   least once and never outgrow the capacity; phase 8's ATE and
+   first-submap PSNR bounds.
+Then one JSON line with every kernel's numbers (launches per phase; K1-K3
+also without SA on 3DGS attributes), the card line, and {"ok": true,
+"device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -116,6 +142,26 @@ PSNR_MIN = 35.0
 SMALL = dict(SYN_H="48", SYN_W="64", SYN_FRAMES="12")
 SMALL_BOUNDS = {"ATE RMSE": ("<", 0.025), "PSNR": (">", 25.1),
                 "MS-SSIM": (">", 0.99), "Depth L1": ("<", 0.017)}
+# phase 9b, the 3DGS ablation (render.method 3dgs, isotropic gaussians)
+# through the driver. The JAX package's driver at 48x64 x 12, seed 0, on
+# the CPU (tests/test_torch_splatam.py::test_3dgs_ablation_driver_matches_
+# jax and the same run in 2DGS; backend "interpret"):
+JAX_48x64_2DGS = {"ATE RMSE": 0.01642247568269582, "PSNR": 26.379912853240967,
+                  "MS-SSIM": 0.9979527046283087,
+                  "Depth L1": 0.010275302610049645}
+JAX_48x64_3DGS = {"ATE RMSE": 0.028712366615661403,
+                  "PSNR": 22.325717449188232, "MS-SSIM": 0.9947469979524612,
+                  "Depth L1": 0.01961565805443873}
+# At 48x64: each of SMALL_BOUNDS moved by what the JAX package reaches in
+# 3DGS against 2DGS (the same headroom over the JAX numbers as
+# tests/test_full_slam.py gives the 2DGS ones).
+SMALL_BOUNDS_3DGS = {k: (op, b + JAX_48x64_3DGS[k] - JAX_48x64_2DGS[k])
+                     for k, (op, b) in SMALL_BOUNDS.items()}
+# At 340x600 the 3DGS ablation is held to phase 6's bounds unrelaxed
+# (the JAX package loses 12.3 mm ATE and 4.05 dB PSNR between 2DGS and
+# 3DGS at 48x64, a margin these bounds do not take).
+# phase 9c: tests/test_splatam.py's PSNR bound
+SPLATAM_PSNR_MIN = 15.0
 # a keyframe test within this share of its threshold is decided by float32
 # rounding (the port's CPU and card runs count 156 and 153 at 48x64 frame
 # 9 against 153.6)
@@ -356,26 +402,34 @@ def random_map(ds, cam, capacity, dev, seed=0):
 def kernel_inputs(gm, cam, opts, stride):
     """Pair attributes + tile ranges of the mapping path (all tiles) and
     of the coarse tracking path (stride-3 tile subset of a phase-major
-    cache sliced to its head block)."""
+    cache sliced to its head block), for opts' render method."""
     import torch
 
-    from gaus_slam_tpu_torch.render import (_prep_attrs, bin_for_tracking,
-                                            bin_full, expand_pairs,
+    from gaus_slam_tpu_torch.render import (_prep_attrs, _preprocess_3dgs,
+                                            bin_for_tracking, bin_full,
+                                            expand_pairs,
                                             track_coarse_budget)
-    from gaus_slam_tpu_torch.ops.preprocess import preprocess_t
+    from gaus_slam_tpu_torch.ops.preprocess import (pack_pair_attrs,
+                                                    preprocess_t)
     from gaus_slam_tpu_torch.slam.steps import _coarse_tile_ids
 
     with torch.no_grad():
         bins = bin_full(gm.params, gm.active, cam, opts)
-        attrs, _ = _prep_attrs(gm.params, gm.active, cam)
+        attrs, _ = _prep_attrs(gm.params, gm.active, cam, opts)
         pattrs = expand_pairs(attrs.T, bins, opts.max_tiles_per_gaussian)
         full = (pattrs.contiguous(), bins.tile_start, bins.tile_stop, None)
         cache = bin_for_tracking(gm, cam, opts, coarse_strides=(stride,))
         hi = track_coarse_budget(cache.raw_t.shape[1], stride)
         raw = cache.raw_t[:, :hi]
         eye = cam.replace_w2c(torch.eye(4, device=raw.device))
-        cattrs, _ = preprocess_t(raw[0:3], raw[3:5], raw[5:9], raw[9],
-                                 raw[10:13], eye)
+        if opts.method == "3dgs":
+            # render_tracking's 3DGS branch at the identity pose
+            pre = _preprocess_3dgs(raw[0:3].T, raw[3:5].T, raw[5:9].T,
+                                   raw[9], eye, opts)
+            cattrs = pack_pair_attrs(pre, raw[10:13].T)
+        else:
+            cattrs, _ = preprocess_t(raw[0:3], raw[3:5], raw[5:9], raw[9],
+                                     raw[10:13], eye)
         ids = _coarse_tile_ids(opts.grid, stride, raw.device)
         ts = torch.clamp(cache.tile_start, max=hi)
         te = torch.where(cache.tile_stop <= hi, cache.tile_stop, ts)
@@ -400,12 +454,14 @@ def cull_rejects(op, dx, dy, p_x, p_y, p_z):
 
 def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
     """(pair, pixel) work this run's data needs, for the operation bound:
-    (evaluations, culled, accepted). A pixel evaluates its tile's pairs
-    until it terminates, just past its last contributor n_contrib; of
-    those evaluations, the cull test rejects some without their geometry
-    (cull_rejects); it accepts a pair at or before n_contrib whose depth
-    and alpha tests pass (composite_chunk's okf). ts / te are the ranges
-    of tiles 0..T-1."""
+    (evaluations, culled, accepted, wrongly culled). A pixel evaluates its
+    tile's pairs until it terminates, just past its last contributor
+    n_contrib; of those evaluations, the cull test rejects some without
+    their geometry (cull_rejects); it accepts a pair at or before
+    n_contrib whose depth and alpha tests pass (composite_chunk's okf).
+    Wrongly culled: (pair, pixel) of the tile's whole range that the cull
+    rejects although the alpha test passes (must be 0: the cull is
+    conservative). ts / te are the ranges of tiles 0..T-1."""
     import torch
 
     from gaus_slam_tpu_torch.ops.camera import (ALPHA_MIN, FILTER_INV_SQUARE,
@@ -423,7 +479,7 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
     k = torch.arange(tile.numel(), device=dev) - (torch.cumsum(lens, 0)
                                                   - lens)[tile]
     px, py = tile_pixel_coords(grid, torch.arange(lens.numel(), device=dev))
-    accepted = culled = 0
+    accepted = culled = wrong = 0
     for c0 in range(0, tile.numel(), chunk):
         t, kk = tile[c0:c0 + chunk], k[c0:c0 + chunk]
         a = pattrs[:, ts.long()[t] + kk].T[..., None]     # [m, 24, 1]
@@ -442,9 +498,11 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
               & ((kk + 1)[:, None].float() <= nc[t]))
         accepted += int(ok.sum())
         ev = kk[:, None].double() < upto[t]
-        culled += int((cull_rejects(a[:, 17], a[:, 12] - x, a[:, 13] - y,
-                                    p_x, p_y, p_z) & ev).sum())
-    return evals, float(culled), float(accepted)
+        rej = cull_rejects(a[:, 17], a[:, 12] - x, a[:, 13] - y, p_x, p_y,
+                           p_z)
+        culled += int((rej & ev).sum())
+        wrong += int((rej & (p_z != 0) & (alpha >= ALPHA_MIN)).sum())
+    return evals, float(culled), float(accepted), wrong
 
 
 def op_bound(evals, accepted, per_accepted, nbytes, culled=0.0):
@@ -477,7 +535,7 @@ TOL_STASH = {0: 1e-4, 1: 0.0, 2: 2e-3, 3: 2e-3, 4: 1e-4, 5: 1e-4, 6: 2e-3,
 TOL_GRAD = 2e-3
 
 
-def compare_out(k_out, p_out):
+def compare_out(k_out, p_out, tol=TOL_OUT):
     """Integer channels (n_contrib, med_contrib, done) may differ only on
     threshold-borderline pixels (< 0.5%); float channels agree within
     TOL_OUT of the channel's scale on the other pixels. Returns (mismatch
@@ -496,9 +554,32 @@ def compare_out(k_out, p_out):
         d = (k_out[:, c] - p_out[:, c]).abs()[agree]
         m = float(d.max()) if d.numel() else 0.0
         err = max(err, m)
-        ok = ok and m <= TOL_OUT[c] * scale
+        ok = ok and m <= tol[c] * scale
         report.append(f"{c}:{m / scale:.1e}")
     return frac, err, " ".join(report), ok
+
+
+def compare_stash(k_stash, p_stash, k_kexit, p_kexit, ts, te, dev, tol):
+    """Stash rows of the tiles whose block count agrees, each within tol
+    of its scale. Returns (ok, report)."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.raster_forward import stash_offsets
+
+    soff = stash_offsets(ts, te).long()
+    rows = [torch.arange(int(soff[i]), int(soff[i]) + int(k_kexit[i]),
+                         device=dev)
+            for i in torch.nonzero(k_kexit == p_kexit)[:, 0].tolist()]
+    rows = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.long,
+                                                    device=dev)
+    ok, report = True, []
+    for c in range(8):
+        ref = p_stash[rows, c]
+        m = float((k_stash[rows, c] - ref).abs().max()) if rows.numel() else 0.0
+        scale = max(float(ref.abs().max()), 1e-6) if rows.numel() else 1.0
+        ok = ok and m <= tol[c] * scale
+        report.append(f"{c}:{m / scale:.1e}")
+    return ok, " ".join(report)
 
 
 def compare_grad(k_grad, p_grad, p64):
@@ -531,8 +612,7 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
         raster_backward_stash_plain)
     from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
                                                         raster_forward_plain,
-                                                        raster_forward_stash,
-                                                        stash_offsets)
+                                                        raster_forward_stash)
 
     cam, opts = sys_cfg.cam, sys_cfg.opts
     d_max = opts.max_tiles_per_gaussian
@@ -554,25 +634,13 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
         torch.cuda.synchronize()
         frac, err1, report, ok1 = compare_out(k_out, p_out)
         kex_agree = float((k_kexit == p_kexit).float().mean())
-        # stash rows of tiles whose block count agrees
-        soff = stash_offsets(ts, te).long()
-        rows = [torch.arange(int(soff[i]), int(soff[i]) + int(k_kexit[i]),
-                             device=dev)
-                for i in torch.nonzero(k_kexit == p_kexit)[:, 0].tolist()]
-        rows = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.long,
-                                                        device=dev)
-        st_ok, st_report = True, []
-        for c in range(8):
-            ref = p_stash[rows, c]
-            m = float((k_stash[rows, c] - ref).abs().max()) if rows.numel() else 0.0
-            scale = max(float(ref.abs().max()), 1e-6) if rows.numel() else 1.0
-            st_ok = st_ok and m <= TOL_STASH[c] * scale
-            st_report.append(f"{c}:{m / scale:.1e}")
+        st_ok, st_report = compare_stash(k_stash, p_stash, k_kexit, p_kexit,
+                                         ts, te, dev, TOL_STASH)
         k3_same = bool(torch.equal(k3_out, k_out))
         print(f"[kernels] K1 {case}: int-channel mismatch {frac:.2e} "
               f"(< 5e-3), float max abs err {err1:.3e}, relative by channel "
               f"[{report}] (tol {TOL_OUT}), kexit agree {kex_agree:.4f}, "
-              f"stash relative by row [{' '.join(st_report)}]; K3 == K1 "
+              f"stash relative by row [{st_report}]; K3 == K1 "
               f"out: {k3_same}")
         check(ok1, f"K1 {case} disagrees with its plain version")
         check(kex_agree >= 0.99, f"K1 {case} kexit disagrees")
@@ -653,8 +721,10 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
             check(same5, "K5's re-forward stash differs from K1's")
             del scratch
 
-            evals, culled, accepted = pair_pixel_work(pattrs, ts, te, k_out,
-                                                      opts.grid)
+            evals, culled, accepted, wrong = pair_pixel_work(
+                pattrs, ts, te, k_out, opts.grid)
+            check(wrong == 0, f"phase 2: the cull rejected {wrong} (pair, "
+                  f"pixel) that pass the alpha test")
             out_bytes = k_out.numel() * 4
             in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
             stash_bytes = int(k_kexit.sum()) * 8 * 256 * 4
@@ -707,7 +777,7 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
                   f"{b1[0]:.4f} {b1[1]}), K3 {t_k3:.3f} (bound {b3[0]:.4f}), "
                   f"K2 {t_k2:.3f} (plain {t_p2:.1f}, bound {b2[0]:.4f} "
                   f"{b2[1]}); (pair, pixel) evaluations {evals:.6g}, culled "
-                  f"{culled:.6g}, accepted {accepted:.6g}")
+                  f"{culled:.6g} (wrongly: {wrong}), accepted {accepted:.6g}")
 
     # K4 at the reduction's shapes: [R, 24] run totals, pos = run ends of
     # the binning's per-gaussian pair counts, as binning._land calls it
@@ -1174,10 +1244,11 @@ def run_driver(label, env, dev, edit=None, resume_from=None):
     return result, launches, probe, secs, out
 
 
-def small_bounds_failed(label, result):
-    """Prints each bound of SMALL_BOUNDS; returns the keys it fails."""
+def small_bounds_failed(label, result, bounds=None):
+    """Prints each bound of ``bounds`` (SMALL_BOUNDS); returns the keys it
+    fails."""
     failed = []
-    for key, (op, bound) in SMALL_BOUNDS.items():
+    for key, (op, bound) in (bounds or SMALL_BOUNDS).items():
         v = result[key]
         ok = np.isfinite(v) and (v < bound if op == "<" else v > bound)
         print(f"[{label}] {key} {v:.6g} (bound {op} {bound}): "
@@ -1187,9 +1258,10 @@ def small_bounds_failed(label, result):
     return failed
 
 
-def phase_driver_small(dev):
+def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None):
     """Phase 5: the driver at 48x64 over 12 frames against the bounds of
-    tests/test_full_slam.py. The seed-0 schedule's keyframe test at frame
+    tests/test_full_slam.py (phase 9b: ``edit`` sets the 3DGS ablation
+    and ``bounds`` are the JAX package's in that configuration). The seed-0 schedule's keyframe test at frame
     9 sits within 3 pixels of its threshold (the port counts 156
     low-alpha pixels on the CPU and 153 on the card, the JAX package 155,
     against 153.6), so float32 rounding decides it, and without that keyframe
@@ -1198,72 +1270,73 @@ def phase_driver_small(dev):
     bounds passes only if a keyframe test sat within KF_MARGIN of its
     threshold and a control run, with tau_k moved just across that one
     count so the frame takes the other decision, clears every bound."""
-    result, launches, probe, secs, _ = run_driver("driver_48x64", SMALL, dev)
-    print(f"[driver_48x64] {secs:.1f} s; keyframe tests (frame, low-alpha "
+    result, launches, probe, secs, _ = run_driver(label, SMALL, dev, edit=edit)
+    print(f"[{label}] {secs:.1f} s; keyframe tests (frame, low-alpha "
           f"pixels, threshold): {probe.kf_tests}")
-    if not small_bounds_failed("driver_48x64", result):
+    if not small_bounds_failed(label, result, bounds):
         return launches
     near = [k for k in probe.kf_tests if abs(k[1] - k[2]) <= KF_MARGIN * k[2]]
-    check(near, "phase 5 fails the bounds, and no keyframe test sat within "
+    check(near, f"{label} fails the bounds, and no keyframe test sat within "
           f"{KF_MARGIN:.0%} of its threshold")
     t, n_low, thr = min(near, key=lambda k: abs(k[1] - k[2]))
     hw = int(SMALL["SYN_H"]) * int(SMALL["SYN_W"])
     tau = (n_low + (0.5 if n_low > thr else -0.5)) / hw
-    print(f"[driver_48x64] frame {t}'s keyframe test counted {n_low:.0f} "
+    print(f"[{label}] frame {t}'s keyframe test counted {n_low:.0f} "
           f"against {thr:.1f}; control: tau_k {tau:.6f}, so that frame "
           f"takes the other decision")
     ctl, _, ctl_probe, _, _ = run_driver(
-        "driver_48x64_control", dict(SMALL, SYN_TAU_K=repr(tau)), dev)
-    print(f"[driver_48x64_control] keyframe tests: {ctl_probe.kf_tests}")
-    check(not small_bounds_failed("driver_48x64_control", ctl),
-          f"phase 5: the control run with frame {t}'s borderline keyframe "
+        f"{label}_control", dict(SMALL, SYN_TAU_K=repr(tau)), dev, edit=edit)
+    print(f"[{label}_control] keyframe tests: {ctl_probe.kf_tests}")
+    check(not small_bounds_failed(f"{label}_control", ctl, bounds),
+          f"{label}: the control run with frame {t}'s borderline keyframe "
           f"decision reversed fails the bounds too")
     return launches
 
 
-def phase_driver_full(dev):
-    """Phase 6: the driver at 340x600 over the config's 30 frames."""
+def phase_driver_full(dev, label="driver_340x600", edit=None):
+    """Phase 6: the driver at 340x600 over the config's 30 frames (phase
+    9b: ``edit`` sets the 3DGS ablation)."""
     import torch
 
     result, launches, probe, secs, out = run_driver(
-        "driver_340x600", dict(SYN_H=str(H), SYN_W=str(W)), dev)
+        label, dict(SYN_H=str(H), SYN_W=str(W)), dev, edit=edit)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(out, "time.json")) as f:
         times = json.load(f)
     n_frames = int(config_from_env({})["data"]["num_frames"])
     loop_s = probe.t_eval - probe.t_loop
     be = probe.backend
-    print(f"[driver_340x600] {n_frames} frames, frame loop (backend drains, "
+    print(f"[{label}] {n_frames} frames, frame loop (backend drains, "
           f"final merge and refine included) {loop_s:.2f} s: "
           f"{n_frames / loop_s:.3f} frames/s; time.json {json.dumps(times)}")
-    print(f"[driver_340x600] merges {len(probe.merges)} "
+    print(f"[{label}] merges {len(probe.merges)} "
           f"{json.dumps(probe.merges)}, capacity-bucket flips "
           f"{be.bucket_flips}, backend capacity {be.map.capacity}, pair "
           f"factor {be.sys.opts.pair_budget_factor}")
-    print("[driver_340x600] backend ms per task (median, mean, count): "
+    print(f"[{label}] backend ms per task (median, mean, count): "
           + "; ".join(f"{k} {np.median(v):.1f} {np.mean(v):.1f} {len(v)}"
                       for k, v in sorted(probe.tasks.items())))
-    print(f"[driver_340x600] eval_final {probe.eval_s:.2f} s, "
+    print(f"[{label}] eval_final {probe.eval_s:.2f} s, "
           f"{1e3 * probe.eval_s / n_frames:.1f} ms per frame; peak device "
           f"memory {peak:.2f} GiB; whole run {secs:.1f} s")
-    check(len(probe.merges) == 3, f"phase 6 merged {len(probe.merges)} "
+    check(len(probe.merges) == 3, f"{label} merged {len(probe.merges)} "
           f"submaps, not 3")
     later = [m for m in probe.merges if not m["first"]]
     check(len(later) == 2 and all(m["covis"] for m in later),
-          "phase 6: the later merges retrieved no covisible submaps")
+          f"{label}: the later merges retrieved no covisible submaps")
     for kind in ("mapping (fused x4)", "prune", "tracking"):
-        check(probe.tasks.get(kind), f"phase 6 ran no {kind} task")
+        check(probe.tasks.get(kind), f"{label} ran no {kind} task")
     for name in ("raster_forward_stash", "raster_backward_stash",
                  "monotone_row_gather"):
         check(probe.inside["backend"].get(name, 0) > 0,
-              f"{name} never launched inside the backend")
+              f"{label}: {name} never launched inside the backend")
     check(probe.inside["eval"].get("raster_forward", 0) > 0,
-          "raster_forward never launched inside eval_final")
+          f"{label}: raster_forward never launched inside eval_final")
     ate = result["ATE RMSE"]
-    print(f"[driver_340x600] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}): "
+    print(f"[{label}] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}): "
           f"{'pass' if ate < T_ERR_ABS else 'FAIL'}")
     check(np.isfinite(ate) and ate < T_ERR_ABS,
-          f"phase 6: ATE RMSE {ate} not < {T_ERR_ABS}")
+          f"{label}: ATE RMSE {ate} not < {T_ERR_ABS}")
     # PSNR over the first submap's frames. On this 30-frame schedule the
     # synchronous driver's later merges lose their donors to the prune
     # task, in the JAX package as in the port: they enter at opacity 0.01
@@ -1277,12 +1350,12 @@ def phase_driver_full(dev):
                                + (m is probe.merges[-1])])
              for m in probe.merges]
     own = owned[0][1]
-    print(f"[driver_340x600] PSNR {result['PSNR']:.6g} over all frames; mean "
+    print(f"[{label}] PSNR {result['PSNR']:.6g} over all frames; mean "
           f"by submap {[(i, round(float(p.mean()), 3)) for i, p in owned]}; "
           f"over the first submap's {len(own)} frames {own.mean():.6g} (bound "
           f"> {PSNR_MIN}): {'pass' if own.mean() > PSNR_MIN else 'FAIL'}")
     check(np.isfinite(own).all() and own.mean() > PSNR_MIN,
-          f"phase 6: PSNR {own.mean()} over the first submap's frames not > "
+          f"{label}: PSNR {own.mean()} over the first submap's frames not > "
           f"{PSNR_MIN}")
     return launches, probe
 
@@ -1293,6 +1366,15 @@ def phase_driver_full(dev):
 
 N_FRAMES_DISK = 12     # one cut, at frame 10 (submaps of 10 frames)
 SEQ = "synthetic_seed0"
+
+
+def disk_data(root):
+    """The config's data section for the ReplicaV2 tree under root."""
+    return dict(dataset_name="replicav2", basedir=root, sequence=SEQ,
+                gradslam_data_cfg=os.path.join(root,
+                                               "replica_v2_synthetic.yaml"),
+                desired_image_height=H, desired_image_width=W, start=0,
+                end=-1, stride=1, num_frames=N_FRAMES_DISK)
 
 
 def write_disk_scene(root, n):
@@ -1332,7 +1414,7 @@ def write_disk_scene(root, n):
     cam = dict(image_height=H, image_width=W, fx=float(k[0, 0]),
                fy=float(k[1, 1]), cx=float(k[0, 2]), cy=float(k[1, 2]),
                png_depth_scale=1000.0, crop_edge=0)
-    prof = os.path.join(root, "replica_v2_synthetic.yaml")
+    prof = disk_data(root)["gradslam_data_cfg"]
     with open(prof, "w") as f:
         f.write("# the synthetic scene's camera, ReplicaV2 layout\n"
                 "dataset_name: replicav2\ncamera_params:\n"
@@ -1409,11 +1491,8 @@ def phase_disk(dev, card):
     from gaus_slam_tpu_torch.utils.png import read_png
 
     root = out_dir("disk_data")
-    prof, frames = write_disk_scene(root, N_FRAMES_DISK)
-    data = dict(dataset_name="replicav2", basedir=root, sequence=SEQ,
-                gradslam_data_cfg=prof, desired_image_height=H,
-                desired_image_width=W, start=0, end=-1, stride=1,
-                num_frames=N_FRAMES_DISK)
+    _, frames = write_disk_scene(root, N_FRAMES_DISK)
+    data = disk_data(root)
     ds = get_dataset(data)
     check(len(ds) == N_FRAMES_DISK, f"phase 8: {len(ds)} frames on disk")
     t0 = time.perf_counter()
@@ -1519,6 +1598,366 @@ def phase_disk(dev, card):
     total = collections.Counter(launches)
     total.update(r_launches)
     return dict(total)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the 3DGS render method, the SplaTAM baseline and gs_densify
+
+
+# Without SA nothing amplifies the two summation orders' rounding: every
+# output channel and stash row within 1e-4 of its scale (the integer ones
+# exactly), and K2's gradient, through a well-conditioned weight, within
+# 1e-5 worst-row relative L2 of torch.autograd through the plain version
+# (phase 2's check of K2 without SA).
+TOL_OUT_NO_SA = {c: 1e-4 for c in range(13)}
+TOL_STASH_NO_SA = {c: 0.0 if t == 0.0 else 1e-4 for c, t in TOL_STASH.items()}
+TOL_GRAD_NO_SA = 1e-5
+# The per-accepted work without SA's fusion weight and fused depth (25
+# FLOP + rcp, rcp, exp of FWD_ACCEPTED; the backward's per-pair forward
+# values drop the same).
+FWD_ACCEPTED_NO_SA = (FWD_ACCEPTED[0] - 25, FWD_ACCEPTED[1] - 3)
+BWD_ACCEPTED_NO_SA = (BWD_ACCEPTED[0] - 25, BWD_ACCEPTED[1] - 3)
+
+
+def edit_3dgs(cfg):
+    """What EXP=1 sets in the dataset profiles (configs/replica/
+    config.py:15,39,112): the 3DGS render method, isotropic gaussians."""
+    cfg["render"]["method"] = "3dgs"
+    cfg["gaussians"]["gaussian_distribution"] = "isotropic"
+
+
+def phase_3dgs_kernels(ds, sys_cfg, capacity, dev, card, sa_numbers):
+    """Phase 9a: K1, K3, K2 and K4 on 3DGS pair attributes (phase 2's
+    random map through preprocess_3dgs, anisotropic and isotropic, all
+    tiles and the coarse tracking subset), SA off as the 3DGS method runs
+    them: each against its plain version, the cull checked conservative,
+    and K1 / K2 / K3 timed beside phase 2's SA times."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops.raster_backward import (
+        raster_backward_stash, raster_backward_stash_plain)
+    from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
+                                                        raster_forward_plain,
+                                                        raster_forward_stash)
+
+    cam = sys_cfg.cam
+    gm = random_map(ds, cam, capacity, dev)
+    rng = np.random.default_rng(3)
+    kw = dict(grid=sys_cfg.opts.grid, use_sa=False, need_normal=False)
+    numbers = {}
+    for iso in (False, True):
+        kind = "isotropic" if iso else "anisotropic"
+        opts = sys_cfg.opts._replace(method="3dgs", iso3d=iso)
+        check(opts.use_sa and not opts.settings().use_sa,
+              "phase 9a: the 3DGS method must turn SA off")
+        bins, cases = kernel_inputs(gm, cam, opts,
+                                    sys_cfg.track_front.coarse_stride)
+        print(f"[3dgs kernels] {kind}: pair demand {int(bins.demand)}, "
+              f"r_max {bins.pair_gauss.shape[0]}, overflow "
+              f"{bool(bins.overflow)}, rects shrunk {int(bins.n_shrunk)}")
+        check(not bool(bins.overflow), "phase 9a: the binning overflows")
+        for case, (pattrs, ts, te, ids) in cases.items():
+            label = f"{kind} {case}"
+            n_sub = int(ts.shape[0])
+            live = pattrs[17] > 0
+            check(bool((pattrs[2] == 0).all() and (pattrs[5] == 0).all()
+                       and (pattrs[8][live] == 1).all()),
+                  f"phase 9a {label}: the pair attributes are not "
+                  f"pixel-linear (p_z == 1)")
+            k_out, k_stash, k_kexit = raster_forward_stash(
+                pattrs, ts, te, tile_ids=ids, **kw)
+            k3_out = raster_forward(pattrs, ts, te, tile_ids=ids, **kw)
+            p_out, p_stash, p_kexit = raster_forward_plain(
+                pattrs, ts, te, tile_ids=ids, **kw)
+            torch.cuda.synchronize()
+            frac, err1, report, ok1 = compare_out(k_out, p_out,
+                                                  TOL_OUT_NO_SA)
+            kex_agree = float((k_kexit == p_kexit).float().mean())
+            st_ok, st_report = compare_stash(k_stash, p_stash, k_kexit,
+                                             p_kexit, ts, te, dev,
+                                             TOL_STASH_NO_SA)
+            k3_same = bool(torch.equal(k3_out, k_out))
+            print(f"[3dgs kernels] K1 {label}: {n_sub} tiles, pairs "
+                  f"{int((te - ts).clamp(min=0).sum())}; int-channel "
+                  f"mismatch {frac:.2e} (< 5e-3), float max abs err "
+                  f"{err1:.3e}, relative by channel [{report}] (tol 1e-4), "
+                  f"kexit agree {kex_agree:.4f}, stash relative by row "
+                  f"[{st_report}] (tol 1e-4, rows 1 and 7 exact); K3 == K1 "
+                  f"out: {k3_same}; alpha max {float(k_out[:, 4].max()):.3f}")
+            check(ok1, f"K1 on 3DGS attributes ({label}) disagrees with its "
+                  f"plain version")
+            check(kex_agree >= 0.99, f"K1 on 3DGS attributes ({label}): "
+                  f"kexit disagrees")
+            check(st_ok, f"K1 on 3DGS attributes ({label}): stash disagrees")
+            check(k3_same, f"K3 on 3DGS attributes ({label}) differs from "
+                  f"K1's output")
+            check(float(k_out[:, 4].max()) > 0.5,
+                  f"phase 9a {label}: the render is empty")
+
+            d_out = torch.zeros_like(k_out)
+            d_out[:, :10] = torch.as_tensor(
+                rng.normal(size=(n_sub, 10, k_out.shape[-1])).astype(
+                    np.float32), device=dev)
+            bargs = (pattrs, ts, te, k_stash, k_kexit, k_out, d_out)
+            k_grad = raster_backward_stash(*bargs, tile_ids=ids, **kw)
+            p_grad = raster_backward_stash_plain(*bargs, tile_ids=ids, **kw)
+            torch.cuda.synchronize()
+            rel = max(float((k_grad[c] - p_grad[c]).norm()
+                            / p_grad[c].norm())
+                      for c in range(21) if float(p_grad[c].norm()) > 0)
+            err2 = float((k_grad - p_grad).abs().max())
+            pad = float(k_grad[21:].abs().max())
+            print(f"[3dgs kernels] K2 {label}: worst row relative L2 err "
+                  f"{rel:.2e} (tol {TOL_GRAD_NO_SA}), max abs err "
+                  f"{err2:.3e}, pad rows {pad}")
+            check(rel <= TOL_GRAD_NO_SA and pad == 0.0,
+                  f"K2 on 3DGS attributes ({label}) disagrees with "
+                  f"torch.autograd through the plain version")
+
+            if case != "full":
+                continue
+            evals, culled, accepted, wrong = pair_pixel_work(
+                pattrs, ts, te, k_out, opts.grid)
+            print(f"[3dgs kernels] {label}: (pair, pixel) evaluations "
+                  f"{evals:.6g}, culled {culled:.6g}, accepted "
+                  f"{accepted:.6g}; culled although the alpha test passes: "
+                  f"{wrong}")
+            check(wrong == 0, f"phase 9a {label}: pair_culled rejected "
+                  f"{wrong} (pair, pixel) that pass the alpha test: the cull "
+                  f"is not conservative on 3DGS attributes")
+            if iso:
+                continue
+            # K4 inside the 3DGS mapping reduction: the K4 landing against
+            # the plain gather's, bit for bit
+            d_pairs = torch.as_tensor(rng.normal(
+                size=(bins.pair_gauss.shape[0], 24)).astype(np.float32),
+                device=dev)
+            n = gm.capacity
+            _cuda.LAUNCHES.clear()
+            g4 = bins.slab_scatter_grads(d_pairs, n, backend="pallas")
+            torch.cuda.synchronize()
+            k4_launched = _cuda.LAUNCHES.get("monotone_row_gather", 0)
+            gp = bins.slab_scatter_grads(d_pairs, n, backend="reference")
+            same4 = bool(torch.equal(g4, gp))
+            print(f"[3dgs kernels] K4 in the 3DGS mapping reduction "
+                  f"([R={d_pairs.shape[0]}, 24] -> [N={n}, 24]): launched "
+                  f"{k4_launched}, bit-equal to the plain gather's landing: "
+                  f"{same4}")
+            check(k4_launched > 0 and same4, "K4 in the 3DGS mapping "
+                  "reduction is not bit-equal to the plain landing")
+
+            out_bytes = k_out.numel() * 4
+            in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
+            stash_bytes = int(k_kexit.sum()) * 8 * 256 * 4
+            t_k1 = time_ms(lambda: raster_forward_stash(pattrs, ts, te, **kw),
+                           10)
+            t_k3 = time_ms(lambda: raster_forward(pattrs, ts, te, **kw), 10)
+            t_k2 = time_ms(lambda: raster_backward_stash(*bargs, **kw), 5)
+            t_p1 = time_ms(lambda: raster_forward_plain(pattrs, ts, te, **kw),
+                           2, warm=1)
+            t_p2 = time_ms(lambda: raster_backward_stash_plain(*bargs, **kw),
+                           1, warm=1)
+            work = {
+                "raster_forward_stash": (t_k1, t_p1, FWD_ACCEPTED_NO_SA,
+                                         in_bytes + out_bytes + stash_bytes,
+                                         err1),
+                "raster_forward": (t_k3, t_p1, FWD_ACCEPTED_NO_SA,
+                                   in_bytes + out_bytes, err1),
+                "raster_backward_stash": (
+                    t_k2, t_p2, BWD_ACCEPTED_NO_SA,
+                    2 * in_bytes + 2 * out_bytes + stash_bytes, err2)}
+            for name, (t, tp, per, nb, err) in work.items():
+                b = op_bound(evals, accepted, per, nb, culled=culled)
+                numbers[name] = dict(ms=t, plain_ms=tp, bound_ms=b[0],
+                                     bound_by=b[1], max_abs_err=err)
+            print(f"[3dgs kernels] {card}: ms per call without SA on 3DGS "
+                  f"attributes ({label}) beside phase 2's with SA on 2DGS "
+                  f"attributes: " + ", ".join(
+                      f"{KERNELS[k][0]} {v['ms']:.4f} (SA "
+                      f"{sa_numbers[k]['ms']:.4f}; plain {v['plain_ms']:.1f}; "
+                      f"bound {v['bound_ms']:.4f} {v['bound_by']})"
+                      for k, v in numbers.items()))
+    # the same kernels on phase 2's 2DGS attributes, SA on and off in one
+    # call: what SA costs apart from the change of attributes
+    _, cases = kernel_inputs(gm, cam, sys_cfg.opts,
+                             sys_cfg.track_front.coarse_stride)
+    pattrs, ts, te, _ = cases["full"]
+    t2 = {True: [], False: []}
+    for sa in (True, False, False, True):
+        k = dict(kw, use_sa=sa)
+        o, st, kx = raster_forward_stash(pattrs, ts, te, **k)
+        d_o = torch.zeros_like(o)
+        d_o[:, :10] = 1.0
+        ba = (pattrs, ts, te, st, kx, o, d_o)
+        t2[sa].append((
+            time_ms(lambda: raster_forward_stash(pattrs, ts, te, **k), 10),
+            time_ms(lambda: raster_forward(pattrs, ts, te, **k), 10),
+            time_ms(lambda: raster_backward_stash(*ba, **k), 5)))
+    mean = {sa: np.mean(v, axis=0) for sa, v in t2.items()}
+    print(f"[3dgs kernels] {card}: on phase 2's 2DGS attributes (full), ms "
+          f"per call with SA / without (mean of two turns each): K1 "
+          f"{mean[True][0]:.4f} / {mean[False][0]:.4f}, K3 "
+          f"{mean[True][1]:.4f} / {mean[False][1]:.4f}, K2 "
+          f"{mean[True][2]:.4f} / {mean[False][2]:.4f}")
+    return numbers
+
+
+def check_launches(label, launches, want=STASH_PATH, absent=("raster_backward",)):
+    for name in want:
+        check(launches.get(name, 0) > 0, f"{label}: {name} never launched")
+    for name in absent:
+        check(launches.get(name, 0) == 0, f"{label}: {name} launched")
+
+
+def phase_3dgs_driver(dev):
+    """Phase 9b: the 3DGS ablation through the port's driver, at 48x64 x
+    12 against the JAX package's numbers in that configuration, then at
+    340x600 x 30 against phase 6's bounds."""
+    small = phase_driver_small(dev, "3dgs_48x64", SMALL_BOUNDS_3DGS,
+                               edit_3dgs)
+    check_launches("phase 9b (48x64)", small)
+    full, probe = phase_driver_full(dev, "3dgs_340x600", edit_3dgs)
+    check_launches("phase 9b (340x600)", full)
+    return small, full, probe
+
+
+def phase_splatam(dev, card):
+    """Phase 9c: the port's SplaTAM baseline (scripts/splatam.py) with
+    configs/replica/splatam.py, its data the ReplicaV2 tree of phase 8
+    (340x600 x 12)."""
+    import shutil
+
+    import torch
+
+    from gaus_slam_tpu_torch.models import gaussians as G
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.scripts import splatam
+    from gaus_slam_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", "replica", "splatam.py"))
+    cfg["data"] = disk_data(out_dir("disk_data"))
+    base = out_dir("splatam")
+    out = base + "_splatam"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg["vis_base_dir"] = base
+    grown = []
+    resize = G.resize_map
+
+    def counted_resize(gm, cap):
+        grown.append((gm.capacity, cap))
+        return resize(gm, cap)
+
+    G.resize_map = counted_resize
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        result = splatam.rgbd_slam(cfg, backend="pallas", device=dev)
+    finally:
+        G.resize_map = resize
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    with open(os.path.join(out, "time.json")) as f:
+        times = json.load(f)
+    n_track = int(cfg["frontend"]["num_tracking_iters"])
+    n_frames = N_FRAMES_DISK
+    print(f"[splatam] result {json.dumps(result)}")
+    print(f"[splatam] {card}: {n_frames} frames in {secs:.1f} s "
+          f"({1.0 / times['frame_time']:.3f} frames/s over the frame loop "
+          f"and the final refinement); tracking "
+          f"{times['tracking_iter_time(ms)']:.1f} ms per tracked frame "
+          f"({times['tracking_iter_time(ms)'] / n_track:.2f} ms per "
+          f"iteration of {n_track}), mapping "
+          f"{times['mapping_iter_time(ms)']:.2f} ms per iteration; "
+          f"time.json {json.dumps(times)}")
+    print(f"[splatam] capacity growth {grown}; launches "
+          f"{json.dumps(launches)}")
+    for name in ("time.json", "result.json", "scene/gaussians.ply"):
+        check(os.path.exists(os.path.join(out, name)),
+              f"phase 9c: the SplaTAM driver wrote no {name}")
+    check(any(new > old for old, new in grown),
+          "phase 9c: the map capacity never grew")
+    check_launches("phase 9c", launches)
+    ate, psnr = result["ATE RMSE"], result["PSNR"]
+    print(f"[splatam] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}), PSNR "
+          f"{psnr:.6g} (bound > {SPLATAM_PSNR_MIN})")
+    check(np.isfinite(psnr) and psnr > SPLATAM_PSNR_MIN,
+          f"phase 9c: PSNR {psnr} not > {SPLATAM_PSNR_MIN}")
+    check(np.isfinite(ate) and ate < T_ERR_ABS,
+          f"phase 9c: ATE RMSE {ate} not < {T_ERR_ABS}")
+    return launches
+
+
+def phase_gs_densify(dev, card):
+    """Phase 9d: the port's driver on phase 8's tree with
+    backend.gs_densify: densify_and_prune must run, never drop a row for
+    want of capacity, and the run must clear phase 8's bounds."""
+    import torch
+
+    from gaus_slam_tpu_torch.models import gaussians as G
+
+    calls = []
+    real = G.densify_and_prune
+
+    def counted(gm, grad_stat, generator=None, **kw):
+        clone, split = G.densify_masks(
+            gm, grad_stat, grad_threshold=kw["grad_threshold"],
+            percent_dense=kw["percent_dense"], extent=kw["extent"])
+        n0, nc, ns = int(gm.n_active), int(clone.sum()), int(split.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(gm, grad_stat, generator, **kw)
+        n1 = int(out.n_active)
+        calls.append(dict(before=n0, clones=nc, splits=ns,
+                          pruned=n0 + nc + 2 * ns - n1, after=n1,
+                          capacity=gm.capacity,
+                          ms=round(1e3 * (time.perf_counter() - t0), 2)))
+        return out
+
+    def edit(cfg):
+        cfg["data"] = disk_data(out_dir("disk_data"))
+        cfg["backend"]["gs_densify"] = True
+
+    G.densify_and_prune = counted
+    try:
+        result, launches, probe, secs, out = run_driver(
+            "gs_densify", dict(SYN_H=str(H), SYN_W=str(W),
+                               SYN_FRAMES=str(N_FRAMES_DISK)), dev, edit=edit)
+    finally:
+        G.densify_and_prune = real
+    be = probe.backend
+    print(f"[gs_densify] {card}: densify_and_prune calls (clones, splits, "
+          f"prunes per call) {json.dumps(calls)}; backend capacity "
+          f"{be.map.capacity}, n_active {int(be.map.n_active)}; mapping steps "
+          f"{be.mapping_iter}; backend ms per task (median, count): "
+          + "; ".join(f"{k} {np.median(v):.1f} {len(v)}"
+                      for k, v in sorted(probe.tasks.items()))
+          + f"; whole run {secs:.1f} s")
+    check(calls, "phase 9d: densify_and_prune never ran")
+    check("mapping (fused x4)" not in probe.tasks,
+          "phase 9d: gs_densify ran the fused mapping batches")
+    for c in calls:
+        check(c["before"] + c["clones"] + 2 * c["splits"] <= c["capacity"],
+              f"phase 9d: a densify outgrew the capacity and dropped rows "
+              f"({c})")
+    check(be.map.capacity >= int(be.map.n_active),
+          "phase 9d: the capacity fell under the map")
+    check_launches("phase 9d", launches)
+    psnrs = np.loadtxt(os.path.join(out, "psnr.txt"))
+    first = probe.merges[0]["frames"]
+    own = psnrs[first[0]:first[1]]
+    ate = result["ATE RMSE"]
+    print(f"[gs_densify] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}); PSNR "
+          f"{result['PSNR']:.6g} over all frames, {own.mean():.6g} over the "
+          f"first submap's {len(own)} (bound > {PSNR_MIN})")
+    check(np.isfinite(ate) and ate < T_ERR_ABS,
+          f"phase 9d: ATE RMSE {ate} not < {T_ERR_ABS}")
+    check(len(own) > 0 and np.isfinite(own).all() and own.mean() > PSNR_MIN,
+          f"phase 9d: PSNR {own.mean()} over the first submap's frames not > "
+          f"{PSNR_MIN}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1640,13 +2079,20 @@ def main() -> int:
         full_launches, probe = phase_driver_full(dev)
         k6_launches, numbers["bf16_probe"] = phase_bf16_probe(dev)
         disk_launches = phase_disk(dev, card)
+        numbers_3dgs = phase_3dgs_kernels(ds, sys_cfg, capacity, dev, card,
+                                          numbers)
+        small_3dgs, full_3dgs, _ = phase_3dgs_driver(dev)
+        splatam_launches = phase_splatam(dev, card)
+        densify_launches = phase_gs_densify(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     phases = {"3": launches, "3b": ref_launches, "5": small_launches,
               "6": full_launches, "6 backend": dict(probe.inside["backend"]),
               "6 eval_final": dict(probe.inside["eval"]), "7": k6_launches,
-              "8": disk_launches}
+              "8": disk_launches, "9b 48x64": small_3dgs,
+              "9b 340x600": full_3dgs, "9c": splatam_launches,
+              "9d": densify_launches}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase
@@ -1658,7 +2104,10 @@ def main() -> int:
                         "launches": int(phases[main_path].get(name, 0)),
                         "launches_by_phase": {
                             p: int(c.get(name, 0)) for p, c in phases.items()},
-                        **numbers[name]})
+                        **numbers[name],
+                        # K1 / K2 / K3 without SA on 3DGS attributes (9a)
+                        **({"no_sa_3dgs": numbers_3dgs[name]}
+                           if name in numbers_3dgs else {})})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -253,6 +253,69 @@ def adam_step(gm: GaussianMap, grads: Params, lrs: dict,
                        v=Params(*new_v), step=step)
 
 
+def densify_masks(gm: GaussianMap, grad_stat: torch.Tensor, *,
+                  grad_threshold: float, percent_dense: float,
+                  extent: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(clone, split) masks of densify_and_prune: active gaussians whose
+    view-space gradient statistic reaches the threshold, cloned when
+    their largest scale is at most percent_dense * extent, else split."""
+    max_scale = torch.exp(gm.params.log_scales).max(dim=-1).values
+    hot = (grad_stat >= grad_threshold) & gm.active
+    small = max_scale <= percent_dense * extent
+    return hot & small, hot & ~small
+
+
+def densify_and_prune(gm: GaussianMap, grad_stat: torch.Tensor,
+                      generator: torch.Generator | None = None, *,
+                      grad_threshold: float, percent_dense: float,
+                      extent: float, min_opacity: float, min_scale: float,
+                      split_n: int = 2, noise=None) -> GaussianMap:
+    """3DGS-style clone / split / prune (the reference's
+    Gaussians.densify_and_prune, scene/Gaussians.py:532-593, run by the
+    backend's gs_densify, Backend.py:117-128).
+
+      clone: small gaussians with a large view-space gradient are copied
+        in place (new rows, zeroed Adam moments);
+      split: large ones are replaced by ``split_n`` children at
+        parent + R[:, :, 0] n0 + R[:, :, 1] n1, n ~ N(0, 1) * scales,
+        with log-scales shrunk by log(0.8 * split_n);
+      prune: opacity under min_opacity, mean scale under min_scale, or
+        largest scale over 0.1 * extent (the world-space bound; the
+        reference's screen-space one is never re-populated), and the
+        split parents.
+
+    The draws come from ``generator`` (on the map's device); ``noise``,
+    one [C, 2] standard-normal tensor per child, replaces them."""
+    scales = torch.exp(gm.params.log_scales)
+    clone_mask, split_mask = densify_masks(
+        gm, grad_stat, grad_threshold=grad_threshold,
+        percent_dense=percent_dense, extent=extent)
+
+    gm = add_params(gm, gm.params, clone_mask)
+
+    from ..ops.se3 import quat_to_rotmat
+
+    R = quat_to_rotmat(gm.params.quats)
+    child = gm.params._replace(
+        log_scales=gm.params.log_scales - float(np.log(0.8 * split_n)))
+    for i in range(split_n):
+        if noise is not None:
+            n01 = noise[i].to(scales.device, scales.dtype)
+        else:
+            n01 = torch.randn(scales.shape, generator=generator,
+                              dtype=scales.dtype, device=scales.device)
+        nz = n01 * scales
+        off = R[..., :, 0] * nz[:, 0:1] + R[..., :, 1] * nz[:, 1:2]
+        gm = add_params(gm, child._replace(xyz=child.xyz + off), split_mask)
+
+    opac = torch.sigmoid(gm.params.opacity_logit[:, 0])
+    scales = torch.exp(gm.params.log_scales)
+    prune_mask = ((opac < min_opacity)
+                  | (scales.mean(dim=-1) < min_scale)
+                  | (scales.max(dim=-1).values > 0.1 * extent))
+    return prune(gm, (prune_mask | split_mask) & gm.active)
+
+
 def extract_params(gm: GaussianMap) -> tuple[Params, torch.Tensor, torch.Tensor]:
     """Detached snapshot for submap handoff (Gaussians.extract_params)."""
     return (Params(*(p.detach() for p in gm.params)), gm.active, gm.n_active)

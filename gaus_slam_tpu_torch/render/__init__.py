@@ -1,6 +1,11 @@
 """Render facade — tracking / mapping / view modes over the
-static-capacity Gaussian map (port of gaus_slam_tpu/render/__init__.py,
-2DGS surfels).
+static-capacity Gaussian map (port of gaus_slam_tpu/render/__init__.py).
+
+Two render methods share the binning and the compositing kernels:
+"2dgs" (surfels, the lane-major ``preprocess_t``) and "3dgs" (volumetric
+gaussians, the EWA conic of ``ops/preprocess_3dgs.py`` packed through
+``pack_pair_attrs``; surface-aware depth fusion off, middepth and
+distortion zeroed, as the reference's render_3dgs.py returns them).
 
 Gradient boundaries as in the reference:
   * tracking: map parameters detached, gaussians rigidly moved into the
@@ -25,14 +30,18 @@ import torch
 from ..models.gaussians import GaussianMap, Params
 from ..ops import binning as B
 from ..ops.camera import Camera
-from ..ops.preprocess import preprocess_t
+from ..ops.compositing import OUT_C
+from ..ops.preprocess import PreSummary, pack_pair_attrs, preprocess_t
 from ..ops.raster import RenderSettings, render_pairs
 from ..ops.se3 import (pose_matrix, quat_multiply, quat_multiply_rows,
                        quat_normalize, rotmat_to_quat)
 
 
 class RenderOptions(NamedTuple):
-    """Static render configuration (2DGS surfels)."""
+    """Static render configuration: the tile grid, the render method
+    ("2dgs" surfels or "3dgs" volumetric gaussians, ``iso3d`` for the
+    isotropic ones), surface-aware depth fusion, the compositing backend
+    and the pair budget."""
 
     grid: B.TileGrid
     use_sa: bool = True
@@ -42,9 +51,14 @@ class RenderOptions(NamedTuple):
     pair_cap: int = 0
     max_tiles_per_gaussian: int = 16
     normals_in_tracking: bool = False  # loss.use_normal_loss
+    method: str = "2dgs"          # "2dgs" surfels | "3dgs" volumetric
+    iso3d: bool = False           # gaussian_distribution == isotropic
 
     def settings(self, need_normal: bool = True) -> RenderSettings:
-        return RenderSettings(grid=self.grid, use_sa=self.use_sa,
+        # surface-aware depth fusion is a feature of the 2DGS rasterizer;
+        # the 3DGS method composites plain weighted depth
+        return RenderSettings(grid=self.grid,
+                              use_sa=self.use_sa and self.method == "2dgs",
                               backend=self.backend, need_normal=need_normal)
 
     def r_max(self, n: int) -> int:
@@ -129,8 +143,27 @@ def track_coarse_budget(r_max: int, stride: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _prep_attrs(params: Params, active, cam: Camera):
-    """Activations + preprocess -> ([PAIR_C, N] attrs, PreSummary)."""
+def _preprocess_3dgs(xyz, scales, quats, opac, cam: Camera,
+                     opts: RenderOptions, active=None):
+    """The 3DGS method's preprocess on activated [N, C] fields."""
+    from ..ops.preprocess_3dgs import preprocess_3dgs, scales_to_3d
+
+    return preprocess_3dgs(xyz, scales_to_3d(scales, opts.iso3d), quats,
+                           opac, cam, active=active)
+
+
+def _prep_attrs(params: Params, active, cam: Camera, opts: RenderOptions):
+    """Activations + preprocess -> ([PAIR_C, N] attrs, PreSummary): the
+    lane-major ``preprocess_t`` for 2DGS, the [N, C] EWA preprocess and
+    ``pack_pair_attrs`` for 3DGS."""
+    if opts.method == "3dgs":
+        pre = _preprocess_3dgs(
+            params.xyz, torch.exp(params.log_scales), params.quats,
+            torch.sigmoid(params.opacity_logit[:, 0]), cam, opts,
+            active=active)
+        summary = PreSummary(valid=pre.valid, center=pre.center,
+                             radius=pre.radius, depth=pre.depth)
+        return pack_pair_attrs(pre, params.rgb), summary
     return preprocess_t(
         params.xyz.T,
         torch.exp(params.log_scales.T),
@@ -142,6 +175,16 @@ def _prep_attrs(params: Params, active, cam: Camera):
     )
 
 
+def _method_mask(out: torch.Tensor, opts: RenderOptions) -> torch.Tensor:
+    """The 3DGS method returns zeros for middepth and distortion (rows 8
+    and 9; its normals are zero by construction)."""
+    if opts.method != "3dgs":
+        return out
+    keep = torch.ones((1, OUT_C, 1), dtype=out.dtype, device=out.device)
+    keep[0, 8:10, 0] = 0.0
+    return out * keep
+
+
 def _detached(summary):
     return type(summary)(*(f.detach() for f in summary))
 
@@ -150,7 +193,7 @@ def bin_full(params: Params, active, cam: Camera, opts: RenderOptions,
              phase_stride: int = 0) -> B.Binning:
     """Binning pass alone (non-differentiable structure)."""
     with torch.no_grad():
-        _, summary = _prep_attrs(params, active, cam)
+        _, summary = _prep_attrs(params, active, cam, opts)
         return B.bin_gaussians(
             summary, opts.grid, r_max=opts.r_max(params.xyz.shape[0]),
             max_tiles_per_gaussian=opts.max_tiles_per_gaussian,
@@ -167,7 +210,7 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
     Returns (out_tiled [T or len(tile_ids), OUT_C, P], bins). ``phase`` /
     ``coarse_stride``: compact coarse path over a phase-major ``bins``
     (expansion + gradient reduction on the phase's pair block)."""
-    attrs, summary = _prep_attrs(params, active, cam)
+    attrs, summary = _prep_attrs(params, active, cam, opts)
     if bins is None:
         assert phase is None, "compact phase render needs phase-major bins"
         bins = B.bin_gaussians(
@@ -190,7 +233,7 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
             stop = torch.where(tile_valid, stop, start)
         out = render_pairs(pattrs, start.int(), stop.int(), tile_ids,
                            opts.settings(need_normal=need_normal))
-        return out, bins
+        return _method_mask(out, opts), bins
     pattrs = expand_pairs(attrs_t, bins, opts.max_tiles_per_gaussian,
                           opts.backend)
     if tile_ids is None:
@@ -202,7 +245,7 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
             stop = torch.where(tile_valid, stop, start)
     out = render_pairs(pattrs, start, stop, tile_ids,
                        opts.settings(need_normal=need_normal))
-    return out, bins
+    return _method_mask(out, opts), bins
 
 
 def render_view(gm: GaussianMap, cam: Camera, opts: RenderOptions):
@@ -258,7 +301,7 @@ def bin_for_tracking(gm: GaussianMap, cam0: Camera, opts: RenderOptions,
         xyz = p.xyz
         scales = torch.exp(p.log_scales)
         opac = torch.sigmoid(p.opacity_logit[:, 0])
-        _, summary = _prep_attrs(p, gm.active, cam0)
+        _, summary = _prep_attrs(p, gm.active, cam0, opts)
         r_max = opts.r_max(xyz.shape[0])
         strides = tuple(s for s in (coarse_strides or
                                     ((coarse_stride,) if coarse_stride > 1
@@ -303,7 +346,9 @@ def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
     ``pre_w2c``: a fixed [4, 4] composed left of the live pose, so the
     effective camera is ``pre_w2c @ pose_matrix(quat, trans)`` (backend
     tracking: the live submap transform under a fixed frame-in-submap
-    pose); the detached quaternion rotation is then q_pre * q."""
+    pose); the detached quaternion rotation is then q_pre * q. Under
+    3DGS the moved means carry the pose gradient into the EWA
+    preprocess."""
     if pair_hi is not None and pair_hi < cache.raw_t.shape[1]:
         start_c = torch.clamp(cache.tile_start, max=pair_hi)
         stop_c = torch.where(cache.tile_stop <= pair_hi, cache.tile_stop,
@@ -318,14 +363,22 @@ def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
                           q[None, :])[0]
     cam_eye = cam_proj.replace_w2c(
         torch.eye(4, dtype=torch.float32, device=cache.raw_t.device))
-    xyz_cam_t = w2c[:3, :3] @ cache.xyz_t + w2c[:3, 3][:, None]
-    quats_cam_t = quat_multiply_rows(q, cache.quats_t).detach()
-    pattrs, _ = preprocess_t(xyz_cam_t, cache.scales_t, quats_cam_t,
-                             cache.opac, cache.rgb_t, cam_eye)
+    if opts.method == "3dgs":
+        xyz_cam = cache.xyz_t.T @ w2c[:3, :3].T + w2c[:3, 3]
+        quats_cam = quat_multiply(q[None, :], cache.quats_t.T).detach()
+        pre = _preprocess_3dgs(xyz_cam, cache.scales_t.T, quats_cam,
+                               cache.opac, cam_eye, opts)
+        pattrs = pack_pair_attrs(pre, cache.rgb_t.T)
+    else:
+        xyz_cam_t = w2c[:3, :3] @ cache.xyz_t + w2c[:3, 3][:, None]
+        quats_cam_t = quat_multiply_rows(q, cache.quats_t).detach()
+        pattrs, _ = preprocess_t(xyz_cam_t, cache.scales_t, quats_cam_t,
+                                 cache.opac, cache.rgb_t, cam_eye)
     if tile_ids is None:
         start, stop = cache.tile_start, cache.tile_stop
     else:
         ids = tile_ids.long()
         start, stop = cache.tile_start[ids], cache.tile_stop[ids]
-    return render_pairs(pattrs, start, stop, tile_ids,
-                        opts.settings(need_normal=opts.normals_in_tracking))
+    out = render_pairs(pattrs, start, stop, tile_ids,
+                       opts.settings(need_normal=opts.normals_in_tracking))
+    return _method_mask(out, opts)

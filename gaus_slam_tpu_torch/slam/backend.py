@@ -11,11 +11,17 @@ graph (port of gaus_slam_tpu/slam/backend.py; reference slam/Backend.py).
   as one fused 4-task mapping_loop; when idle, a random submap gets a
   refinement task.
 
+  gs_densify (``backend.gs_densify``): every mapping step accumulates
+  the per-gaussian view-space gradient statistic, and every
+  ``densify.densify_interval`` mapping steps the global map is cloned,
+  split and pruned (3DGS style, Backend.py:117-128). Mapping then runs
+  step by step: the fused batches emit no per-step statistics.
+
 The schedule, its knobs and the order of the draws from ``self.rng`` are
 the JAX package's, so the same submaps give the same task queue. One
-device: the multi-device BA mesh, the backend map on a second device
-and gs_densify refuse to start (ROADMAP queue 1). ``backend.save_ckpt``
-is the driver's (utils/checkpoint.py at every submap boundary).
+device: the multi-device BA mesh and the backend map on a second device
+refuse to start (ROADMAP queue 1). ``backend.save_ckpt`` is the
+driver's (utils/checkpoint.py at every submap boundary).
 """
 from __future__ import annotations
 
@@ -82,10 +88,6 @@ class Backend:
         self.config = config
         self.device = torch.device(device)
         be = config["backend"]
-        if be.get("gs_densify", False):
-            raise NotImplementedError(
-                "backend.gs_densify: 3DGS clone/split on the global map "
-                "waits for ROADMAP queue 1 item 2 (gs_densify)")
         _refuse_multi_device(config, self.device)
         self.sys = SystemConfig.from_config(config, backend=backend,
                                             device=self.device)
@@ -101,6 +103,13 @@ class Backend:
                       f"dashboards per submap instead — see {sub}")
         self.num_ba_iters = int(be["num_ba_iters"])
         self.num_covis = int(be["num_covis_submaps"])
+        # 3DGS-style clone / split on the global map (Backend.py:117-128)
+        self.gs_densify = bool(be.get("gs_densify", False))
+        self.densify_interval = int(config["densify"].get("densify_interval",
+                                                          20))
+        self.mapping_iter = 0
+        self.grad_accum = None  # [C] on the device, sized to the capacity
+        self.grad_denom = None
         self.enable_random = bool(be.get("random_process", True))
         self.final_refinement = int(be.get("final_refinement", -1))
         tpu = config.get("tpu", {})
@@ -257,7 +266,41 @@ class Backend:
             lm.exposure = exp_out
         lm.mapping_times += 1
         self._note_diag(aux)
+        if self.gs_densify:
+            self._gs_densify_step(aux)
         return aux
+
+    def _gs_densify_step(self, aux):
+        """Accumulate the view-space gradient statistic; every
+        densify_interval mapping steps run clone / split / prune, refit
+        the capacity and reset the statistics (Backend.py:117-128)."""
+        cap = self.map.capacity
+        if self.grad_accum is None or self.grad_accum.shape[0] != cap:
+            self.grad_accum = torch.zeros(cap, device=self.device)
+            self.grad_denom = torch.zeros(cap, device=self.device)
+        stat, vis = aux["densify_stat"], aux["visible"]
+        self.grad_accum[:stat.shape[0]] += stat
+        self.grad_denom[:vis.shape[0]] += vis.float()
+        self.mapping_iter += 1
+        if (self.mapping_iter + 1) % self.densify_interval == 0:
+            dens = self.config["densify"]
+            grads = self.grad_accum / torch.clamp(self.grad_denom, min=1.0)
+            # the JAX package draws its PRNG key here, so the schedule's
+            # later draws from self.rng stay the same
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.rng.getrandbits(31))
+            self.map = G.densify_and_prune(
+                self.map, grads, gen,
+                grad_threshold=float(dens["densify_grad_threshold"]),
+                percent_dense=float(dens["percent_dense"]),
+                extent=float(dens.get("extent", 2.0)),
+                min_opacity=float(dens.get("opacity_cuil", 0.05)),
+                min_scale=float(dens.get("scale_cuil", 5e-4)),
+            )
+            self._fit_capacity()
+            # the point set changed: the statistics restart
+            self.grad_accum = None
+            self.grad_denom = None
 
     def mapping_batch(self, lm_idxs: list[int], coarse: bool = False):
         """len(lm_idxs) mapping tasks as one mapping_loop call: each task
@@ -365,8 +408,9 @@ class Backend:
                 self.ba(cmd[1])
             elif cmd[0] == "mapping":
                 coarse = bool(cmd[2]) if len(cmd) > 2 else False
-                if self.enable_exposure:
-                    # the fused batch cannot step per-submap exposure
+                if self.enable_exposure or self.gs_densify:
+                    # the fused batch cannot step per-submap exposure, nor
+                    # emit per-step densify statistics
                     self.mapping(cmd[1])
                     return
                 # fuse up to MAP_BATCH consecutive mapping tasks of the
@@ -502,7 +546,8 @@ class Backend:
             k = min(self.MAP_BATCH, iters - done)
             idxs = [self.rng.choice(range(len(self.local_maps)))
                     for _ in range(k)]
-            if not self.enable_exposure and k == self.MAP_BATCH:
+            if (not self.gs_densify and not self.enable_exposure
+                    and k == self.MAP_BATCH):
                 self.mapping_batch(idxs)
             else:
                 for i in idxs:

@@ -141,6 +141,8 @@ class MapConfig(NamedTuple):
     betas: tuple = (0.9, 0.999)
     eps: float = 1e-15
     isotropic: bool = False
+    gs_stats: bool = False      # emit per-gaussian view-space grad stats
+                                # (backend gs_densify, Backend.py:117-128)
 
 
 def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
@@ -196,6 +198,22 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
                                  coarse_stride) - 127)
     diag = {"num_pairs": bins.num_pairs, "overflow": overflow,
             "n_shrunk": bins.n_shrunk, "demand": bins.demand}
+    if mcfg.gs_stats:
+        # view-space positional gradient for clone / split selection (the
+        # reference's means2D gradient, Gaussians.py:58-62): the world xyz
+        # gradient rotated into the camera frame, through the projection
+        # Jacobian's inverse z / f, in NDC scaling (W / 2, H / 2); the
+        # z-coupled term is ignored, as in the JAX package
+        w2c_d = w2c.detach()
+        g_cam = grads.xyz @ w2c_d[:3, :3].T
+        z = torch.clamp((gm.params.xyz.detach() @ w2c_d[:3, :3].T
+                         + w2c_d[:3, 3])[:, 2], min=1e-6)
+        gu = g_cam[:, 0] * z / cam_proj.fx * (cam_proj.width / 2.0)
+        gv = g_cam[:, 1] * z / cam_proj.fy * (cam_proj.height / 2.0)
+        visible = bins.counts > 0
+        diag["densify_stat"] = torch.where(
+            visible, torch.sqrt(gu * gu + gv * gv), torch.zeros_like(gu))
+        diag["visible"] = visible
     gm = G.adam_step(gm, grads, dict(mcfg.lrs), mcfg.betas, mcfg.eps,
                      isotropic=mcfg.isotropic)
     if lcfg.enable_exposure and bool(do_exposure):

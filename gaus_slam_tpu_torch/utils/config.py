@@ -6,9 +6,11 @@ module exporting a nested ``config`` dict, loaded from its path and
 mutated in place with the probed camera height/width/intrinsics.
 ``SystemConfig`` converts the dict into the static config objects the
 step functions take, with the same values as the JAX package's for the
-same dict; the camera lives on ``device``. ``MapConfig`` has no
-``gs_stats``: only gs_densify reads those statistics, and the Backend
-refuses gs_densify until it is ported.
+same dict; the camera lives on ``device``. Both render methods load
+("2dgs" surfels, "3dgs" volumetric gaussians, isotropic when
+``gaussians.gaussian_distribution`` says so), and ``backend.gs_densify``
+sets ``MapConfig.gs_stats``, the view-space gradient statistics the
+backend's clone / split / prune reads.
 """
 from __future__ import annotations
 
@@ -128,9 +130,8 @@ class SystemConfig:
         grid = make_grid(cam, 16, 16)
         r = config["render"]
         method = r.get("method", "2dgs")
-        if method != "2dgs":
-            raise ValueError(f"render method {method!r}: the port renders "
-                             f"2DGS surfels only so far")
+        if method not in ("2dgs", "3dgs"):
+            raise ValueError(f"unknown render method {method!r}")
         tpu = config.get("tpu", {})
         # the port computes in float32 only
         compute_dtype = str(tpu.get("compute_dtype", "f32"))
@@ -157,6 +158,8 @@ class SystemConfig:
         # per-component pair budgets: r_max = factor * capacity bucket
         factor = float(tpu.get("pair_budget_factor", 2))
         pair_cap = int(tpu.get("backend_pair_cap", 0))
+        iso = config["gaussians"].get(
+            "gaussian_distribution", "anisotropic") == "isotropic"
         if component == "frontend":
             factor = float(tpu.get("pair_budget_factor_frontend", factor))
             pair_cap = int(tpu.get("frontend_pair_cap", 0))
@@ -167,6 +170,8 @@ class SystemConfig:
             max_tiles_per_gaussian=int(tpu.get("max_tiles_per_gaussian", 4)),
             normals_in_tracking=bool(
                 config["loss"].get("use_normal_loss", False)),
+            method=method,
+            iso3d=iso,
         )
         loss = config["loss"]
         dens = config["densify"]
@@ -196,8 +201,6 @@ class SystemConfig:
             edge_thres=float(dens.get("edge_thres", 0.4)),
         )
         ta = config["gaussians"]["training_args"]
-        iso = config["gaussians"].get(
-            "gaussian_distribution", "anisotropic") == "isotropic"
         mcfg = MapConfig(
             lrs=tuple(sorted(
                 (k, float(v)) for k, v in ta.items()
@@ -205,6 +208,7 @@ class SystemConfig:
                          "opacity_lr", "rgb_lr")
             )),
             isotropic=iso,
+            gs_stats=bool(config["backend"].get("gs_densify", False)),
         )
         betas = tuple(camcfg.get("adam_betas", (0.9, 0.99)))
         fe, be = camcfg["frontend_lr"], camcfg["backend_lr"]

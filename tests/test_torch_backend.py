@@ -539,10 +539,11 @@ def test_drain_matches_jax(submaps):
 @pytest.mark.parametrize("knob", ["gs_densify", "save_ckpt", "backend_device",
                                   "mesh_devices"])
 def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path):
-    """gs_densify, a second backend device and a BA mesh of more than one
-    device raise, naming their ROADMAP item; "auto" stays on the one
-    device, as in the JAX package. backend.save_ckpt is accepted, and a
-    checkpoint of the backend writes meta.json."""
+    """A second backend device and a BA mesh of more than one device
+    raise, naming their ROADMAP item; "auto" stays on the one device, as
+    in the JAX package. backend.save_ckpt is accepted, and a checkpoint of
+    the backend writes meta.json; backend.gs_densify is accepted (ported)
+    and turns on the mapping step's densify statistics."""
     from gaus_slam_tpu_torch.slam.backend import Backend
 
     cfg = _config(_dataset())
@@ -565,8 +566,10 @@ def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path):
         return
     if knob == "gs_densify":
         cfg["backend"][knob] = True
-    else:
-        cfg["tpu"][knob] = "1" if knob == "backend_device" else 2
+        be = Backend(cfg, device="cpu")
+        assert be.gs_densify and be.sys.mcfg.gs_stats
+        return
+    cfg["tpu"][knob] = "1" if knob == "backend_device" else 2
     err = ValueError if knob == "mesh_devices" else NotImplementedError
     with pytest.raises(err, match="ROADMAP|devices"):
         Backend(cfg, device="cpu")

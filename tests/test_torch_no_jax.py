@@ -49,7 +49,8 @@ def test_port_imports_no_jax():
                 "tools.bf16_probe", "tools.kernel_ab", "data.basedataset",
                 "utils.png", "utils.yaml_lite", "utils.tsdf",
                 "utils.eval_mesh", "utils.lpips", "utils.checkpoint",
-                "native", "scripts.eval", "scripts.vis_final"):
+                "native", "scripts.eval", "scripts.vis_final", "ops.sh",
+                "ops.knn", "ops.preprocess_3dgs", "scripts.splatam"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
