@@ -105,12 +105,43 @@ line):
    split / prune counts per densify_and_prune call, which must run at
    least once and never outgrow the capacity; phase 8's ATE and
    first-submap PSNR bounds.
+10. The backend on a CUDA stream of its own, the sharded BA and the
+   pipelined driver.
+   10a. Phase 3's LocalMaps (deep copies) through a fresh Backend in one
+   fixed call sequence (a merge, then 4 process() calls a turn until the
+   queue is empty, random_process off) while a Frontend tracks the
+   synthetic frames on the default stream between the turns: twice with
+   tpu.backend_device "off", once with "auto" (a stream of its own on
+   this one card). The "auto" run's final map, Adam moments and submap
+   transforms must equal the first "off" run's to the bit wherever the
+   two "off" runs agree to the bit, and elsewhere lie within twice their
+   difference; every K1/K2/K4 launch inside the backend must run on its
+   stream and every frontend launch on the default stream. The
+   milliseconds in which the two streams' kernels overlapped, from a
+   profiler trace of two turns, are printed, not required.
+   10b. parallel.sharded_ba_step over four slots of cuda:0 at 340x600 on
+   phase 2's random map with the synthetic scene's frames 0-3 against the
+   sequential mean-gradient step (loss within 1e-5 relative, parameters
+   bit-equal or within 1e-6 of each field's scale), also with weights
+   [1, 1, 1, 0] against the 3-keyframe step; ms per sharded step beside
+   4 sequential mapping steps; then a Backend whose BA group is those
+   four slots through two merges: sharded steps ran, the map is finite,
+   K1, K2 and K4 launched.
+   10c. scripts/gaus_mp.py at 340x600 over the config's 30 frames with
+   the backend on the frontend's stream and on its own: three merges,
+   phase 6's ATE and first-submap PSNR bounds, K1-K4 launched (K3 inside
+   eval_final) and K5 not; frames per second of the loop beside phase 6's,
+   backend tasks drained beside the frames and after the last one, peak
+   device memory. Then on phase 8's tree with backend.save_ckpt, and
+   resumed from the checkpoint of the first cut (frame 11): the same
+   bounds and launches.
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes), the card line, and {"ok": true,
 "device": {...}} as the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -937,7 +968,7 @@ def phase_frontend(cfg, ds, dev):
     check(cuts >= 2, f"phase 3 cut {cuts} submaps, not at least 2")
     for name in STASH_PATH:
         check(launches.get(name, 0) > 0, f"{name} never launched in phase 3")
-    return launches, recs, state
+    return launches, recs, state, lms
 
 
 def phase_reference(ds, dev):
@@ -1068,9 +1099,17 @@ class DriverProbe:
     backend task by kind (a device sync after each task), the merges and
     the frame loop's and eval_final's wall time."""
 
-    def __init__(self):
+    def __init__(self, sync_tasks=True):
+        """``sync_tasks``: a device sync after each backend task, to time
+        it; off for the pipelined driver, whose backend work must stay
+        queued beside the frontend's. Then the tasks are counted by
+        whether the frontend had taken its last frame
+        (Frontend.process_final) when they drained."""
         import collections
 
+        self.sync_tasks = sync_tasks
+        self.drained = collections.Counter()
+        self.last_frame_in = False
         self.inside = {"backend": collections.Counter(),
                        "eval": collections.Counter(),
                        "mesh": collections.Counter()}
@@ -1125,12 +1164,12 @@ class DriverProbe:
 
         self._orig = (B.Backend.process_localmap, B.Backend.process,
                       F.Frontend.process_frame, E.eval_final,
-                      F.Frontend.tracking)
+                      F.Frontend.tracking, F.Frontend.process_final)
         self._timed_orig = [(o, n, getattr(o, n)) for o, n in (
             (C, "save_run_state"), (C, "restore_run_state"), (E, "lpips"),
             (M, "fuse_render_mesh"), (T.TSDFVolume, "integrate"),
             (T.TSDFVolume, "extract_mesh"))]
-        merge, process, frame, ev, track = self._orig
+        merge, process, frame, ev, track, final = self._orig
         probe = self
         for owner, name, fn in self._timed_orig:
             timed = self._timed(name, fn)
@@ -1166,9 +1205,16 @@ class DriverProbe:
             kind = q[0][0] if q else "idle"
             n0 = len(q)
             t0 = time.perf_counter()
-            process(be)
-            torch.cuda.synchronize()
+            if probe.sync_tasks:
+                process(be)
+            else:
+                probe._counted("backend", process, be)
             n = n0 - len(q)
+            if not probe.sync_tasks:
+                probe.drained["after the last frame" if probe.last_frame_in
+                              else "beside the frames"] += n
+                return
+            torch.cuda.synchronize()
             if kind == "mapping" and n == be.MAP_BATCH:
                 kind = "mapping (fused x4)"
             probe.tasks[kind].append(1e3 * (time.perf_counter() - t0))
@@ -1177,6 +1223,10 @@ class DriverProbe:
             if probe.t_loop is None:
                 probe.t_loop = time.perf_counter()
             return frame(fe, *a, **kw)
+
+        def process_final(fe):
+            probe.last_frame_in = True
+            return final(fe)
 
         def eval_final(*a, **kw):
             torch.cuda.synchronize()
@@ -1190,6 +1240,7 @@ class DriverProbe:
         B.Backend.process = process_
         F.Frontend.process_frame = process_frame
         F.Frontend.tracking = tracking
+        F.Frontend.process_final = process_final
         E.eval_final = eval_final
         return self
 
@@ -1200,23 +1251,27 @@ class DriverProbe:
 
         (B.Backend.process_localmap, B.Backend.process,
          F.Frontend.process_frame, E.eval_final,
-         F.Frontend.tracking) = self._orig
+         F.Frontend.tracking, F.Frontend.process_final) = self._orig
         for owner, name, fn in self._timed_orig:
             setattr(owner, name, fn)
         return False
 
 
-def run_driver(label, env, dev, edit=None, resume_from=None):
+def run_driver(label, env, dev, edit=None, resume_from=None,
+               pipelined=False):
     """rgbd_slam on configs/synthetic/config.py with ``env`` (SYN_*) and
     ``edit(config)`` applied, the stash kernels, output under
-    output/chip_smoke/<label>. Returns (result, launches of the whole run,
-    DriverProbe, seconds, out dir)."""
+    output/chip_smoke/<label>; ``pipelined``: scripts/gaus_mp.py's
+    rgbd_slam in place of scripts/gaus.py's. Returns (result, launches of
+    the whole run, DriverProbe, seconds, out dir)."""
     import shutil
 
     import torch
 
     from gaus_slam_tpu_torch.ops import _cuda
-    from gaus_slam_tpu_torch.scripts.gaus import rgbd_slam
+    from gaus_slam_tpu_torch.scripts import gaus, gaus_mp
+
+    rgbd_slam = (gaus_mp if pipelined else gaus).rgbd_slam
 
     out = out_dir(label)
     shutil.rmtree(out, ignore_errors=True)
@@ -1227,7 +1282,7 @@ def run_driver(label, env, dev, edit=None, resume_from=None):
     torch.cuda.reset_peak_memory_stats()
     _cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with DriverProbe() as probe:
+    with DriverProbe(sync_tasks=not pipelined) as probe:
         result = rgbd_slam(cfg, backend="pallas", device=dev,
                            resume_from=resume_from)
     torch.cuda.synchronize()
@@ -1305,6 +1360,7 @@ def phase_driver_full(dev, label="driver_340x600", edit=None):
         times = json.load(f)
     n_frames = int(config_from_env({})["data"]["num_frames"])
     loop_s = probe.t_eval - probe.t_loop
+    probe.fps = n_frames / loop_s
     be = probe.backend
     print(f"[{label}] {n_frames} frames, frame loop (backend drains, "
           f"final merge and refine included) {loop_s:.2f} s: "
@@ -1961,6 +2017,538 @@ def phase_gs_densify(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the backend on its own stream, the sharded BA, the pipelined
+# driver
+
+
+N_LOAD = 12            # 10a: frontend frames tracked beside each backend run
+LATE_HANDOFF_CYCLES = 400_000_000   # 10a: ~0.2 s of spin at the H100's clock
+TASKS_PER_TURN = 4     # 10a: backend tasks per turn, as in gaus_mp's loop
+PROFILE_TURNS = range(2, 4)   # 10a: the turns the profiler watches
+BA_GROUP = 4           # 10b: keyframes of one sharded step, all on cuda:0
+
+
+def union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(xs, ys):
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    tot = 0.0
+    while i < len(xs) and j < len(ys):
+        tot += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def stream_overlap(trace_path):
+    """(kernel busy ms by stream, the backend's stream or None, ms in which
+    the backend's kernels (or, unmarked, the second stream's) ran beside
+    the others', window ms) from a chrome trace whose backend stream
+    carries spin kernels; None (and what the trace holds) when it has no
+    kernel or no stream to tell apart."""
+    import collections
+
+    with open(trace_path) as f:
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace if e.get("cat") == "kernel"]
+    marks = {e["args"].get("stream") for e in events
+             if "spin" in e.get("name", "")}
+    by_stream = collections.defaultdict(list)
+    for e in events:
+        if "spin" not in e.get("name", ""):
+            by_stream[e["args"].get("stream")].append(
+                (e["ts"], e["ts"] + e["dur"]))
+    backend = next(iter(marks)) if len(marks) == 1 else None
+    other = backend if backend is not None else (
+        max(by_stream) if len(by_stream) == 2 else None)
+    if other is None or other not in by_stream:
+        print(f"[streams] the trace holds "
+              f"{dict(collections.Counter(e.get('cat') for e in trace))}, "
+              f"marks on streams {sorted(marks)}, kernels on streams "
+              f"{sorted(by_stream)}")
+        return None
+    busy = {k: union(v) for k, v in by_stream.items()}
+    rest = union([iv for k, v in busy.items() if k != other for iv in v])
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    return ({k: sum(b - a for a, b in v) / 1e3 for k, v in busy.items()},
+            backend, overlap_us(busy[other], rest) / 1e3, span / 1e3)
+
+
+@contextlib.contextmanager
+def stream_context_without_wait(be):
+    """10a's control: Backend.stream_context with the wait on the caller's
+    stream left out, the fault 10a's check must catch."""
+    import torch
+
+    with torch.cuda.stream(be.stream):
+        yield
+
+
+def late_handoff(lm):
+    """10a: the donor snapshot's colours arrive late on the caller's
+    stream. They are halved at once, and the default stream writes the
+    true ones back only after a spin of LATE_HANDOFF_CYCLES, so a backend
+    that reads them without waiting for that stream reads the halved
+    ones."""
+    import torch
+
+    rgb = lm.map_params[0].rgb
+    saved = rgb.clone()
+    rgb.mul_(0.5)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(LATE_HANDOFF_CYCLES)
+    rgb.copy_(saved)
+
+
+def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
+               wait=True):
+    """10a: a fresh Backend with tpu.backend_device ``bd`` through one fixed
+    call sequence (each of ``lms`` merged, then TASKS_PER_TURN process()
+    calls a turn until its queue is empty) while a Frontend tracks the
+    synthetic frames on the default stream between the turns. ``late``
+    hands each donor snapshot over late (late_handoff); ``wait=False``
+    leaves out the backend's wait on the caller's stream (the control).
+    Returns (final state, launches of the run, launches by (kernel,
+    inside the backend, stream handle), the profiled window's overlap or
+    None, seconds)."""
+    import collections
+    import copy
+    import types
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.slam.backend import Backend
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
+    from gaus_slam_tpu_torch.utils.checkpoint import backend_state_arrays
+
+    cfg = copy.deepcopy(cfg)
+    cfg["backend"]["random_process"] = False
+    cfg["tpu"]["backend_device"] = bd
+    be = Backend(cfg, device=dev)
+    if not wait:
+        be.stream_context = types.MethodType(stream_context_without_wait,
+                                             be)
+    fe = Frontend(cfg, queue.Queue(), device=dev)
+    inside = [False]
+    streams = collections.Counter()
+    real_check = _cuda.check
+
+    def counted_check(rc, what):
+        # a wrapper calls check right after its launch, on its stream
+        streams[(what, inside[0],
+                 torch.cuda.current_stream().cuda_stream)] += 1
+        return real_check(rc, what)
+
+    def in_backend(fn):
+        def run(*a, **kw):
+            inside[0] = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] = False
+        return run
+
+    merge, process = in_backend(be.process_localmap), in_backend(be.process)
+    frames = iter(range(N_LOAD))
+
+    def load():
+        t = next(frames, None)
+        if t is not None:
+            color, depth, _, c2w = ds[t]
+            fe.process_frame(t, np.asarray(color, np.float32)
+                             / np.float32(255), np.asarray(depth), c2w)
+            while not fe.to_backend.empty():
+                fe.to_backend.get()
+
+    def mark(stream):
+        # a spin kernel tells the backend's stream apart in the trace
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(1000)
+
+    prof, overlap, turn = None, None, 0
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    _cuda.check = counted_check
+    t0 = time.perf_counter()
+    try:
+        for lm in copy.deepcopy(lms):
+            if late:
+                late_handoff(lm)
+            merge(lm, multi_process=True)
+            while be.task_queue:
+                if profile and turn == PROFILE_TURNS.start:
+                    prof = profiler(activities=[ProfilerActivity.CUDA])
+                    prof.start()
+                    mark(be.stream)
+                for _ in range(TASKS_PER_TURN):
+                    if be.task_queue:
+                        process()
+                load()
+                if prof is not None and turn == PROFILE_TURNS.stop - 1:
+                    mark(be.stream)
+                    torch.cuda.synchronize()
+                    prof.stop()
+                    path = os.path.join(out_dir("streams"), "trace.json")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    prof.export_chrome_trace(path)
+                    overlap = stream_overlap(path)
+                    prof = None
+                turn += 1
+        be.wait()
+        torch.cuda.synchronize()
+    finally:
+        _cuda.check = real_check
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    return backend_state_arrays(be), be, launches, streams, overlap, secs
+
+
+def phase_streams(cfg, ds, lms, dev, card):
+    """Phase 10a: the backend on a CUDA stream of its own must leave the
+    same map as on the frontend's stream, also when each donor snapshot
+    arrives late on the frontend's stream; and the control, the same run
+    with the backend's wait on the caller's stream left out, must not."""
+    import torch
+
+    check(len(lms) >= 2, f"phase 10a: {len(lms)} LocalMaps from phase 3")
+    runs = {}
+    for label, bd, late, wait in (("off", "off", False, True),
+                                  ("off again", "off", False, True),
+                                  ("auto", "auto", False, True),
+                                  ("auto, late handoff", "auto", True, True),
+                                  ("control: auto, late handoff, no wait",
+                                   "auto", True, False)):
+        runs[label] = stream_run(label, cfg, lms, ds, dev, bd,
+                                 profile=(label == "auto"), late=late,
+                                 wait=wait)
+        print(f"[streams] {card}: {label}: {len(lms)} merges, "
+              f"{runs[label][5]:.2f} s with {N_LOAD} frontend frames beside "
+              f"them; launches {json.dumps(runs[label][2])}")
+    a, b = runs["off"][0], runs["off again"][0]
+    _, be, launches, streams, overlap, _ = runs["auto"]
+    check(be.stream is not None, "phase 10a: backend_device auto has no "
+          "stream of its own on one card")
+
+    def against_off(label):
+        """(values equal to the off run where the two off runs agree,
+        values where the two off runs agree, [(key, max |label - off|,
+        max |off - off again|)] where they do not, keys whose values
+        differ where they agree)."""
+        c = runs[label][0]
+        n_equal = n_all = 0
+        worst, broken = [], []
+        for k in a:
+            x, y, z = (torch.as_tensor(np.asarray(v), dtype=torch.float64)
+                       for v in (a[k], b[k], c[k]))
+            check(x.shape == z.shape, f"phase 10a: {label}: {k} has shape "
+                  f"{tuple(z.shape)}, {tuple(x.shape)} off it")
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            n_all += int(same.sum())
+            ok = (z == x) | (torch.isnan(z) & torch.isnan(x))
+            n_equal += int((ok & same).sum())
+            if not bool(ok[same].all()):
+                broken.append(k)
+            if not bool(same.all()):
+                spread = float((x - y)[~same].abs().max())
+                dz = float((z - x)[~same].abs().max())
+                worst.append((k, dz, spread))
+        return n_equal, n_all, worst, broken
+
+    for label in ("auto", "auto, late handoff"):
+        n_equal, n_all, worst, broken = against_off(label)
+        check(not broken, f"phase 10a: {label}: {broken} differ on the "
+              f"backend's stream where the two runs on the frontend's agree "
+              f"to the bit")
+        for k, dz, spread in worst:
+            check(dz <= 2 * spread, f"phase 10a: {label}: {k} on the "
+                  f"backend's stream is {dz} from the first run off it, "
+                  f"twice the runs' own spread {spread} exceeded")
+        print(f"[streams] {card}: {label}: the map on the backend's own "
+              f"stream is bit-equal to the frontend-stream run wherever the "
+              f"two frontend-stream runs agree ({n_equal} of {n_all} "
+              f"values); elsewhere (field, max |auto - off|, max |off - off "
+              f"again|): {worst}")
+    label = "control: auto, late handoff, no wait"
+    n_equal, n_all, _, broken = against_off(label)
+    check(bool(broken), f"phase 10a: {label}: the map came out bit-equal "
+          f"to the frontend-stream run, so 10a's check cannot see a missing "
+          f"wait")
+    print(f"[streams] {card}: {label}: differs from the frontend-stream run "
+          f"where the two frontend-stream runs agree, as it must "
+          f"({n_all - n_equal} of {n_all} values, in {len(broken)} arrays)")
+    default = torch.cuda.default_stream().cuda_stream
+    own = be.stream.cuda_stream
+    for name in ("raster_forward_stash", "raster_backward_stash",
+                 "monotone_row_gather"):
+        on = {h: n for (w, ins, h), n in streams.items() if w == name and ins}
+        check(on and set(on) == {own} and own != default,
+              f"phase 10a: {name} ran inside the backend on streams {on}, "
+              f"not on the backend's own {own}")
+    front = {h for (w, ins, h) in streams if not ins}
+    check(front == {default}, f"phase 10a: the frontend launched on {front}")
+    print(f"[streams] {card}: backend K1/K2/K4 launches on its stream: "
+          + ", ".join(f"{w} {n}" for (w, ins, h), n in sorted(streams.items())
+                      if ins and h == own))
+    if overlap is None:
+        print(f"[streams] {card}: overlap of frontend and backend kernels "
+              f"not measured (the trace told no two streams apart)")
+    else:
+        busy, bstream, both, span = overlap
+        print(f"[streams] {card}: turns {PROFILE_TURNS.start}-"
+              f"{PROFILE_TURNS.stop - 1} of the auto run under the profiler: "
+              f"window {span:.1f} ms, kernel busy ms by trace stream "
+              f"{json.dumps({str(k): round(v, 3) for k, v in busy.items()})} "
+              f"(the backend's: {bstream if bstream is not None else 'unmarked'}"
+              f"), both streams at once {both:.3f} ms")
+    return launches
+
+
+def sequential_ba_step(gm, w2cs, gts, keyframes, s):
+    """The mean-gradient step a sharded one stands for: each keyframe's
+    loss through render_full and mapping_loss, the gradients accumulated
+    in .grad, then one Adam step. Returns (map, mean loss)."""
+    from gaus_slam_tpu_torch.models import gaussians as G
+    from gaus_slam_tpu_torch.render import render_full
+    from gaus_slam_tpu_torch.slam.loss import mapping_loss
+
+    params = [t.detach().clone().requires_grad_() for t in gm.params]
+    total = 0.0
+    for k in keyframes:
+        out, _ = render_full(G.Params(*params), gm.active,
+                             s.cam.replace_w2c(w2cs[k]), s.opts,
+                             need_normal=s.opts.normals_in_tracking)
+        loss = mapping_loss(out, gts[k], s.lcfg)[0]
+        loss.backward()
+        total += float(loss.detach())
+    grads = G.Params(*(t.grad / len(keyframes) for t in params))
+    return (G.adam_step(gm, grads, dict(s.mcfg.lrs), s.mcfg.betas, s.mcfg.eps,
+                        isotropic=s.mcfg.isotropic), total / len(keyframes))
+
+
+def phase_sharded_ba(cfg, ds, lms, capacity, dev, card):
+    """Phase 10b: sharded_ba_step over [cuda:0] * 4 against the sequential
+    mean-gradient step, then a Backend whose BA group is those four."""
+    import copy
+
+    import torch
+
+    from gaus_slam_tpu_torch.models.frame import LrSchedule, init_exposure
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops.composite_ref import frame_to_tiles
+    from gaus_slam_tpu_torch.parallel import sharded_ba_step
+    from gaus_slam_tpu_torch.slam.backend import Backend
+    from gaus_slam_tpu_torch.slam.steps import mapping_step
+    from gaus_slam_tpu_torch.utils.config import SystemConfig
+
+    s = SystemConfig.from_config(cfg, device=dev)   # the backend's
+    gm = random_map(ds, s.cam, capacity, dev)
+    c2w0 = np.asarray(ds[0][3], np.float64)
+    w2cs, gts = [], []
+    for t in range(BA_GROUP):
+        color, depth, c2w = load_frame(ds, t, dev)
+        w2cs.append(torch.as_tensor(
+            (np.linalg.inv(c2w) @ c2w0).astype(np.float32), device=dev))
+        gts.append(frame_to_tiles(color, depth, s.opts.grid))
+    w2cs, gts = torch.stack(w2cs), torch.stack(gts)
+    devs = [torch.device(dev)] * BA_GROUP
+
+    def sharded(weights=None):
+        return sharded_ba_step(devs, gm, w2cs, gts, s.cam, s.opts, s.mcfg,
+                               s.lcfg, weights=weights)
+
+    for weights in (None, [1, 1, 1, 0]):
+        live = [k for k in range(BA_GROUP) if weights is None or weights[k]]
+        got, loss, diag = sharded(weights)
+        want, want_loss = sequential_ba_step(gm, w2cs, gts, live, s)
+        rel = abs(float(loss) - want_loss) / abs(want_loss)
+        errs = {}
+        for f, x, y in zip(got.params._fields, got.params, want.params):
+            scale = float(y.abs().max())
+            errs[f] = (0.0 if torch.equal(x, y)
+                       else float((x - y).abs().max()) / scale)
+        print(f"[sharded_ba] {card}: weights {weights or [1] * BA_GROUP}: loss "
+              f"{float(loss):.7g} against the sequential {want_loss:.7g} "
+              f"(rel {rel:.2e}, tol 1e-5); params' max error / field scale "
+              f"{errs} (tol 1e-6; 0.0 bit-equal); shard losses "
+              f"{diag['losses'].tolist()}, overflow {bool(diag['overflow'])}")
+        check(rel <= 1e-5, f"phase 10b: sharded loss {float(loss)} against "
+              f"{want_loss}")
+        check(all(e <= 1e-6 for e in errs.values()),
+              f"phase 10b: sharded step against the sequential one {errs}")
+
+    exp = init_exposure(dev)
+    sched = LrSchedule(0.0, 0.0, 1)
+
+    def four_steps():
+        m = gm
+        for k in range(BA_GROUP):
+            m, _, _ = mapping_step(m, w2cs[k], gts[k], exp, False, sched,
+                                   s.cam, s.opts, s.mcfg, s.lcfg)
+        return m
+
+    step_ms = time_ms(sharded, 5, warm=1)
+    seq_ms = time_ms(four_steps, 5, warm=1)
+    print(f"[sharded_ba] {card}: {step_ms:.2f} ms per sharded step over "
+          f"{BA_GROUP} keyframes on one card, {seq_ms:.2f} ms for "
+          f"{BA_GROUP} sequential mapping steps ({H}x{W}, capacity "
+          f"{gm.capacity})")
+
+    c = copy.deepcopy(cfg)
+    c["backend"]["random_process"] = False
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    be = Backend(c, device=dev, devices=devs)
+    t0 = time.perf_counter()
+    for lm in copy.deepcopy(lms[:2]):
+        be.process_localmap(lm, multi_process=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    finite = all(bool(torch.isfinite(t).all()) for t in be.map.params)
+    print(f"[sharded_ba] {card}: Backend with a BA group of {be.ba_group}: "
+          f"two merges "
+          f"in {secs:.2f} s, {be.ba_group_calls} sharded steps, mapping "
+          f"counts {[lm.mapping_times for lm in be.local_maps]}, n_active "
+          f"{int(be.map.n_active)}, finite {finite}; launches "
+          f"{json.dumps(launches)}")
+    check(be.ba_group_calls > 0, "phase 10b: the Backend ran no sharded step")
+    check(finite and int(be.map.n_active) > 0,
+          "phase 10b: the Backend's map is empty or not finite")
+    check_launches("phase 10b", launches,
+                   want=("raster_forward_stash", "raster_backward_stash",
+                         "monotone_row_gather"))
+    return launches
+
+
+def refine_iters(be):
+    """The mapping iterations of Backend.final_refine."""
+    n = be.final_refinement
+    return be.local_maps[-1].frames[-1].time_idx if n == -1 else n
+
+
+def pipelined_checks(label, result, launches, probe, out, first, card):
+    """Phase 6's ATE and first-submap PSNR bounds, K1-K4 launched (K3
+    inside eval_final) and K5 not, for one pipelined run."""
+    ate = result["ATE RMSE"]
+    psnrs = np.loadtxt(os.path.join(out, "psnr.txt"))
+    own = psnrs[first[0]:first[1]]
+    print(f"[{label}] {card}: ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}); PSNR "
+          f"{result['PSNR']:.6g} over all frames, {own.mean():.6g} over the "
+          f"first submap's {len(own)} (bound > {PSNR_MIN}); launches "
+          f"{json.dumps(launches)}, inside eval_final "
+          f"{json.dumps(dict(probe.inside['eval']))}")
+    check(np.isfinite(ate) and ate < T_ERR_ABS,
+          f"phase 10c ({label}): ATE RMSE {ate} not < {T_ERR_ABS}")
+    check(len(own) > 0 and np.isfinite(own).all() and own.mean() > PSNR_MIN,
+          f"phase 10c ({label}): PSNR {own.mean()} over the first submap's "
+          f"frames not > {PSNR_MIN}")
+    check_launches(f"phase 10c ({label})", launches)
+    check(probe.inside["eval"].get("raster_forward", 0) > 0,
+          f"phase 10c ({label}): K3 never launched inside eval_final")
+
+
+def phase_pipelined(dev, card, fps_sync):
+    """Phase 10c: scripts/gaus_mp.py at the bench shape with the backend on
+    the frontend's stream and on its own, then from phase 8's tree with
+    checkpoints, resumed from the first."""
+    import shutil
+
+    import torch
+
+    from gaus_slam_tpu_torch.utils import checkpoint as C
+
+    n_frames = int(config_from_env({})["data"]["num_frames"])
+    out = {}
+    for bd in ("off", "auto"):
+        label = f"mp_{bd}"
+
+        def edit(cfg, bd=bd):
+            cfg["tpu"]["backend_device"] = bd
+
+        result, launches, probe, secs, path = run_driver(
+            label, dict(SYN_H=str(H), SYN_W=str(W)), dev, edit=edit,
+            pipelined=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        be = probe.backend
+        loop_s = probe.t_eval - probe.t_loop
+        print(f"[{label}] {card}: {n_frames} frames, frame loop (final merge "
+              f"and refine included) {loop_s:.2f} s: "
+              f"{n_frames / loop_s:.3f} frames/s against the synchronous "
+              f"driver's {fps_sync:.3f} (phase 6, this call); backend tasks "
+              f"drained {json.dumps(dict(probe.drained))}, then "
+              f"final_refine's {refine_iters(be)} mapping iterations; "
+              f"merges {len(probe.merges)}; stream "
+              f"{'own' if be.stream is not None else 'the frontend'}'s; "
+              f"peak device memory {peak:.2f} GiB; whole run {secs:.1f} s")
+        check(len(probe.merges) == 3, f"{label} merged {len(probe.merges)} "
+              f"submaps, not 3")
+        check((be.stream is not None) == (bd == "auto"),
+              f"{label}: the backend's stream does not follow the knob")
+        pipelined_checks(label, result, launches, probe, path,
+                         probe.merges[0]["frames"], card)
+        out[f"10c {bd}"] = launches
+
+    first_ckpt = out_dir("mp_disk_first_ckpt")
+    shutil.rmtree(first_ckpt, ignore_errors=True)
+    save = C.save_run_state
+
+    def keep_first(path, *a, **kw):
+        save(path, *a, **kw)
+        if not os.path.exists(first_ckpt):
+            shutil.copytree(path, first_ckpt)
+
+    def edit(cfg):
+        cfg["data"] = disk_data(out_dir("disk_data"))
+        cfg["backend"]["save_ckpt"] = True
+
+    env = dict(SYN_H=str(H), SYN_W=str(W), SYN_FRAMES=str(N_FRAMES_DISK))
+    C.save_run_state = keep_first
+    try:
+        result, launches, probe, secs, path = run_driver(
+            "mp_disk", env, dev, edit=edit, pipelined=True)
+    finally:
+        C.save_run_state = save
+    first = probe.merges[0]["frames"]
+    pipelined_checks("mp_disk", result, launches, probe, path, first, card)
+    with open(os.path.join(first_ckpt, "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["next_frame_idx"] == 11 and len(meta["localmaps"]) == 1,
+          f"phase 10c: the first checkpoint is at frame "
+          f"{meta['next_frame_idx']} with {len(meta['localmaps'])} submaps, "
+          f"not the first cut's (frame 11, 1 submap)")
+    resumed, r_launches, r_probe, r_secs, r_path = run_driver(
+        "mp_disk_resumed", env, dev, edit=edit, resume_from=first_ckpt,
+        pipelined=True)
+    check(len(r_probe.ms["restore_run_state"]) == 1,
+          "phase 10c: the resumed run restored no checkpoint")
+    check(r_probe.merges and r_probe.merges[0]["lmid"] == 1,
+          "phase 10c: the resumed run did not continue from the second "
+          "submap")
+    pipelined_checks("mp_disk_resumed", resumed, r_launches, r_probe, r_path,
+                     first, card)
+    print(f"[mp_disk] {card}: first run {secs:.1f} s, resumed from frame 11 "
+          f"{r_secs:.1f} s; checkpoint writes {probe.ms['save_run_state']} "
+          f"ms, restore {r_probe.ms['restore_run_state']} ms")
+    out["10c disk"] = launches
+    out["10c resumed"] = r_launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: K6
 
 
@@ -2069,7 +2657,7 @@ def main() -> int:
         print(f"[device] {card}")
         cfg, ds, sys_cfg, capacity = make_setup(dev)
         numbers = phase_kernels(ds, sys_cfg, capacity, dev)
-        launches, recs, state = phase_frontend(cfg, ds, dev)
+        launches, recs, state, lms = phase_frontend(cfg, ds, dev)
         ref_launches, ref_recs = phase_reference(ds, dev)
         frame_times("frontend", recs)
         frame_times("reference", ref_recs)
@@ -2084,6 +2672,9 @@ def main() -> int:
         small_3dgs, full_3dgs, _ = phase_3dgs_driver(dev)
         splatam_launches = phase_splatam(dev, card)
         densify_launches = phase_gs_densify(dev, card)
+        stream_launches = phase_streams(cfg, ds, lms, dev, card)
+        ba_launches = phase_sharded_ba(cfg, ds, lms, capacity, dev, card)
+        mp_launches = phase_pipelined(dev, card, probe.fps)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2092,7 +2683,8 @@ def main() -> int:
               "6 eval_final": dict(probe.inside["eval"]), "7": k6_launches,
               "8": disk_launches, "9b 48x64": small_3dgs,
               "9b 340x600": full_3dgs, "9c": splatam_launches,
-              "9d": densify_launches}
+              "9d": densify_launches, "10a": stream_launches,
+              "10b": ba_launches, **mp_launches}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase

@@ -22,6 +22,8 @@ Layout:
   render/  render facade (tracking / mapping / view modes)
   models/  static-capacity gaussian map, pose and exposure state
   slam/    losses, map init, densify, tracking and mapping loops
+  parallel/ keyframe-parallel BA over a group of devices
+  scripts/ the drivers (gaus, gaus_mp pipelined, splatam, eval, vis_final)
   data/    procedural synthetic RGB-D scene
   convert  numpy <-> port state (to feed both packages the same map)
 """

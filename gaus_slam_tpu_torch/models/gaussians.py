@@ -108,6 +108,15 @@ def resize_map(gm: GaussianMap, cap: int) -> GaussianMap:
     )
 
 
+def map_to(gm: GaussianMap, device) -> GaussianMap:
+    """The map with every array copied to ``device``."""
+    def move(ps):
+        return Params(*(p.to(device) for p in ps))
+    return gm._replace(params=move(gm.params), m=move(gm.m), v=move(gm.v),
+                       active=gm.active.to(device),
+                       n_active=gm.n_active.to(device))
+
+
 def _orientation_quats(normals, n: int, device) -> torch.Tensor:
     from ..ops.geometry import surfel_quat_from_normal
 

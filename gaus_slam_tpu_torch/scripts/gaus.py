@@ -10,10 +10,11 @@ Frontend, drains every cut submap into the Backend at once, runs the
 final refinement and the evaluation, and saves the scene. Under
 ``backend.save_ckpt`` a checkpoint is written to <vis_base_dir>/ckpt at
 every submap boundary; ``--resume`` restores one and continues from the
-frame after it. The calls and their order are those of scripts/gaus.py,
-except that the frontend's dashboards are drawn only under
-backend.common_vis, as the backend's are (matplotlib, which draws them,
-may be missing on the card's machine).
+frame after it. On a host with more than one card ``tpu.mesh_devices``
+shards the backend's BA over a group of them (parallel/). The calls and
+their order are those of scripts/gaus.py, except that the frontend's
+dashboards are drawn only under backend.common_vis, as the backend's are
+(matplotlib, which draws them, may be missing on the card's machine).
 """
 from __future__ import annotations
 
@@ -51,20 +52,26 @@ def make_wandb_run(config: dict):
         return None
 
 
-def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
-              resume_from: str | None = None) -> dict:
+def start_run(config: dict, backend: str, device, resume_from):
+    """What both drivers set up before their frame loop: the seeds, the
+    dataset and its camera, the Frontend, the Backend (with its BA group
+    on a host with more than one card: tpu.mesh_devices), and a restored
+    checkpoint. Returns (device, dataset, num_frames, to_backend queue,
+    frontend, backend, wandb run, first frame to process)."""
     from ..data import get_dataset
+    from ..parallel import devices_from_config
     from ..slam.backend import Backend
     from ..slam.frontend import Frontend
-    from ..utils.checkpoint import restore_run_state, save_run_state
+    from ..utils.checkpoint import restore_run_state
     from ..utils.config import probe_cameras
-    from ..utils.eval import eval_final
-    from ..utils.scene_io import save_scene
 
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' (--device "
-                           "cpu) to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' (--device "
+                               "cpu) to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     seed_everything(config.get("seed", 0))
     dataset = get_dataset(config["data"])
     num_frames = config["data"].get("num_frames", -1)
@@ -78,16 +85,60 @@ def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
     to_backend = queue.Queue()
     frontend = Frontend(config, to_backend, wandb_run=wandb_run,
                         backend=backend, device=device)
+    devices = devices_from_config(config, device)
+    if devices is not None:
+        print(f"[gaus] backend BA sharded over {len(devices)} devices")
     backend_ = Backend(config, wandb_run=wandb_run, backend=backend,
-                       device=device)
-    out_dir = config.get("vis_base_dir", "output")
-    common_vis = bool(config["backend"].get("common_vis", False))
-    save_ckpt = bool(config["backend"].get("save_ckpt", False))
+                       device=device, devices=devices)
     t0_frame = 0
     if resume_from is not None:
         t0_frame = restore_run_state(resume_from, frontend, backend_,
                                      dataset)
         print(f"resumed from {resume_from} at frame {t0_frame}")
+    return (device, dataset, num_frames, to_backend, frontend, backend_,
+            wandb_run, t0_frame)
+
+
+def end_run(config: dict, frontend, backend_, dataset, wandb_run,
+            backend: str, device) -> dict:
+    """What both drivers do after the final refinement: time.json, the
+    evaluation and the saved scene, which read the backend's map. A map
+    on a card of the backend's own is evaluated on the frontend's, where
+    the frames are."""
+    from ..models import gaussians as G
+    from ..utils.eval import eval_final
+    from ..utils.scene_io import save_scene
+
+    backend_.wait()
+    frontend.write_time_json()
+    out_dir = config.get("vis_base_dir", "output")
+    w2cs = backend_.local_maps.get_w2cs()
+    gt_w2cs = backend_.local_maps.get_gt_w2cs()
+    gm = backend_.map
+    if gm.params.xyz.device != device:
+        gm = G.map_to(gm, device)
+    result = eval_final(config, gm, w2cs, gt_w2cs, dataset,
+                        out_dir=out_dir, backend=backend,
+                        save_renders=config.get("eval", {}).get(
+                            "save_renders", False), device=device)
+    print(json.dumps(result, indent=2))
+    save_scene(config, gm, w2cs, gt_w2cs,
+               os.path.join(out_dir, "scene"))
+    if wandb_run is not None:
+        wandb_run.log(result)
+        wandb_run.finish()
+    return result
+
+
+def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
+              resume_from: str | None = None) -> dict:
+    from ..utils.checkpoint import save_run_state
+
+    (device, dataset, num_frames, to_backend, frontend, backend_, wandb_run,
+     t0_frame) = start_run(config, backend, device, resume_from)
+    out_dir = config.get("vis_base_dir", "output")
+    common_vis = bool(config["backend"].get("common_vis", False))
+    save_ckpt = bool(config["backend"].get("save_ckpt", False))
 
     t_start = time.perf_counter()
     for t in range(t0_frame, num_frames):
@@ -111,6 +162,7 @@ def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
                 save_run_state(os.path.join(out_dir, "ckpt"), frontend,
                                backend_, next_frame_idx=t + 1)
         if t % 25 == 0:
+            backend_.wait()
             n_global = (int(backend_.map.n_active)
                         if backend_.map is not None else 0)
             print(f"frame {t}/{num_frames} "
@@ -120,23 +172,9 @@ def rgbd_slam(config: dict, backend: str = "pallas", device="cuda",
     while not to_backend.empty():
         backend_.process_localmap(to_backend.get(), multi_process=False)
     backend_.final_refine(progress=True)
-
     frontend.total_time = time.perf_counter() - t_start
-    frontend.write_time_json()
-
-    w2cs = backend_.local_maps.get_w2cs()
-    gt_w2cs = backend_.local_maps.get_gt_w2cs()
-    result = eval_final(config, backend_.map, w2cs, gt_w2cs, dataset,
-                        out_dir=out_dir, backend=backend,
-                        save_renders=config.get("eval", {}).get(
-                            "save_renders", False), device=device)
-    print(json.dumps(result, indent=2))
-    save_scene(config, backend_.map, w2cs, gt_w2cs,
-               os.path.join(out_dir, "scene"))
-    if wandb_run is not None:
-        wandb_run.log(result)
-        wandb_run.finish()
-    return result
+    return end_run(config, frontend, backend_, dataset, wandb_run, backend,
+                   device)
 
 
 def main(argv=None) -> dict:

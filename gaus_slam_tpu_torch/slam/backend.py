@@ -17,15 +17,28 @@ graph (port of gaus_slam_tpu/slam/backend.py; reference slam/Backend.py).
   split and pruned (3DGS style, Backend.py:117-128). Mapping then runs
   step by step: the fused batches emit no per-step statistics.
 
+Placement (``tpu.*``, resolved as in the JAX package by
+``resolve_placement``): with ``devices``, a BA group of more than one
+device, consecutive mapping tasks of either coarse class run as one
+keyframe-parallel step (parallel.sharded_ba_step), one keyframe per
+device. ``tpu.backend_device`` puts the map on a card of its own, or on
+the frontend's card behind a CUDA stream of the backend's own. Then
+every public entry (process_localmap, process, final_refine,
+re_tracking) runs on that stream after the caller's pending work, the
+tensors the frontend hands over are kept from the caching allocator
+until the backend's stream is done with them, and a reader of backend
+state outside the backend calls ``wait()`` first.
+
 The schedule, its knobs and the order of the draws from ``self.rng`` are
-the JAX package's, so the same submaps give the same task queue. One
-device: the multi-device BA mesh and the backend map on a second device
-refuse to start (ROADMAP queue 1). ``backend.save_ckpt`` is the
-driver's (utils/checkpoint.py at every submap boundary).
+the JAX package's, so the same submaps give the same task queue.
+``backend.save_ckpt`` is the driver's (utils/checkpoint.py at every
+submap boundary).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import os
 import random
 
@@ -52,30 +65,49 @@ def transform_params(params: G.Params, transfer: torch.Tensor) -> G.Params:
         quats=quat_multiply(rotmat_to_quat(R)[None, :], params.quats))
 
 
-def _refuse_multi_device(config: dict, device: torch.device) -> None:
-    """The port's backend runs on one device. ``tpu.backend_device`` and
-    ``tpu.mesh_devices`` resolve as in the JAX package ("auto" stays
-    colocated / unsharded on a single card); anything that needs a second
-    device raises."""
-    tpu = config.get("tpu", {})
-    n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
-    item = "ROADMAP queue 1 item 2 (multi-GPU BA and the pipelined driver)"
-    bd = str(tpu.get("backend_device", "off"))
-    if bd not in ("off", "") and not (bd == "auto" and n_avail < 2):
-        raise NotImplementedError(
-            f"tpu.backend_device={bd}: the port keeps the backend map on the "
-            f"frontend's device; a second device waits for {item}")
-    md = tpu.get("mesh_devices", "auto")
-    if md in ("off", 0, 1, "0", "1", None, False):
-        return
-    n = n_avail if md == "auto" else int(md)
-    if n > n_avail:
-        raise ValueError(f"tpu.mesh_devices={n} but only {n_avail} devices "
-                         f"attached")
-    if n > 1:
-        raise NotImplementedError(
-            f"tpu.mesh_devices resolves to {n} devices: the sharded BA "
-            f"waits for {item}")
+def resolve_placement(backend_device, ba_group: int, device: torch.device,
+                      n_avail: int):
+    """Where the backend's map lives, as the JAX Backend resolves
+    ``tpu.backend_device`` (backend.py:56-88), with the knob's GPU
+    meaning. Returns (device, own_stream, note): ``own_stream`` asks for
+    a CUDA stream of the backend's own on that device, ``note`` is a line
+    to print or None.
+
+      "off" / "": the frontend's device and stream.
+      a BA group of more than one device: ignored, the group owns
+        placement.
+      "auto": cuda:1 when two or more cards are attached; on one card the
+        frontend's card, on a stream of the backend's own.
+      an index: that card (on a stream of its own); at or past the count,
+        ignored.
+    On the CPU every value stays on the frontend's device and stream.
+    """
+    bd = str(backend_device)
+    if bd in ("off", ""):
+        return device, False, None
+    if ba_group > 1:
+        return device, False, ("[gaus] tpu.backend_device ignored: the "
+                               "multi-device BA group owns device placement")
+    if bd == "auto" and n_avail < 2:
+        return device, device.type == "cuda", None
+    idx = 1 if bd == "auto" else int(bd)
+    if idx >= n_avail:
+        return device, False, (f"[gaus] tpu.backend_device={bd} ignored: "
+                               f"only {n_avail} device(s) attached")
+    if device.type != "cuda":
+        return device, False, None
+    return (torch.device("cuda", idx), True,
+            f"[gaus] backend map placed on cuda:{idx} (frontend stays on "
+            f"{device})")
+
+
+def _on_own_stream(fn):
+    """Runs a public Backend entry inside ``Backend.stream_context``."""
+    @functools.wraps(fn)
+    def entry(self, *a, **kw):
+        with self.stream_context():
+            return fn(self, *a, **kw)
+    return entry
 
 
 class Backend:
@@ -84,11 +116,26 @@ class Backend:
     MAP_BATCH = 4
 
     def __init__(self, config: dict, wandb_run=None, backend: str = "pallas",
-                 device="cuda"):
+                 device="cuda", devices=None):
+        """``device``: the frontend's device. ``devices``: the BA group
+        (parallel.devices_from_config), the counterpart of the JAX
+        Backend's ``mesh``."""
         self.config = config
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.devices = list(devices) if devices else None
+        self.ba_group = len(self.devices) if self.devices else 1
+        self.ba_group_calls = 0
+        n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
+        self.device, own_stream, note = resolve_placement(
+            config.get("tpu", {}).get("backend_device", "off"),
+            self.ba_group, device, n_avail)
+        if note:
+            print(note)
+        self.stream = (torch.cuda.Stream(device=self.device) if own_stream
+                       else None)
         be = config["backend"]
-        _refuse_multi_device(config, self.device)
         self.sys = SystemConfig.from_config(config, backend=backend,
                                             device=self.device)
         self.wandb_run = wandb_run
@@ -152,6 +199,44 @@ class Backend:
         # per-step binning diagnostics (device scalars), folded into one
         # readback at an idle moment or at the end of a merge
         self._map_aux_acc: list = []
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def stream_context(self):
+        """The enclosed work runs on the backend's own stream (when it has
+        one), after everything the caller's stream has queued so far:
+        the donor snapshot and the frontend's cached tiles are written
+        there."""
+        s = self.stream
+        if s is None or torch.cuda.current_stream(s.device) == s:
+            yield
+            return
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            yield
+
+    def wait(self):
+        """Make the caller's current stream wait for the backend's queued
+        work. Every reader of backend state outside the backend (the
+        checkpoint, the dashboards, evaluation, the saved scene) calls it
+        first."""
+        if self.stream is None:
+            return
+        torch.cuda.current_stream().wait_stream(self.stream)
+        if torch.cuda.current_device() != self.device.index:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def _adopt(self, t):
+        """A tensor the caller's stream made, for the backend's use: moved
+        to the backend's card, or marked as in use on the backend's stream
+        so that the caching allocator does not hand its memory to the
+        caller's stream before the backend has read it."""
+        if t is None or self.stream is None:
+            return t
+        if t.device != self.device:
+            return t.to(self.device, non_blocking=True)
+        t.record_stream(self.stream)
+        return t
 
     def _note_diag(self, aux):
         if aux and "overflow" in aux:
@@ -343,6 +428,36 @@ class Backend:
         self._note_diag(aux)
         return aux
 
+    def mapping_group(self, lm_idxs: list[int]):
+        """One sharded BA step over a group of keyframes, one per device
+        of the group; a partial group is padded with zero weight."""
+        from ..parallel import sharded_ba_step
+
+        s = self.sys
+        entries = []
+        for i in lm_idxs:
+            lm: LocalMap = self.local_maps[i]
+            if not lm.saved_idxs:  # e.g. a 1-frame submap retains nothing
+                continue
+            entries.append((lm, self.rng.choice(lm.saved_idxs)))
+        if not entries:
+            return {}
+        w2cs, gts, wts = [], [], []
+        for k in range(self.ba_group):
+            lm, fid = entries[k % len(entries)]
+            w2cs.append(lm.get_frame_w2c(fid))
+            gts.append(self._tile_gt(lm.frames[fid]))
+            wts.append(1.0 if k < len(entries) else 0.0)
+        gm, loss, diag = sharded_ba_step(
+            self.devices, self.map, torch.stack(w2cs), torch.stack(gts),
+            s.cam, s.opts, s.mcfg, s.lcfg, weights=wts)
+        self.map = gm
+        self.ba_group_calls += 1
+        self._note_diag(diag)
+        for lm, _ in entries:
+            lm.mapping_times += 1
+        return {"loss": loss, **diag}
+
     def tracking(self, lm_idx: int, tcfg=None):
         s = self.sys
         lm: LocalMap = self.local_maps[lm_idx]
@@ -384,6 +499,7 @@ class Backend:
         self._note_diag(aux)
         return aux
 
+    @_on_own_stream
     def re_tracking(self, lm_idx: int):
         """Recover a lost submap against the global map with doubled
         frontend-style tracking (Backend.re_tracking, :54-79)."""
@@ -395,6 +511,7 @@ class Backend:
         self._fit_capacity()
 
     # ------------------------------------------------------------------
+    @_on_own_stream
     def process(self):
         """Drain one task (Backend.process, :174-194)."""
         q = self.task_queue
@@ -409,13 +526,21 @@ class Backend:
             elif cmd[0] == "mapping":
                 coarse = bool(cmd[2]) if len(cmd) > 2 else False
                 if self.enable_exposure or self.gs_densify:
-                    # the fused batch cannot step per-submap exposure, nor
-                    # emit per-step densify statistics
+                    # the fused and sharded batches cannot step per-submap
+                    # exposure, nor emit per-step densify statistics
                     self.mapping(cmd[1])
+                    return
+                idxs = [cmd[1]]
+                if self.ba_group > 1:
+                    # up to ba_group consecutive mapping tasks of either
+                    # class as one sharded BA step
+                    while (len(idxs) < self.ba_group and q
+                           and q[0][0] == "mapping"):
+                        idxs.append(q.popleft()[1])
+                    self.mapping_group(idxs)
                     return
                 # fuse up to MAP_BATCH consecutive mapping tasks of the
                 # same class; only full batches run fused
-                idxs = [cmd[1]]
                 while (len(idxs) < self.MAP_BATCH and q and q[0][0] == "mapping"
                        and (bool(q[0][2]) if len(q[0]) > 2 else False) == coarse):
                     idxs.append(q.popleft()[1])
@@ -430,12 +555,21 @@ class Backend:
             q.append(("mapping", self.rng.choice(range(len(self.local_maps))),
                       True))
 
+    @_on_own_stream
     def process_localmap(self, lm: LocalMap, multi_process: bool = False):
         """Merge one submap (Backend.process_localmap, :196-248)."""
         self.local_maps.add_localmap(lm)
         self.cur_lmid += 1
         params, active, n_active = lm.map_params
         lm.map_params = None
+        # the handoff: the donor snapshot and the kept frames' images and
+        # tiles come from the frontend's stream (or card)
+        params = G.Params(*(self._adopt(p) for p in params))
+        active, n_active = self._adopt(active), self._adopt(n_active)
+        for f in lm.frames:
+            for name in ("gt_color", "gt_depth", "gt_tiled"):
+                if getattr(f, name, None) is not None:
+                    setattr(f, name, self._adopt(getattr(f, name)))
         # the donor count from the cut's host mirror (reading the device
         # scalar would wait for the whole queue)
         n_donor = (lm.n_active_host if lm.n_active_host is not None
@@ -504,6 +638,7 @@ class Backend:
         config['backend']['common_vis'] as in the reference."""
         if not self.config["backend"].get("common_vis", False):
             return
+        self.wait()
         if len(self.local_maps) == 0 or self.local_maps[-1].transform is None:
             return
         from ..utils import viz
@@ -534,6 +669,7 @@ class Backend:
             self.wandb_run.log({"backend_numpts": self.totalpts_rec[-1]
                                 if self.totalpts_rec else 0})
 
+    @_on_own_stream
     def final_refine(self, progress=False):
         """Final refinement over random submaps (Backend.final_refine,
         :163-172); -1 iterations means one per processed frame. With

@@ -38,19 +38,20 @@ def _to_device(x, device) -> torch.Tensor:
     """A frame array (numpy or torch) on ``device``, dequantized as the
     JAX frontend does: uint8 colour * f32(1/255), uint16 depth *
     f32(1/DEPTH_U16_SCALE) (a float32 tensor times a python scalar
-    computes in float32); anything else as float32."""
-    if isinstance(x, torch.Tensor):
-        if x.dtype == torch.uint8:
-            return x.to(device).to(torch.float32) * (1 / 255)
-        return x.detach().to(device=device, dtype=torch.float32)
-    a = np.asarray(x)
-    if a.dtype == np.uint8:
-        return torch.from_numpy(a).to(device).to(torch.float32) * (1 / 255)
-    if a.dtype == np.uint16:
-        # via int32: uint16 tensors support few operations
-        t = torch.from_numpy(a.astype(np.int32)).to(device)
-        return t.to(torch.float32) * (1 / DEPTH_U16_SCALE)
-    return torch.as_tensor(a, dtype=torch.float32, device=device)
+    computes in float32); anything else as float32. A camera-dtype frame
+    moves first and widens on the device, so the copy carries 1 or 2
+    bytes a value."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if a.dtype not in (np.uint8, np.uint16):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+        x = torch.from_numpy(a)
+    x = x.detach().to(device)
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) * (1 / 255)
+    if x.dtype == torch.uint16:
+        return x.to(torch.float32) * (1 / DEPTH_U16_SCALE)
+    return x.to(torch.float32)
 
 
 def _readback(fetch: dict) -> dict:

@@ -97,8 +97,19 @@ def _state_from(sub: dict, fields, cls, device):
 
 def run_state_arrays(frontend, backend) -> dict:
     """The checkpoint's arrays, flat: {tree path: numpy array}."""
-    state = {"frontend_map": _map_state(frontend.map)}
-    if backend is not None and backend.map is not None:
+    state = _flatten({"frontend_map": _map_state(frontend.map)})
+    if backend is not None:
+        state.update(backend_state_arrays(backend))
+    return state
+
+
+def backend_state_arrays(backend) -> dict:
+    """The backend's part of the checkpoint, flat: {tree path: numpy
+    array}: its map with the Adam moments, and each submap's transform
+    and exposure. Empty before the first merge."""
+    backend.wait()   # its own stream may still be writing the map
+    state = {}
+    if backend.map is not None:
         state["backend_map"] = _map_state(backend.map)
         state["transforms"] = {
             str(i): {f: np.int32(lm.transform.step) if f == "step"
@@ -206,8 +217,6 @@ def apply_run_state(arrays: dict, meta: dict, frontend, backend,
                     dataset) -> int:
     """Set ``frontend`` and ``backend`` (fresh objects) to a checkpoint's
     state; returns the frame index to continue from."""
-    from ..models.submap import LocalMap
-
     dev = frontend.device
     next_idx = int(meta["next_frame_idx"])
     frontend.map = _map_from(arrays, "frontend_map", dev)
@@ -240,6 +249,15 @@ def apply_run_state(arrays: dict, meta: dict, frontend, backend,
 
     if backend is None or "backend_map/step" not in arrays:
         return next_idx
+    # made on the backend's stream, which then owns the tensors' memory
+    with backend.stream_context():
+        _apply_backend(arrays, meta, backend, dataset)
+    return next_idx
+
+
+def _apply_backend(arrays: dict, meta: dict, backend, dataset) -> None:
+    from ..models.submap import LocalMap
+
     bdev = backend.device
     backend.map = _map_from(arrays, "backend_map", bdev)
     backend.n_active_host = int(backend.map.n_active)
@@ -277,7 +295,6 @@ def apply_run_state(arrays: dict, meta: dict, frontend, backend,
                                       bdev)
         backend.local_maps.add_localmap(lm)
     backend.cur_lmid = len(backend.local_maps) - 1
-    return next_idx
 
 
 def restore_run_state(path: str, frontend, backend, dataset) -> int:

@@ -538,17 +538,24 @@ def test_drain_matches_jax(submaps):
 
 @pytest.mark.parametrize("knob", ["gs_densify", "save_ckpt", "backend_device",
                                   "mesh_devices"])
-def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path):
-    """A second backend device and a BA mesh of more than one device
-    raise, naming their ROADMAP item; "auto" stays on the one device, as
-    in the JAX package. backend.save_ckpt is accepted, and a checkpoint of
-    the backend writes meta.json; backend.gs_densify is accepted (ported)
-    and turns on the mapping step's densify statistics."""
+def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path,
+                                                        capsys):
+    """The placement knobs resolve as in the JAX package: "auto" stays on
+    the one device; tpu.backend_device past the attached devices is
+    printed as ignored and the backend stays colocated (JAX backend.py:
+    80-82); a BA group of more devices than attached raises ValueError
+    (mesh_from_config). backend.save_ckpt is accepted, and a checkpoint
+    of the backend writes meta.json; backend.gs_densify is accepted
+    (ported) and turns on the mapping step's densify statistics."""
+    from gaus_slam_tpu_torch.parallel import devices_from_config
     from gaus_slam_tpu_torch.slam.backend import Backend
 
     cfg = _config(_dataset())
-    Backend(dict(cfg, tpu=dict(cfg["tpu"], backend_device="auto",
-                               mesh_devices="auto")), device="cpu")
+    auto = dict(cfg, tpu=dict(cfg["tpu"], backend_device="auto",
+                              mesh_devices="auto"))
+    assert devices_from_config(auto, "cpu") is None
+    be = Backend(auto, device="cpu")
+    assert be.device == torch.device("cpu") and be.stream is None
     if knob == "save_ckpt":
         import json
         import queue
@@ -569,7 +576,13 @@ def test_backend_refuses_multi_device_and_unported_knobs(knob, tmp_path):
         be = Backend(cfg, device="cpu")
         assert be.gs_densify and be.sys.mcfg.gs_stats
         return
-    cfg["tpu"][knob] = "1" if knob == "backend_device" else 2
-    err = ValueError if knob == "mesh_devices" else NotImplementedError
-    with pytest.raises(err, match="ROADMAP|devices"):
-        Backend(cfg, device="cpu")
+    if knob == "backend_device":
+        cfg["tpu"][knob] = "1"
+        capsys.readouterr()
+        be = Backend(cfg, device="cpu")
+        assert "tpu.backend_device=1 ignored" in capsys.readouterr().out
+        assert be.device == torch.device("cpu") and be.stream is None
+        return
+    cfg["tpu"][knob] = 2
+    with pytest.raises(ValueError, match="devices attached"):
+        devices_from_config(cfg, "cpu")

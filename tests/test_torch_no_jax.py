@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
                 "utils.png", "utils.yaml_lite", "utils.tsdf",
                 "utils.eval_mesh", "utils.lpips", "utils.checkpoint",
                 "native", "scripts.eval", "scripts.vis_final", "ops.sh",
-                "ops.knn", "ops.preprocess_3dgs", "scripts.splatam"):
+                "ops.knn", "ops.preprocess_3dgs", "scripts.splatam",
+                "parallel", "parallel.ba", "scripts.gaus_mp"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
