@@ -135,9 +135,35 @@ line):
    device memory. Then on phase 8's tree with backend.save_ckpt, and
    resumed from the checkpoint of the first cut (frame 11): the same
    bounds and launches.
+11. The bf16 compute dtype (tpu.compute_dtype "bf16") and the last
+   scripts.
+   11a. K1, K3 and K2 in bf16 on phase 2's random map, SA on with 2DGS
+   attributes and SA off with 3DGS ones, all tiles and the coarse
+   subset: out, stash and kexit against the plain bf16 chain on the card
+   within TOL_BF16_*, the gradient against the plain chain's float32 vjp
+   within TOL_BF16_GRAD_* and against its torch.autograd within
+   tests/test_raster_grad.py:281-316's bounds, the share of bit-equal
+   values, K3's out bit-equal to K1's, the bf16 cull checked conservative
+   on the bf16 chain; the gap to the f32 kernels printed under
+   test_raster_grad's bounds (on the tiles with x, y < 256 and on all);
+   ms per call, plain ms and bounds at the bf16 rates.
+   11b. The driver with tpu.compute_dtype "bf16": at 48x64 x 12 against
+   phase 5's bounds moved by the JAX package's bf16-f32 gap
+   (SMALL_BOUNDS_BF16); at 340x600 x 30 against phase 6's ATE bound and
+   its first-submap PSNR bound moved by the JAX package's 340x600 render
+   gap (PSNR_MIN_BF16), the pixels with x, y < 256 and the rest printed;
+   only the bf16 K1-K3 launch; frames/s beside phase 6's.
+   11c. scripts/eval_nvs.py on phase 6's scene (every 6th frame), without
+   and with pose refinement (finite metrics, the refined PSNR at most
+   0.1 dB under the unrefined); scripts/gen_video.py on it, flythrough
+   and mesh orbit (8 frames), each written by the port's GIF encoder and
+   decoded back equal to the quantized frames; keyframe_overlap's
+   points_overlap on the card and on the CPU with the same points.
+   11d. tools/microbench.py at its defaults: ms per stage.
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
-also without SA on 3DGS attributes), the card line, and {"ok": true,
-"device": {...}} as the last line.
+also without SA on 3DGS attributes; the bf16 instantiations as entries
+of their own, with their launches in 11b at 340x600), the card line, and
+{"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -191,6 +217,29 @@ SMALL_BOUNDS_3DGS = {k: (op, b + JAX_48x64_3DGS[k] - JAX_48x64_2DGS[k])
 # At 340x600 the 3DGS ablation is held to phase 6's bounds unrelaxed
 # (the JAX package loses 12.3 mm ATE and 4.05 dB PSNR between 2DGS and
 # 3DGS at 48x64, a margin these bounds do not take).
+# phase 11b, the driver with tpu.compute_dtype "bf16". The JAX package's
+# driver at 48x64 x 12, seed 0, on the CPU with "bf16" (backend
+# "interpret"; tests/test_torch_bf16.py::test_bf16_driver_matches_jax,
+# slow, which also reruns JAX_48x64_2DGS in f32 to the same digits):
+JAX_48x64_BF16 = {"ATE RMSE": 0.017630747822350263,
+                  "PSNR": 25.632961908976238, "MS-SSIM": 0.9978483070929846,
+                  "Depth L1": 0.015740143368020654}
+# At 48x64: each of SMALL_BOUNDS moved by what the JAX package loses in
+# bf16 against f32 there.
+SMALL_BOUNDS_BF16 = {k: (op, b + JAX_48x64_BF16[k] - JAX_48x64_2DGS[k])
+                     for k, (op, b) in SMALL_BOUNDS.items()}
+# At 340x600 bf16 also rounds the pixel coordinates, past 256 to even
+# numbers and past 512 to multiples of 4, a loss that 48x64 cannot show.
+# The JAX package's render of the synthetic scene's frame-0 map at
+# 340x600, 5 mm from frame 0's pose, in f32 and in bf16: PSNR over the
+# whole image (tests/test_torch_bf16.py::test_full_width_render_matches_
+# jax, slow, on the CPU; 0.73 dB of the loss on the pixels with x, y <
+# 256, 4.8 dB on the rest; the port's within 0.02 dB of each).
+JAX_340x600_RENDER_PSNR = {"f32": 35.3896484375, "bf16": 31.226842880249023}
+# At 340x600 phase 6's ATE bound holds unmoved, and its first-submap PSNR
+# bound moves by that render's bf16-f32 gap.
+PSNR_MIN_BF16 = (PSNR_MIN + JAX_340x600_RENDER_PSNR["bf16"]
+                 - JAX_340x600_RENDER_PSNR["f32"])
 # phase 9c: tests/test_splatam.py's PSNR bound
 SPLATAM_PSNR_MIN = 15.0
 # a keyframe test within this share of its threshold is decided by float32
@@ -208,6 +257,11 @@ SFU_PER_S = F32_FLOP_PER_S / 16
 # packed bf16 outside the tensor cores: 133.8 TFLOP/s against 66.9 f32
 # (NVIDIA H100 Tensor Core GPU Architecture white paper, SXM5)
 BF16_FLOP_PER_S = 2 * F32_FLOP_PER_S
+# ex2.approx.bf16x2 (PTX ISA 7.8, sm_90) gives two bf16 exps per
+# special-function instruction. NVIDIA publishes no rate for it; the
+# bounds take it at twice the f32 rate, the least time it could take.
+# rcp and lg2 have no packed bf16 form and keep SFU_PER_S.
+BF16_EXP_PER_S = 2 * SFU_PER_S
 # (FLOP, SFU) per (pair, pixel) that the function needs, counted once from
 # compositing.composite_chunk (SA on, normals off) without the kernels'
 # own recompute. FLOP: add, sub, mul, min, max and compare 1 each, a
@@ -216,6 +270,9 @@ BF16_FLOP_PER_S = 2 * F32_FLOP_PER_S
 #   ray-splat geometry and alpha 38 + (rcp, exp); accept test and
 #   transmittance 7 + (log1p, exp).
 FWD_EVAL = (45, 4)
+# Of those, the exps that the bf16 chain computes in bf16: exp(-rho / 2)
+# and exp(cum). Its rcp and log1p, and SA's float32 exp, are not packed.
+FWD_EVAL_BF16_EXPS = 2
 # Per evaluation that the cull test rejects (raster_common.cuh::
 # pair_culled: both squared distances past the pair's cull radius), which
 # needs that test alone: the 2D distance 7, the ray's three coordinates
@@ -244,9 +301,22 @@ KERNELS = {
                         "gaus_slam_tpu/ops/pallas_backward.py:109"),
     "bf16_probe": ("K6", "gaus_slam_tpu_torch/csrc/bf16_probe.cu",
                    "tools/bf16_probe.py:74"),
+    # the bf16 compute dtype of K1, K2 and K3: the same TPU kernels with
+    # compute_dtype "bf16" (where the dtype enters each)
+    "raster_forward_stash_bf16": (
+        "K1-bf16", "gaus_slam_tpu_torch/csrc/raster_forward.cu",
+        "gaus_slam_tpu/ops/pallas_forward.py:297"),
+    "raster_backward_stash_bf16": (
+        "K2-bf16", "gaus_slam_tpu_torch/csrc/raster_backward.cu",
+        "gaus_slam_tpu/ops/pallas_backward.py:344"),
+    "raster_forward_bf16": (
+        "K3-bf16", "gaus_slam_tpu_torch/csrc/raster_forward.cu",
+        "gaus_slam_tpu/ops/pallas_forward.py:110"),
 }
 STASH_PATH = ("raster_forward_stash", "raster_backward_stash",
               "raster_forward", "monotone_row_gather")
+BF16_PATH = ("raster_forward_stash_bf16", "raster_backward_stash_bf16",
+             "raster_forward_bf16")
 
 
 class SmokeFailure(RuntimeError):
@@ -483,7 +553,22 @@ def cull_rejects(op, dx, dy, p_x, p_y, p_z):
             & (p_x * p_x + p_y * p_y > lim * (p_z * p_z)))
 
 
-def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
+def cull_rejects_bf16(op, rho2d, rho3d):
+    """raster_common.cuh::pair_culled under BF16 on tensors: the bf16
+    chain's own rounded rho2d and rho3d both past the bf16 radius of the
+    bf16 opacity (rho_cull<BF16>)."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.camera import ALPHA_MIN
+
+    ob = op.to(torch.bfloat16).float()
+    lim = torch.where(ob < ALPHA_MIN, torch.full_like(ob, -1.0),
+                      2.0 * torch.log(ob / ALPHA_MIN) * (1.0 + 1.0 / 1024.0)
+                      + 1.0 / 32.0)
+    return (rho2d.float() > lim) & (rho3d.float() > lim)
+
+
+def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384, bf16=False):
     """(pair, pixel) work this run's data needs, for the operation bound:
     (evaluations, culled, accepted, wrongly culled). A pixel evaluates its
     tile's pairs until it terminates, just past its last contributor
@@ -492,12 +577,15 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
     n_contrib whose depth and alpha tests pass (composite_chunk's okf).
     Wrongly culled: (pair, pixel) of the tile's whole range that the cull
     rejects although the alpha test passes (must be 0: the cull is
-    conservative). ts / te are the ranges of tiles 0..T-1."""
+    conservative). ts / te are the ranges of tiles 0..T-1. ``bf16``: the
+    bf16 chain's geometry and alpha test (compositing.bf16_geometry) and
+    the bf16 cull (cull_rejects_bf16)."""
     import torch
 
     from gaus_slam_tpu_torch.ops.camera import (ALPHA_MIN, FILTER_INV_SQUARE,
                                                 NEAR_N)
     from gaus_slam_tpu_torch.ops.composite_ref import tile_pixel_coords
+    from gaus_slam_tpu_torch.ops.compositing import bf16_geometry
 
     dev = pattrs.device
     lens = (te - ts).clamp(min=0).long()
@@ -525,28 +613,43 @@ def pair_pixel_work(pattrs, ts, te, out, grid, chunk=16384):
         d_raw = torch.where(rho3d <= rho2d, sx * a[:, 9] + sy * a[:, 10]
                             + a[:, 11], a[:, 11].expand_as(sx))
         alpha = a[:, 17] * torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
-        ok = ((p_z != 0) & (d_raw >= NEAR_N) & (alpha >= ALPHA_MIN)
+        pz_ok = p_z != 0
+        if bf16:
+            g = bf16_geometry(a.transpose(1, 2), x[:, None], y[:, None])
+            pz_ok, d_raw, alpha = (g.pz_ok[:, 0], g.d_raw[:, 0].float(),
+                                   g.alpha_raw[:, 0].float())
+            rej = cull_rejects_bf16(a[:, 17], g.rho2d[:, 0], g.rho3d[:, 0])
+        else:
+            rej = cull_rejects(a[:, 17], a[:, 12] - x, a[:, 13] - y, p_x,
+                               p_y, p_z)
+        ok = (pz_ok & (d_raw >= NEAR_N) & (alpha >= ALPHA_MIN)
               & ((kk + 1)[:, None].float() <= nc[t]))
         accepted += int(ok.sum())
         ev = kk[:, None].double() < upto[t]
-        rej = cull_rejects(a[:, 17], a[:, 12] - x, a[:, 13] - y, p_x, p_y,
-                           p_z)
         culled += int((rej & ev).sum())
-        wrong += int((rej & (p_z != 0) & (alpha >= ALPHA_MIN)).sum())
+        wrong += int((rej & pz_ok & (alpha >= ALPHA_MIN)).sum())
     return evals, float(culled), float(accepted), wrong
 
 
-def op_bound(evals, accepted, per_accepted, nbytes, culled=0.0):
+def op_bound(evals, accepted, per_accepted, nbytes, culled=0.0, bf16=False):
     """(bound ms, 'operations' or 'bytes'): the f32 and special-function
     pipes run side by side, so the operation time is the larger of the
     two; the bound is the larger of that and the bytes' time. Of the
-    evaluations, the ``culled`` ones cost the cull test alone."""
+    evaluations, the ``culled`` ones cost the cull test alone. ``bf16``:
+    the bf16 chain's bound, every FLOP at the packed bf16 rate (its sums
+    and SA's fusion weight are float32, so this is below what the
+    function needs) and its bf16 exps at BF16_EXP_PER_S."""
     kept = evals - culled
     flop = (kept * FWD_EVAL[0] + culled * CULL_EVAL[0]
             + accepted * per_accepted[0])
     sfu = (kept * FWD_EVAL[1] + culled * CULL_EVAL[1]
            + accepted * per_accepted[1])
-    t_ops = max(flop / F32_FLOP_PER_S, sfu / SFU_PER_S) * 1e3
+    t_sfu, rate = sfu / SFU_PER_S, F32_FLOP_PER_S
+    if bf16:
+        exps = kept * FWD_EVAL_BF16_EXPS
+        t_sfu = (sfu - exps) / SFU_PER_S + exps / BF16_EXP_PER_S
+        rate = BF16_FLOP_PER_S
+    t_ops = max(flop / rate, t_sfu) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1348,9 +1451,12 @@ def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None):
     return launches
 
 
-def phase_driver_full(dev, label="driver_340x600", edit=None):
+def phase_driver_full(dev, label="driver_340x600", edit=None, suffix="",
+                      psnr_min=PSNR_MIN):
     """Phase 6: the driver at 340x600 over the config's 30 frames (phase
-    9b: ``edit`` sets the 3DGS ablation)."""
+    9b: ``edit`` sets the 3DGS ablation; phase 11b: the bf16 compute
+    dtype, whose K1-K3 launch under the names with ``suffix``, with its
+    own first-submap PSNR bound ``psnr_min``)."""
     import torch
 
     result, launches, probe, secs, out = run_driver(
@@ -1382,12 +1488,13 @@ def phase_driver_full(dev, label="driver_340x600", edit=None):
           f"{label}: the later merges retrieved no covisible submaps")
     for kind in ("mapping (fused x4)", "prune", "tracking"):
         check(probe.tasks.get(kind), f"{label} ran no {kind} task")
-    for name in ("raster_forward_stash", "raster_backward_stash",
-                 "monotone_row_gather"):
+    for name in ("raster_forward_stash" + suffix,
+                 "raster_backward_stash" + suffix, "monotone_row_gather"):
         check(probe.inside["backend"].get(name, 0) > 0,
               f"{label}: {name} never launched inside the backend")
-    check(probe.inside["eval"].get("raster_forward", 0) > 0,
-          f"{label}: raster_forward never launched inside eval_final")
+    check(probe.inside["eval"].get("raster_forward" + suffix, 0) > 0,
+          f"{label}: raster_forward{suffix} never launched inside "
+          f"eval_final")
     ate = result["ATE RMSE"]
     print(f"[{label}] ATE RMSE {ate:.6g} (bound < {T_ERR_ABS}): "
           f"{'pass' if ate < T_ERR_ABS else 'FAIL'}")
@@ -1408,11 +1515,12 @@ def phase_driver_full(dev, label="driver_340x600", edit=None):
     own = owned[0][1]
     print(f"[{label}] PSNR {result['PSNR']:.6g} over all frames; mean "
           f"by submap {[(i, round(float(p.mean()), 3)) for i, p in owned]}; "
-          f"over the first submap's {len(own)} frames {own.mean():.6g} (bound "
-          f"> {PSNR_MIN}): {'pass' if own.mean() > PSNR_MIN else 'FAIL'}")
-    check(np.isfinite(own).all() and own.mean() > PSNR_MIN,
-          f"{label}: PSNR {own.mean()} over the first submap's frames not > "
-          f"{PSNR_MIN}")
+          f"over the first submap's {len(own)} frames {own.mean():.6g} "
+          f"(bound > {psnr_min}): "
+          f"{'pass' if own.mean() > psnr_min else 'FAIL'}")
+    check(np.isfinite(own).all() and own.mean() > psnr_min,
+          f"{label}: PSNR {own.mean()} over the first submap's frames "
+          f"not > {psnr_min}")
     return launches, probe
 
 
@@ -2555,7 +2663,7 @@ def phase_pipelined(dev, card, fps_sync):
 def probe_bound_ms(chain, n, dtype, numel):
     """(bound ms, by) of one K6 launch: each element read and written once;
     per element the chain's FLOP (an FMA 2; mul, add and compare 1) at the
-    dtype's rate and its exp at the special-function rate."""
+    dtype's rate and its exp at the dtype's special-function rate."""
     import torch
 
     if chain == "fma":
@@ -2564,8 +2672,10 @@ def probe_bound_ms(chain, n, dtype, numel):
         flop, sfu = 2 * n, n
     else:
         flop, sfu = 2 * n + 3 * (n // 8), n // 8
-    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
-    t_ops = max(numel * flop / rate, numel * sfu / SFU_PER_S) * 1e3
+    bf16 = dtype == torch.bfloat16
+    rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+    sfu_rate = BF16_EXP_PER_S if bf16 else SFU_PER_S
+    t_ops = max(numel * flop / rate, numel * sfu / sfu_rate) * 1e3
     elsize = 2 if dtype == torch.bfloat16 else 4
     t_bytes = 2 * numel * elsize / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -2632,6 +2742,500 @@ def phase_bf16_probe(dev):
     return launches, number
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the bf16 compute dtype, and the last scripts
+
+# Tolerances of the bf16 kernels against the plain bf16 chain on the card,
+# relative to each channel's (stash row's) scale: both round the same ops
+# to bf16, but the kernels sum the prefixes sequentially per pixel and the
+# plain chain with cumsum; a prefix that lands across a bf16 rounding
+# boundary moves that pair's T_pref by one bf16 step (2^-8 relative) and
+# what follows from it. That is rare (tests/test_torch_bf16.py: 92-98% of
+# the float values bit-equal on the CPU), so the bounds are quantiles:
+# float channels q99 1e-3 and mean 1e-4 (the cancelling distortion
+# channel 9 q99 1e-2, mean 1e-3), stash rows the same; under 0.5% of the
+# pixels (stash entries) with another contributor count (done flag), 99%
+# of the tiles with the same kexit.
+# K2-bf16's gradient against the plain chain's vjp in float32 on the same
+# rounded forward values (raster_backward_stash_plain(f32_vjp=True)), the
+# arithmetic the kernel does: relative to the largest gradient, q99 1e-4
+# and mean 1e-5; each attribute row within relative L2 3e-2 of the
+# reference's row. Both sum the prefixes in their own order, so a pair's
+# T_pref may round one bf16 step apart, and the geometry rows' sums over
+# pixels cancel: phase 2's map reads q99 3.1e-5, mean 1.9e-6 and rows up
+# to 1.3e-2 (cx, 3DGS coarse; 8.9e-3 with SA), the colour rows 1e-7,
+# where a row scaled by 0.9 would read 0.1. Beside it, the gradient against torch.autograd through
+# the plain bf16 chain (which rounds each cotangent to bf16, as the JAX
+# package's gradient does) under tests/test_raster_grad.py:281-316's
+# gradient bounds (q99 0.15, mean 3e-2; under 1% of the zero structure
+# flipped); its worst row reads 10% relative L2 on phase 2's map.
+TOL_BF16_Q99, TOL_BF16_MEAN = 1e-3, 1e-4
+TOL_BF16_Q99_DIST, TOL_BF16_MEAN_DIST = 1e-2, 1e-3
+TOL_BF16_GRAD_Q99, TOL_BF16_GRAD_MEAN, TOL_BF16_GRAD_ROW = 1e-4, 1e-5, 3e-2
+# The gap of bf16 to the f32 kernels is printed under those bounds, not
+# held to them: they were set at 32x32, and the bf16 chain's error grows
+# with the pixel coordinates. bf16 holds them and the attributes to 8
+# bits, so p = x a0 + y a1 + a2 cancels terms of a few hundred to a
+# surfel's local coordinate, and past 256 the coordinates themselves
+# round, to even numbers, past 512 to multiples of 4 (in the JAX package
+# too: its compositing.py:122-127 casts px and py). The gap is printed for
+# the tiles whose pixels all have x, y < 256 and for the whole image.
+EXACT_BF16 = 256
+
+
+def bf16_errors(got, ref, rows, scale_of=None):
+    """Per row c of [n, C, P] (C = len(rows)): (q99, mean) of |got - ref|
+    relative to the row's scale, on the pixels whose integer channels
+    agree (``rows``: {c: "float" | "int"}). Returns (mismatch share,
+    {c: (q99, mean)}, share of bit-equal float values)."""
+    import torch
+
+    agree = torch.ones_like(got[:, 0], dtype=torch.bool)
+    for c, kind in rows.items():
+        if kind == "int":
+            agree &= got[:, c] == ref[:, c]
+    frac = int((~agree).sum()) / agree.numel()
+    errs, same, total = {}, 0, 0
+    for c, kind in rows.items():
+        if kind == "int":
+            continue
+        scale = (scale_of(c) if scale_of else None)
+        if scale is None:
+            scale = max(float(ref[:, c].abs().max()), 1e-6)
+        d = ((got[:, c] - ref[:, c]).abs() / scale)[agree].double()
+        errs[c] = ((float(torch.quantile(d[:2**24], 0.99)),
+                    float(d.mean())) if d.numel() else (0.0, 0.0))
+        same += int((got[:, c].view(torch.int32)
+                     == ref[:, c].view(torch.int32)).sum())
+        total += got[:, c].numel()
+    return frac, errs, same / max(total, 1)
+
+
+def bf16_ok(errs, dist_rows=()):
+    return all(q <= (TOL_BF16_Q99_DIST if c in dist_rows else TOL_BF16_Q99)
+               and m <= (TOL_BF16_MEAN_DIST if c in dist_rows
+                         else TOL_BF16_MEAN)
+               for c, (q, m) in errs.items())
+
+
+def grad_rows_f32_vjp(g, ref):
+    """K2-bf16's gradient ``g`` against the float32 vjp ``ref`` of the
+    plain bf16 chain: (ok, report)."""
+    import torch
+
+    sc = max(float(ref.abs().max()), 1e-3)
+    gerr = ((g - ref).abs() / sc).flatten().double()
+    gq, gm = float(torch.quantile(gerr[:2**24], 0.99)), float(gerr.mean())
+    ok = gq <= TOL_BF16_GRAD_Q99 and gm <= TOL_BF16_GRAD_MEAN
+    rows = []
+    for c in range(21):
+        norm = float(ref[c].norm())
+        if norm == 0.0:
+            ok = ok and float(g[c].abs().max()) == 0.0
+            continue
+        rel = float((g[c] - ref[c]).norm()) / norm
+        ok = ok and rel <= TOL_BF16_GRAD_ROW
+        rows.append(f"{c}:{rel:.1e}")
+    return ok, f"q99 {gq:.2e} mean {gm:.2e}, rows [{' '.join(rows)}]"
+
+
+def grad_bounds(g, ref):
+    """tests/test_raster_grad.py:281-316's gradient bounds of ``g``
+    against ``ref``: (ok, report)."""
+    import torch
+
+    sc = max(float(ref.abs().max()), 1e-3)
+    gerr = ((g - ref).abs() / sc).flatten().double()
+    gq = float(torch.quantile(gerr[:2**24], 0.99))
+    flip = float(((ref == 0) != (g == 0)).double().mean())
+    ok = gq < 0.15 and float(gerr.mean()) < 3e-2 and flip < 0.01
+    return ok, (f"grad q99 {gq:.2e} mean {float(gerr.mean()):.2e}, zero "
+                f"flips {flip:.2e}")
+
+
+def exact_region(ids, n_sub, ts, te, r, grid, dev):
+    """(tiles, pair columns) of the tiles whose pixels all have x, y <
+    EXACT_BF16 (exact in bf16), as masks."""
+    import torch
+
+    tid = torch.arange(n_sub, device=dev) if ids is None else ids.long()
+    t_ok = (((tid % grid.tiles_x + 1) * grid.block_w <= EXACT_BF16)
+            & ((tid // grid.tiles_x + 1) * grid.block_h <= EXACT_BF16))
+    cols = torch.zeros(r, dtype=torch.bool, device=dev)
+    for a, b in zip(ts[t_ok].tolist(), te[t_ok].tolist()):
+        if b > a:
+            cols[a:b] = True
+    return t_ok, cols
+
+
+def gap_to_f32(o16, o32, g16, g32):
+    """tests/test_raster_grad.py:281-316's bounds of a bf16 render and
+    gradient against the f32 ones: (ok, report)."""
+    import torch
+
+    ok, rep = True, []
+    for c in range(9):
+        sc = max(float(o32[:, c].abs().max()), 1e-3)
+        err = ((o16[:, c] - o32[:, c]).abs() / sc).flatten().double()
+        q99 = float(torch.quantile(err[:2**24], 0.99))
+        ok = ok and q99 < (12e-2 if c == 8 else 6e-2) \
+            and float(err.mean()) < 1.5e-2
+        rep.append(f"{c}:{q99:.1e}/{float(err.mean()):.1e}")
+    sc9 = max(float(o32[:, 9].abs().max()), 1e-3)
+    e9 = float(((o16[:, 9] - o32[:, 9]).abs() / sc9).mean())
+    ok = ok and e9 < 0.6
+    gok, grep = grad_bounds(g16, g32)
+    rep.append(f"9 mean {e9:.2e}; {grep}")
+    return ok and gok, " ".join(rep)
+
+
+def phase_bf16_kernels(ds, sys_cfg, capacity, dev, card):
+    """Phase 11a: K1, K3 and K2 in bf16 on phase 2's random map, SA on with
+    2DGS attributes and SA off with 3DGS ones (anisotropic), all tiles and
+    the coarse subset, against the plain bf16 chain on the card, the f32
+    kernels and the bf16 cull; ms, plain ms and bounds on each variant's
+    full case. Returns ({name: numbers} for SA on 2DGS, the same for SA
+    off on 3DGS)."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.raster_backward import (
+        raster_backward_stash, raster_backward_stash_plain)
+    from gaus_slam_tpu_torch.ops.raster_forward import (raster_forward,
+                                                        raster_forward_plain,
+                                                        raster_forward_stash,
+                                                        stash_offsets)
+
+    cam = sys_cfg.cam
+    gm = random_map(ds, cam, capacity, dev)
+    rng = np.random.default_rng(11)
+    out_rows = {c: "float" for c in range(13)}
+    out_rows.update({13: "int", 14: "int", 15: "int"})
+    stash_rows = {0: "float", 1: "int", 2: "float", 3: "float", 4: "float",
+                  5: "float", 6: "float"}
+    results = ({}, {})
+    for vi, (variant, opts, use_sa) in enumerate((
+            ("2dgs SA", sys_cfg.opts, True),
+            ("3dgs no-SA", sys_cfg.opts._replace(method="3dgs"), False))):
+        kw = dict(grid=opts.grid, use_sa=use_sa, need_normal=False)
+        k16 = dict(kw, compute_dtype="bf16")
+        _, cases = kernel_inputs(gm, cam, opts,
+                                 sys_cfg.track_front.coarse_stride)
+        for case, (pattrs, ts, te, ids) in cases.items():
+            label = f"{variant} {case}"
+            n_sub = int(ts.shape[0])
+            k_out, k_stash, k_kexit = raster_forward_stash(
+                pattrs, ts, te, tile_ids=ids, **k16)
+            k3 = raster_forward(pattrs, ts, te, tile_ids=ids, **k16)
+            p_out, p_stash, p_kexit = raster_forward_plain(
+                pattrs, ts, te, tile_ids=ids, **k16)
+            f_out, f_stash, f_kexit = raster_forward_stash(
+                pattrs, ts, te, tile_ids=ids, **kw)
+            torch.cuda.synchronize()
+            mm, dd = p_out[:, 8].abs(), p_out[:, 3].abs()
+            dist_scale = (max(float((mm * dd + mm * mm).max()), 1e-6)
+                          if use_sa else None)
+            frac, errs, bits = bf16_errors(
+                k_out, p_out, out_rows,
+                lambda c: dist_scale if c == 9 else None)
+            kex_agree = float((k_kexit == p_kexit).float().mean())
+            same_k = torch.nonzero(k_kexit == p_kexit)[:, 0].tolist()
+            soff = stash_offsets(ts, te).long()
+            srows = torch.cat([torch.arange(int(soff[i]), int(soff[i])
+                                            + int(k_kexit[i]), device=dev)
+                               for i in same_k] or
+                              [torch.zeros(0, dtype=torch.long, device=dev)])
+            sfrac, serrs, sbits = bf16_errors(k_stash[srows], p_stash[srows],
+                                              stash_rows)
+            k3_same = bool(torch.equal(k3, k_out))
+            d_out = torch.zeros_like(k_out)
+            d_out[:, :10] = torch.as_tensor(
+                rng.normal(size=(n_sub, 10, k_out.shape[-1])).astype(
+                    np.float32), device=dev)
+            bargs = (pattrs, ts, te, k_stash, k_kexit, k_out, d_out)
+            k_grad = raster_backward_stash(*bargs, tile_ids=ids, **k16)
+            p_grad = raster_backward_stash_plain(*bargs, tile_ids=ids, **k16)
+            v_grad = raster_backward_stash_plain(*bargs, tile_ids=ids,
+                                                 f32_vjp=True, **k16)
+            f_grad = raster_backward_stash(pattrs, ts, te, f_stash, f_kexit,
+                                           f_out, d_out, tile_ids=ids, **kw)
+            torch.cuda.synchronize()
+            rel = {c: float((k_grad[c] - p_grad[c]).norm()
+                            / p_grad[c].norm())
+                   for c in range(21) if float(p_grad[c].norm()) > 0}
+            gbits = float((k_grad.view(torch.int32)
+                           == v_grad.view(torch.int32)).double().mean())
+            g_ok, g_rep = grad_bounds(k_grad, p_grad)
+            v_ok, v_rep = grad_rows_f32_vjp(k_grad, v_grad)
+            t_ok, cols = exact_region(ids, n_sub, ts, te, pattrs.shape[1],
+                                      opts.grid, dev)
+            gap_ok, gap_rep = gap_to_f32(k_out[t_ok], f_out[t_ok],
+                                         k_grad[:, cols], f_grad[:, cols])
+            _, gap_all = gap_to_f32(k_out, f_out, k_grad, f_grad)
+            err1 = float((k_out[:, :13] - p_out[:, :13]).abs().max())
+            err2 = float((k_grad - v_grad).abs().max())
+            print(f"[bf16 kernels] K1 {label}: {n_sub} tiles; int-channel "
+                  f"mismatch {frac:.2e} (< 5e-3), q99/mean relative by "
+                  f"channel [" + " ".join(
+                      f"{c}:{q:.1e}/{m:.1e}" for c, (q, m) in errs.items())
+                  + f"], bit-equal share {bits:.4f}; kexit agree "
+                  f"{kex_agree:.4f}; stash: done mismatch {sfrac:.2e}, "
+                  f"by row [" + " ".join(
+                      f"{c}:{q:.1e}/{m:.1e}" for c, (q, m) in serrs.items())
+                  + f"], bit-equal share {sbits:.4f}; K3 == K1 out: "
+                  f"{k3_same}")
+            print(f"[bf16 kernels] K2 {label}: against the float32 vjp of "
+                  f"the plain chain {v_rep} (tol q99 {TOL_BF16_GRAD_Q99}, "
+                  f"mean {TOL_BF16_GRAD_MEAN}, rows {TOL_BF16_GRAD_ROW}), "
+                  f"bit-equal share {gbits:.4f}; against torch.autograd of the plain "
+                  f"chain {g_rep} (test_raster_grad's bounds: q99 0.15, "
+                  f"mean 3e-2, flips 1e-2), worst row relative L2 "
+                  f"{max(rel.values()):.2e} (row {max(rel, key=rel.get)}); "
+                  f"pad rows {float(k_grad[21:].abs().max())}")
+            print(f"[bf16 kernels] {label}: gap to the f32 kernels (q99/mean "
+                  f"by channel) on the {int(t_ok.sum())} tiles with x, y < "
+                  f"{EXACT_BF16} [{gap_rep}]: "
+                  f"{'within' if gap_ok else 'OUTSIDE'} test_raster_grad's "
+                  f"bounds; on all {n_sub} tiles [{gap_all}]")
+            check(frac < 5e-3 and bf16_ok(errs, (9,)),
+                  f"K1-bf16 {label} disagrees with its plain version")
+            check(kex_agree >= 0.99, f"K1-bf16 {label}: kexit disagrees")
+            check(sfrac < 5e-3 and bf16_ok(serrs),
+                  f"K1-bf16 {label}: stash disagrees")
+            check(k3_same, f"K3-bf16 {label} differs from K1-bf16's out")
+            check(v_ok and float(k_grad[21:].abs().max()) == 0.0,
+                  f"K2-bf16 {label} disagrees with the float32 vjp of the "
+                  f"plain bf16 chain")
+            check(g_ok, f"K2-bf16 {label} disagrees with torch.autograd "
+                  f"through the plain bf16 chain")
+            check(not torch.equal(k_out, f_out),
+                  f"phase 11a {label}: bf16 rounded nothing")
+            if case != "full":
+                continue
+            evals, culled, accepted, wrong = pair_pixel_work(
+                pattrs, ts, te, k_out, opts.grid, bf16=True)
+            print(f"[bf16 kernels] {label}: (pair, pixel) evaluations "
+                  f"{evals:.6g}, culled {culled:.6g}, accepted "
+                  f"{accepted:.6g}; culled although the bf16 alpha test "
+                  f"passes: {wrong}")
+            check(wrong == 0, f"phase 11a {label}: the bf16 cull rejected "
+                  f"{wrong} (pair, pixel) that pass the bf16 alpha test")
+            out_bytes = k_out.numel() * 4
+            in_bytes = pattrs.numel() * 4 + 3 * n_sub * 4
+            stash_bytes = int(k_kexit.sum()) * 8 * 256 * 4
+            t_k1 = time_ms(lambda: raster_forward_stash(pattrs, ts, te, **k16),
+                           10)
+            t_k3 = time_ms(lambda: raster_forward(pattrs, ts, te, **k16), 10)
+            t_k2 = time_ms(lambda: raster_backward_stash(*bargs, **k16), 5)
+            t_p1 = time_ms(lambda: raster_forward_plain(pattrs, ts, te,
+                                                        **k16), 2, warm=1)
+            t_p2 = time_ms(lambda: raster_backward_stash_plain(*bargs, **k16),
+                           1, warm=1)
+            fwd_acc = FWD_ACCEPTED if use_sa else FWD_ACCEPTED_NO_SA
+            bwd_acc = BWD_ACCEPTED if use_sa else BWD_ACCEPTED_NO_SA
+            work = {
+                "raster_forward_stash_bf16": (
+                    t_k1, t_p1, fwd_acc, in_bytes + out_bytes + stash_bytes,
+                    err1),
+                "raster_forward_bf16": (t_k3, t_p1, fwd_acc,
+                                        in_bytes + out_bytes, err1),
+                "raster_backward_stash_bf16": (
+                    t_k2, t_p2, bwd_acc,
+                    2 * in_bytes + 2 * out_bytes + stash_bytes, err2)}
+            for name, (ms, pms, per, nb, err) in work.items():
+                # the function's bound at the bf16 rates, though this
+                # design computes in float32 and rounds (no packed bf16x2);
+                # the f32 rate's beside it
+                b = op_bound(evals, accepted, per, nb, culled=culled,
+                             bf16=True)
+                results[vi][name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                    bound_by=b[1], library_ms=None,
+                    bound_ms_f32_rate=op_bound(evals, accepted, per, nb,
+                                               culled=culled)[0],
+                    bit_equal_share=gbits if "backward" in name else bits)
+            print(f"[card] {card_line()}")
+            print(f"[bf16 kernels] {variant} ms: K1-bf16 {t_k1:.4f} (plain "
+                  f"{t_p1:.1f}), K3-bf16 {t_k3:.4f}, K2-bf16 {t_k2:.4f} "
+                  f"(plain {t_p2:.1f}); bounds at the bf16 rates (at the "
+                  f"f32 rate) " + ", ".join(
+                      f"{KERNELS[k][0]} {v['bound_ms']:.4f} "
+                      f"({v['bound_ms_f32_rate']:.4f})"
+                      for k, v in results[vi].items()))
+    return results
+
+
+def set_bf16(cfg):
+    cfg.setdefault("tpu", {})["compute_dtype"] = "bf16"
+
+
+def region_psnr(label, frames, dev):
+    """Mean PSNR (valid-depth pixels, as eval_final) of the saved scene of
+    run ``label`` at its own poses over ``frames``, on the pixels with x,
+    y < EXACT_BF16 and on the rest."""
+    import torch
+
+    from gaus_slam_tpu_torch.data import get_dataset
+    from gaus_slam_tpu_torch.ops.composite_ref import tiles_to_image
+    from gaus_slam_tpu_torch.render import render_view
+    from gaus_slam_tpu_torch.utils.config import SystemConfig
+    from gaus_slam_tpu_torch.utils.image_metrics import psnr
+    from gaus_slam_tpu_torch.utils.scene_io import load_scene
+
+    config, gm, w2cs, _ = load_scene(os.path.join(out_dir(label), "scene"),
+                                     device=dev)
+    s = SystemConfig.from_config(config, device=dev)
+    ds = get_dataset(config["data"])
+    e, inside, outside = EXACT_BF16, [], []
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    region = (xx < e) & (yy < e)
+    with torch.no_grad():
+        for i in frames:
+            color, depth, _, _ = ds[i]
+            gt = torch.as_tensor(np.asarray(color, np.float32) / 255.0,
+                                 device=dev)
+            valid = torch.as_tensor(np.asarray(depth, np.float32).squeeze(),
+                                    device=dev) > 0
+            out = render_view(gm, s.cam.replace_w2c(torch.as_tensor(
+                w2cs[i], dtype=torch.float32, device=dev)), s.opts)
+            rgb = torch.clamp(tiles_to_image(out[:, 0:3], s.opts.grid, H, W)
+                              .permute(1, 2, 0), 0.0, 1.0)
+            inside.append(float(psnr(rgb, gt, mask=valid & region)))
+            outside.append(float(psnr(rgb, gt, mask=valid & ~region)))
+    return float(np.mean(inside)), float(np.mean(outside))
+
+
+def phase_bf16_driver(dev, fps_f32):
+    """Phase 11b: the driver with tpu.compute_dtype "bf16" at 48x64 x 12
+    (SMALL_BOUNDS_BF16) and at 340x600 x 30 (phase 6's ATE bound, and its
+    first-submap PSNR bound moved by the JAX package's 340x600 bf16-f32
+    render gap: PSNR_MIN_BF16), the PSNR on the pixels with x, y < 256
+    and on the rest printed beside phase 6's; only the bf16
+    instantiations of K1-K3 launch."""
+    small = phase_driver_small(dev, label="bf16_48x64",
+                               bounds=SMALL_BOUNDS_BF16, edit=set_bf16)
+    full, probe = phase_driver_full(dev, label="bf16_340x600", edit=set_bf16,
+                                    suffix="_bf16", psnr_min=PSNR_MIN_BF16)
+    first = range(probe.merges[0]["frames"][0], probe.merges[0]["frames"][1])
+    r16 = region_psnr("bf16_340x600", first, dev)
+    r32 = region_psnr("driver_340x600", first, dev)
+    print(f"[bf16_340x600] first-submap PSNR on the pixels with x, y < "
+          f"{EXACT_BF16} / on the rest: bf16 {r16[0]:.4f} / {r16[1]:.4f}, "
+          f"phase 6's f32 {r32[0]:.4f} / {r32[1]:.4f}")
+    for launches, label in ((small, "48x64"), (full, "340x600")):
+        for name in BF16_PATH:
+            check(launches.get(name, 0) > 0,
+                  f"phase 11b {label}: {name} never launched")
+        for name in ("raster_forward_stash", "raster_backward_stash",
+                     "raster_forward", "raster_backward"):
+            check(launches.get(name, 0) == 0,
+                  f"phase 11b {label}: the f32 {name} launched")
+    print(f"[bf16_340x600] {probe.fps:.3f} frames/s against phase 6's f32 "
+          f"{fps_f32:.3f} in this call")
+    return small, full
+
+
+def phase_scripts(dev):
+    """Phase 11c: eval_nvs, gen_video and keyframe_overlap on phase 6's
+    saved scene."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.camera import camera_from_intrinsics
+    from gaus_slam_tpu_torch.ops.geometry import points_from_depth
+    from gaus_slam_tpu_torch.ops.se3 import invert_se3, transform_points
+    from gaus_slam_tpu_torch.scripts import eval_nvs, gen_video
+    from gaus_slam_tpu_torch.utils import gif, viz
+    from gaus_slam_tpu_torch.utils.keyframe_selection import (
+        keyframe_overlap, points_overlap)
+
+    scene = os.path.join(out_dir("driver_340x600"), "scene")
+    t0 = time.perf_counter()
+    r0 = eval_nvs.evaluate(scene, pose_refine=False, frames=range(0, 30, 6))
+    t1 = time.perf_counter()
+    r1 = eval_nvs.evaluate(scene, frames=range(0, 30, 6))
+    t2 = time.perf_counter()
+    print(f"[eval_nvs] without refinement {json.dumps(r0)} ({t1 - t0:.1f} "
+          f"s); with {json.dumps(r1)} ({t2 - t1:.1f} s)")
+    for r in (r0, r1):
+        for k in ("NVS PSNR", "NVS MS-SSIM", "NVS Depth L1"):
+            check(np.isfinite(r[k]), f"phase 11c: eval_nvs {k} {r[k]}")
+    check(r1["NVS PSNR"] >= r0["NVS PSNR"] - 0.1,
+          f"phase 11c: pose refinement lowered NVS PSNR from "
+          f"{r0['NVS PSNR']} to {r1['NVS PSNR']}")
+
+    captured = []
+    write = viz.frames_to_video
+
+    def spy(frames, path, fps=30):
+        captured.append([np.asarray(f) for f in frames])
+        return write(frames, path, fps)
+
+    viz.frames_to_video = spy
+    try:
+        for argv in ([scene, "--stride", "2"],
+                     [scene, "--mesh", "--n_frames", "8"]):
+            t0 = time.perf_counter()
+            path = gen_video.main(argv)
+            secs = time.perf_counter() - t0
+            frames = captured[-1]
+            check(path.endswith(".gif"), f"phase 11c: gen_video wrote "
+                  f"{path}, not the port's GIF")
+            _, idx = gif.read_gif(path)
+            want = np.stack([gif.quantize(np.clip(f * 255, 0, 255).astype(
+                np.uint8)) for f in frames])
+            same = idx.shape == want.shape and bool((idx == want).all())
+            print(f"[gen_video] {' '.join(argv[1:])}: {len(frames)} frames "
+                  f"of {frames[0].shape}, {os.path.getsize(path)} bytes in "
+                  f"{path}, {secs:.1f} s; decoded == quantized frames: "
+                  f"{same}")
+            check(same, f"phase 11c: {path} does not decode to its frames")
+            check(float(np.stack(frames).max()) > 0.1,
+                  f"phase 11c: gen_video {argv[1:]} rendered black frames")
+    finally:
+        viz.frames_to_video = write
+
+    from gaus_slam_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(height=H, width=W, num_frames=30)
+    _, depth, k, c2w = ds[6]
+    kfs = np.stack([np.linalg.inv(ds[i][3]) for i in (0, 3, 9, 12, 20, 29)])
+    # frame 6's valid pixels back-projected once (on the CPU), scored
+    # against six keyframe poses on the card and on the CPU
+    cpu = torch.device("cpu")
+    cam = camera_from_intrinsics(H, W, k, np.eye(4), device=cpu)
+    dep = torch.as_tensor(np.asarray(depth, np.float32).squeeze())
+    w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32)
+    pts_w = transform_points(invert_se3(w2c), points_from_depth(
+        dep, cam).reshape(-1, 3)[(dep > 0).reshape(-1)])
+    n_pts = int(pts_w.shape[0])
+    kf_t = torch.as_tensor(kfs, dtype=torch.float32)
+    sums = [points_overlap(pts_w.to(d), kf_t.to(d), cam, H, W).cpu()
+            for d in (dev, cpu)]
+    sampled = keyframe_overlap(dep.to(dev), w2c.to(dev), cam,
+                               kf_t.to(dev)).cpu()
+    gap = float((sums[0] - sums[1]).abs().max())
+    print(f"[keyframe_overlap] exact overlaps over {n_pts} points, card "
+          f"{sums[0].tolist()}, CPU {sums[1].tolist()} (equal: "
+          f"{bool(torch.equal(sums[0], sums[1]))}); sampled on the card "
+          f"{sampled.tolist()}")
+    check(gap <= 1.0 / n_pts, f"phase 11c: points_overlap on the card and "
+          f"on the CPU differ by {gap}, more than one point of {n_pts}")
+    check(float((sampled - sums[0]).abs().max()) < 0.05,
+          "phase 11c: keyframe_overlap's 1600 draws stray from the exact "
+          "overlap")
+
+
+def phase_microbench(dev):
+    """Phase 11d: tools/microbench.py at its defaults."""
+    from gaus_slam_tpu_torch.tools import microbench
+
+    t0 = time.perf_counter()
+    ms = microbench.main([])
+    print(f"[microbench] ms per stage {json.dumps(ms)} ({time.perf_counter() - t0:.1f} s)")
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()) and
+          len(ms) == len(microbench.STAGES), "phase 11d: a stage failed")
+
+
 def main() -> int:
     try:
         import torch
@@ -2675,6 +3279,13 @@ def main() -> int:
         stream_launches = phase_streams(cfg, ds, lms, dev, card)
         ba_launches = phase_sharded_ba(cfg, ds, lms, capacity, dev, card)
         mp_launches = phase_pipelined(dev, card, probe.fps)
+        numbers_bf16, numbers_bf16_3dgs = phase_bf16_kernels(
+            ds, sys_cfg, capacity, dev, card)
+        numbers.update(numbers_bf16)
+        numbers_3dgs.update(numbers_bf16_3dgs)
+        bf16_small, bf16_full = phase_bf16_driver(dev, probe.fps)
+        phase_scripts(dev)
+        phase_microbench(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2684,12 +3295,16 @@ def main() -> int:
               "8": disk_launches, "9b 48x64": small_3dgs,
               "9b 340x600": full_3dgs, "9c": splatam_launches,
               "9d": densify_launches, "10a": stream_launches,
-              "10b": ba_launches, **mp_launches}
+              "10b": ba_launches, **mp_launches, "11b 48x64": bf16_small,
+              "11b 340x600": bf16_full}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase
         # 6) for K1-K4, the reference backend (3b) for K5, K6's entry (7)
+        # the bf16 instantiations: the driver with the bf16 compute dtype
+        # at full width (11b)
         main_path = ("6" if name in STASH_PATH else
+                     "11b 340x600" if name in BF16_PATH else
                      "3b" if name == "raster_backward" else "7")
         kernels.append({"name": name, "id": kid, "route": "cuda",
                         "source": src, "replaces": replaces,

@@ -18,6 +18,9 @@
 // tests build it with g++ and hold its forward, stash, kexit and
 // hand-derived gradient to the plain PyTorch versions (torch.autograd for
 // the gradient), so the kernels' arithmetic is checked without a card.
+// Every entry point has a _bf16 twin that runs the compute type BF16
+// (raster_common.cuh's bf16_round is PyTorch's and __float2bfloat16_rn's
+// rounding, done on the bits), for the bf16 compute dtype.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC
 //       -o libpixel_math_host.so pixel_math_host.cpp   (one command)
@@ -31,11 +34,13 @@ using namespace gs;
 constexpr int WARPS = P / 32;
 
 // stage_block: the block, with the walks' cull radii in row RHO_ROW
+template <class CT>
 static void stage(float* sa, const float* attrs, int64_t R, int64_t gstart) {
   for (int c = 0; c < ATTR_C; ++c)
     for (int j = 0; j < CHUNK; ++j)
-      sa[c * CHUNK + j] = c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
-                                       : attrs[c * R + gstart + j];
+      sa[c * CHUNK + j] = c == RHO_ROW
+                              ? rho_cull<CT>(attrs[17 * R + gstart + j])
+                              : attrs[c * R + gstart + j];
 }
 
 // The kernel's warp_reduce_scatter over 32 simulated lanes: v[lane][slot]
@@ -54,7 +59,7 @@ static void warp_reduce_scatter_lanes(float (*v)[RS_SLOTS], float* out) {
   for (int lane = 0; lane < 32; ++lane) out[lane] = v[lane][0];
 }
 
-template <bool USE_SA, bool NN>
+template <bool USE_SA, bool NN, class CT>
 static void forward_tile(int i, const float* attrs, int R, const int* ids,
                          const int* ts, const int* te, const int* soff,
                          int tiles_x, bool want_stash, int stash_rows,
@@ -75,18 +80,18 @@ static void forward_tile(int i, const float* attrs, int R, const int* ids,
       for (int p = 0; p < P; ++p)
         store_stash(stash + ((int64_t)(soff[i] + k) * STASH_C) * P + p, P,
                     s[p]);
-    stage(sa.data(), attrs, R, gstart);
+    stage<CT>(sa.data(), attrs, R, gstart);
     for (int p = 0; p < P; ++p)
-      composite_block<USE_SA, NN>(s[p], sa.data(), (int)gstart, tw.start,
-                                  tw.stop, pixel_x(t, tiles_x, p),
-                                  pixel_y(t, tiles_x, p));
+      composite_block<USE_SA, NN, CT>(s[p], sa.data(), (int)gstart, tw.start,
+                                      tw.stop, CT::r(pixel_x(t, tiles_x, p)),
+                                      CT::r(pixel_y(t, tiles_x, p)));
   }
   if (want_stash) kexit[i] = k;
   for (int p = 0; p < P; ++p)
     store_out<USE_SA>(out + (int64_t)i * OUT_C * P + p, P, s[p]);
 }
 
-template <bool USE_SA, bool NN>
+template <bool USE_SA, bool NN, class CT>
 static void backward_tile(int i, const float* attrs, int R, const int* ids,
                           const int* ts, const int* te, const int* soff,
                           const int* kexit, const float* stash, int stash_rows,
@@ -107,17 +112,17 @@ static void backward_tile(int i, const float* attrs, int R, const int* ids,
   for (int p = 0; p < P; ++p) {
     const int64_t row = (int64_t)i * OUT_C * P + p;
     c[p] = cot_from_out<USE_SA>(saved_out + row, d_out + row, P);
-    px[p] = pixel_x(t, tiles_x, p);
-    py[p] = pixel_y(t, tiles_x, p);
+    px[p] = CT::r(pixel_x(t, tiles_x, p));
+    py[p] = CT::r(pixel_y(t, tiles_x, p));
   }
   const int K = swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows);
   for (int k = K - 1; k >= 0; --k) {
     const int gstart = (tw.blk0 + k) * CHUNK;
-    stage(sa.data(), attrs, R, gstart);
+    stage<CT>(sa.data(), attrs, R, gstart);
     for (int p = 0; p < P; ++p) {
       s[p] = state_from_stash(
           stash + ((int64_t)(soff[i] + k) * STASH_C) * P + p, P);
-      bi[p] = block_info<USE_SA>(s[p], sa.data(), gstart, tw.start, tw.stop,
+      bi[p] = block_info<USE_SA, CT>(s[p], sa.data(), gstart, tw.start, tw.stop,
                                  px[p], py[p], p, rec.data(), mask[p],
                                  n_rec[p]);
       n_lo[p] = n_rec[p] > REC_CAP ? n_rec[p] - REC_CAP : 0;
@@ -139,11 +144,11 @@ static void backward_tile(int i, const float* attrs, int R, const int* ids,
             const int n = --n_rec[p];
             if (n < n_lo[p]) {
               n_lo[p] = n + 1 > REC_CAP ? n + 1 - REC_CAP : 0;
-              refill_records<USE_SA>(s[p], sa.data(), gstart, tw.start,
-                                     tw.stop, px[p], py[p], p, mask[p],
-                                     n_lo[p], n + 1, rec.data());
+              refill_records<USE_SA, CT>(s[p], sa.data(), gstart, tw.start,
+                                         tw.stop, px[p], py[p], p, mask[p],
+                                         n_lo[p], n + 1, rec.data());
             }
-            pair_grad<USE_SA, NN>(sa.data(), j, g0 + jj, tw.start, tw.stop,
+            pair_grad<USE_SA, NN, CT>(sa.data(), j, g0 + jj, tw.start, tw.stop,
                                   px[p], py[p], s[p].T, s[p].done < 0.5f,
                                   bi[p], c[p], get_rec(rec.data(), n, p),
                                   rc[p], v[lane]);
@@ -166,36 +171,67 @@ static void backward_tile(int i, const float* attrs, int R, const int* ids,
   }
 }
 
-extern "C" void host_raster_forward(const float* attrs, int R, const int* ids,
-                                    const int* ts, const int* te,
-                                    const int* soff, int n_sub, int tiles_x,
-                                    int use_sa, int nn, int want_stash,
-                                    int stash_rows, float* out, float* stash,
-                                    int* kexit) {
+template <class CT>
+static void raster_forward_ct(const float* attrs, int R, const int* ids,
+                              const int* ts, const int* te, const int* soff,
+                              int n_sub, int tiles_x, int use_sa, int nn,
+                              int want_stash, int stash_rows, float* out,
+                              float* stash, int* kexit) {
   for (int i = 0; i < n_sub; ++i) {
-#define GS_CALL(SA, N) forward_tile<SA, N>(i, attrs, R, ids, ts, te, soff, \
-    tiles_x, want_stash != 0, stash_rows, out, stash, kexit)
+#define GS_CALL(SA, N) forward_tile<SA, N, CT>(i, attrs, R, ids, ts, te,  \
+    soff, tiles_x, want_stash != 0, stash_rows, out, stash, kexit)
     if (use_sa) { if (nn) GS_CALL(true, true); else GS_CALL(true, false); }
     else { if (nn) GS_CALL(false, true); else GS_CALL(false, false); }
 #undef GS_CALL
   }
 }
 
-extern "C" void host_raster_backward(const float* attrs, int R, const int* ids,
-                                     const int* ts, const int* te,
-                                     const int* soff, const int* kexit,
-                                     const float* stash, int stash_rows,
-                                     const float* saved_out,
-                                     const float* d_out, int n_sub,
-                                     int tiles_x, int use_sa, int nn,
-                                     float* d_attrs) {
+template <class CT>
+static void raster_backward_ct(const float* attrs, int R, const int* ids,
+                               const int* ts, const int* te, const int* soff,
+                               const int* kexit, const float* stash,
+                               int stash_rows, const float* saved_out,
+                               const float* d_out, int n_sub, int tiles_x,
+                               int use_sa, int nn, float* d_attrs) {
   for (int i = 0; i < n_sub; ++i) {
-#define GS_CALL(SA, N) backward_tile<SA, N>(i, attrs, R, ids, ts, te, soff, \
-    kexit, stash, stash_rows, saved_out, d_out, tiles_x, d_attrs)
+#define GS_CALL(SA, N) backward_tile<SA, N, CT>(i, attrs, R, ids, ts, te, \
+    soff, kexit, stash, stash_rows, saved_out, d_out, tiles_x, d_attrs)
     if (use_sa) { if (nn) GS_CALL(true, true); else GS_CALL(true, false); }
     else { if (nn) GS_CALL(false, true); else GS_CALL(false, false); }
 #undef GS_CALL
   }
+}
+
+#define GS_FORWARD_ARGS                                                     \
+  const float *attrs, int R, const int *ids, const int *ts, const int *te, \
+      const int *soff, int n_sub, int tiles_x, int use_sa, int nn,         \
+      int want_stash, int stash_rows, float *out, float *stash, int *kexit
+#define GS_FORWARD_PASS                                                    \
+  attrs, R, ids, ts, te, soff, n_sub, tiles_x, use_sa, nn, want_stash,    \
+      stash_rows, out, stash, kexit
+#define GS_BACKWARD_ARGS                                                    \
+  const float *attrs, int R, const int *ids, const int *ts, const int *te, \
+      const int *soff, const int *kexit, const float *stash,               \
+      int stash_rows, const float *saved_out, const float *d_out,          \
+      int n_sub, int tiles_x, int use_sa, int nn, float *d_attrs
+#define GS_BACKWARD_PASS                                                   \
+  attrs, R, ids, ts, te, soff, kexit, stash, stash_rows, saved_out, d_out, \
+      n_sub, tiles_x, use_sa, nn, d_attrs
+
+extern "C" void host_raster_forward(GS_FORWARD_ARGS) {
+  raster_forward_ct<F32>(GS_FORWARD_PASS);
+}
+
+extern "C" void host_raster_forward_bf16(GS_FORWARD_ARGS) {
+  raster_forward_ct<BF16>(GS_FORWARD_PASS);
+}
+
+extern "C" void host_raster_backward(GS_BACKWARD_ARGS) {
+  raster_backward_ct<F32>(GS_BACKWARD_PASS);
+}
+
+extern "C" void host_raster_backward_bf16(GS_BACKWARD_ARGS) {
+  raster_backward_ct<BF16>(GS_BACKWARD_PASS);
 }
 
 // K5 on the CPU: for every tile of the grid (tile i = ids i), the
@@ -214,12 +250,12 @@ extern "C" void host_raster_backward_restash(const float* attrs, int R,
   std::vector<float> out((int64_t)n_tiles * OUT_C * P);
   for (int i = 0; i < n_tiles; ++i) {
 #define GS_CALL(SA, N)                                                      \
-    forward_tile<SA, N>(i, attrs, R, ids.data(), ts, te, soff, tiles_x,    \
-                        true, stash_rows, out.data(), stash, kexit.data(),  \
-                        true);                                              \
-    backward_tile<SA, N>(i, attrs, R, ids.data(), ts, te, soff,            \
-                         kexit.data(), stash, stash_rows, saved_out, d_out, \
-                         tiles_x, d_attrs)
+    forward_tile<SA, N, F32>(i, attrs, R, ids.data(), ts, te, soff,        \
+                             tiles_x, true, stash_rows, out.data(), stash, \
+                             kexit.data(), true);                          \
+    backward_tile<SA, N, F32>(i, attrs, R, ids.data(), ts, te, soff,       \
+                              kexit.data(), stash, stash_rows, saved_out,  \
+                              d_out, tiles_x, d_attrs)
     if (use_sa) { if (nn) { GS_CALL(true, true); } else { GS_CALL(true, false); } }
     else { if (nn) { GS_CALL(false, true); } else { GS_CALL(false, false); } }
 #undef GS_CALL
@@ -254,24 +290,25 @@ extern "C" void host_cot_from_out(const float* saved_out, const float* d_out,
 // out[0] (pair, pixel) evaluations, out[1] culled, out[2] culled yet
 // passing the alpha test (none may), out[3] the most pairs of one block
 // that pass it for one pixel (a live pixel's records), for the tests.
-extern "C" void host_cull_counts(const float* attrs, int R, const int* ids,
-                                 const int* ts, const int* te, int n_sub,
-                                 int tiles_x, long long* out) {
+template <class CT>
+static void cull_counts(const float* attrs, int R, const int* ids,
+                        const int* ts, const int* te, int n_sub, int tiles_x,
+                        long long* out) {
   std::vector<float> sa(ATTR_C * CHUNK);
   out[0] = out[1] = out[2] = out[3] = 0;
   for (int i = 0; i < n_sub; ++i) {
     const TileWalk tw = tile_walk(ts[i], te[i], R);
     for (int k = 0; k < tw.nblk; ++k) {
       const int gstart = (tw.blk0 + k) * CHUNK;
-      stage(sa.data(), attrs, R, gstart);
+      stage<CT>(sa.data(), attrs, R, gstart);
       for (int p = 0; p < P; ++p) {
         long long touched = 0;
         for (int j = 0; j < CHUNK; ++j) {
-          const float px = pixel_x(ids[i], tiles_x, p);
-          const float py = pixel_y(ids[i], tiles_x, p);
+          const float px = CT::r(pixel_x(ids[i], tiles_x, p));
+          const float py = CT::r(pixel_y(ids[i], tiles_x, p));
           Geom g;
-          pair_geom(sa.data(), j, px, py, g);
-          const bool culled = pair_culled(sa.data(), j, px, py);
+          pair_geom<CT>(sa.data(), j, px, py, g);
+          const bool culled = pair_culled<CT>(sa.data(), j, px, py);
           const int gi = gstart + j;
           const bool ok = pair_ok(g, gi >= tw.start && gi < tw.stop, true);
           out[0] += 1;
@@ -283,4 +320,22 @@ extern "C" void host_cull_counts(const float* attrs, int R, const int* ids,
       }
     }
   }
+}
+
+extern "C" void host_cull_counts(const float* attrs, int R, const int* ids,
+                                 const int* ts, const int* te, int n_sub,
+                                 int tiles_x, long long* out) {
+  cull_counts<F32>(attrs, R, ids, ts, te, n_sub, tiles_x, out);
+}
+
+extern "C" void host_cull_counts_bf16(const float* attrs, int R,
+                                      const int* ids, const int* ts,
+                                      const int* te, int n_sub, int tiles_x,
+                                      long long* out) {
+  cull_counts<BF16>(attrs, R, ids, ts, te, n_sub, tiles_x, out);
+}
+
+// bf16_round over n floats, for the tests (against PyTorch's rounding).
+extern "C" void host_bf16_round(const float* in, float* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = bf16_round(in[i]);
 }

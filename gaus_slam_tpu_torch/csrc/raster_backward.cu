@@ -33,6 +33,14 @@
 // forward's output and the loss cotangent in the kernel (cot_from_out).
 // T_pref is recomputed as T_in * exp(cum), never by dividing by (1-a).
 //
+// The compute type CT (F32 or BF16, pallas_backward.py:344's
+// compute_dtype) is a template flag: under BF16 the first pass, the
+// re-runs and pair_grad's recompute repeat K1-BF16's rounded chain bit for
+// bit (the same pair_step), and the vjp runs in float32 on those
+// bf16-rounded values (the JAX kernel rounds every cotangent to bf16 as
+// it differentiates its bf16 chain; K2-BF16 does not, so the two agree
+// to a tolerance, not to bits). K5 has no compute type: it runs F32.
+//
 // Per-pair sum over the 256 pixels: a warp reduce-scatter (31 shuffles,
 // lane q ends with row q's warp sum; a warp whose lanes all miss the pair
 // skips it), then the 8 warp partials of a round are summed in shared
@@ -88,7 +96,7 @@ constexpr size_t SWEEP_SMEM = sizeof(float) * (SM_SA + SM_REC + SM_PART);
 // The reverse sweep of one CTA over blocks K-1 .. 0 of its tile (K2 and
 // K5): block k's incoming carry comes from stash row soff + k; c enters
 // as the cotangent of the tile's final pixel state.
-template <bool USE_SA, bool NN>
+template <bool USE_SA, bool NN, class CT>
 __device__ __forceinline__ void reverse_sweep(
     float* smem, const float* __restrict__ attrs, int R, const TileWalk& tw,
     int K, const float* stash, int soff, float px, float py,
@@ -103,15 +111,15 @@ __device__ __forceinline__ void reverse_sweep(
     const int gstart = (tw.blk0 + k) * CHUNK;
     const float* srow = stash + ((int64_t)(soff + k) * STASH_C) * P + p;
     __syncthreads();
-    stage_block(sa, attrs, R, gstart);
+    stage_block<CT>(sa, attrs, R, gstart);
     const PixState s = state_from_stash(srow, P);
     const float T_in = s.T;
     const bool live = s.done < 0.5f;
     __syncthreads();
     StepMask mask;
     int n_rec;
-    const BlockInfo bi = block_info<USE_SA>(s, sa, gstart, start, stop, px,
-                                            py, p, rec, mask, n_rec);
+    const BlockInfo bi = block_info<USE_SA, CT>(s, sa, gstart, start, stop,
+                                                px, py, p, rec, mask, n_rec);
     // the ring holds records n_lo .. n_rec - 1 (per-thread columns: no
     // barrier)
     int n_lo = n_rec > REC_CAP ? n_rec - REC_CAP : 0;
@@ -136,12 +144,13 @@ __device__ __forceinline__ void reverse_sweep(
           const int n = --n_rec;
           if (n < n_lo) {
             n_lo = n + 1 > REC_CAP ? n + 1 - REC_CAP : 0;
-            refill_records<USE_SA>(state_from_stash(srow, P), sa, gstart,
-                                   start, stop, px, py, p, mask, n_lo, n + 1,
-                                   rec);
+            refill_records<USE_SA, CT>(state_from_stash(srow, P), sa, gstart,
+                                       start, stop, px, py, p, mask, n_lo,
+                                       n + 1, rec);
           }
-          pair_grad<USE_SA, NN>(sa, j, g0 + jj, start, stop, px, py, T_in,
-                                live, bi, c, get_rec(rec, n, p), rc, gv);
+          pair_grad<USE_SA, NN, CT>(sa, j, g0 + jj, start, stop, px, py,
+                                    T_in, live, bi, c, get_rec(rec, n, p), rc,
+                                    gv);
         } else {
 #pragma unroll
           for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
@@ -167,7 +176,7 @@ __device__ __forceinline__ void reverse_sweep(
   }
 }
 
-template <bool USE_SA, bool NN>
+template <bool USE_SA, bool NN, class CT>
 __global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_kernel(
     const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids, const int* __restrict__ tstart,
     const int* __restrict__ tstop, const int* __restrict__ soff,
@@ -183,10 +192,10 @@ __global__ void __launch_bounds__(P, MIN_BLOCKS) raster_backward_kernel(
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
   const int64_t row = (int64_t)i * OUT_C * P + p;
   const Cot c = cot_from_out<USE_SA>(saved_out + row, d_out + row, P);
-  reverse_sweep<USE_SA, NN>(
+  reverse_sweep<USE_SA, NN, CT>(
       smem, attrs, R, tw, swept_blocks(kexit[i], tw.nblk, soff[i], stash_rows),
-      stash, soff[i], pixel_x(t, tiles_x, p), pixel_y(t, tiles_x, p), c,
-      d_attrs);
+      stash, soff[i], CT::r(pixel_x(t, tiles_x, p)),
+      CT::r(pixel_y(t, tiles_x, p)), c, d_attrs);
 }
 
 // K5's re-forward: each block's incoming carry into the global scratch
@@ -204,7 +213,7 @@ __global__ void __launch_bounds__(P) raster_reforward_kernel(
   const int p = threadIdx.x;
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
   PixState s = init_state();
-  const int k = forward_walk<true, USE_SA, NN>(
+  const int k = forward_walk<true, USE_SA, NN, F32>(
       s, sa, attrs, R, tw, reforward_blocks(tw.nblk), pixel_x(i, tiles_x, p),
       pixel_y(i, tiles_x, p), stash, soff[i], stash_rows);
   if (p == 0) {
@@ -231,19 +240,22 @@ extern "C" int raster_backward(const float* attrs, int R, const int* tile_ids,
                                const float* stash, int stash_rows,
                                const float* saved_out, const float* d_out,
                                int n_sub, int tiles_x, int use_sa,
-                               int need_normal, float* d_attrs,
+                               int need_normal, int bf16, float* d_attrs,
                                cudaStream_t stream) {
   if (n_sub <= 0) return (int)cudaGetLastError();
   cudaError_t err;
-#define GS_LAUNCH(SA, N)                                                    \
-  err = launch_sweep(raster_backward_kernel<SA, N>, n_sub, stream, attrs,   \
-                     R, tile_ids, tile_start, tile_stop, soff, kexit, stash, \
-                     stash_rows, saved_out, d_out, tiles_x, d_attrs)
+#define GS_LAUNCH(SA, N, CT)                                                \
+  err = launch_sweep(raster_backward_kernel<SA, N, CT>, n_sub, stream,      \
+                     attrs, R, tile_ids, tile_start, tile_stop, soff, kexit, \
+                     stash, stash_rows, saved_out, d_out, tiles_x, d_attrs)
+#define GS_BY_CT(SA, N) \
+  if (bf16) GS_LAUNCH(SA, N, BF16); else GS_LAUNCH(SA, N, F32)
   if (use_sa) {
-    if (need_normal) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+    if (need_normal) { GS_BY_CT(true, true); } else { GS_BY_CT(true, false); }
   } else {
-    if (need_normal) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
+    if (need_normal) { GS_BY_CT(false, true); } else { GS_BY_CT(false, false); }
   }
+#undef GS_BY_CT
 #undef GS_LAUNCH
   return (int)err;
 }
@@ -266,7 +278,7 @@ extern "C" int raster_backward_restash(const float* attrs, int R,
       kexit, ids);                                                          \
   err = cudaGetLastError();                                                 \
   if (err == cudaSuccess)                                                   \
-    err = launch_sweep(raster_backward_kernel<SA, N>, n_tiles, stream,      \
+    err = launch_sweep(raster_backward_kernel<SA, N, F32>, n_tiles, stream, \
                        attrs, R, (const int*)ids, tile_start,               \
                        tile_stop, soff, (const int*)kexit,                  \
                        (const float*)stash, stash_rows, saved_out, d_out,   \

@@ -31,10 +31,24 @@
 // `inline` there): csrc/pixel_math_host.cpp runs the same per-pixel math,
 // range clamps and stash guards on the CPU so the CPU tests hold them to
 // torch.autograd without a card.
+//
+// The compute type CT of the per-pair chain (tpu.compute_dtype) is a
+// template parameter of every function of the walk: F32, or BF16, which
+// is the JAX package's bf16 compute dtype (compositing.py's bf16 branch
+// there). BF16 computes each op in float32 from bf16 values and rounds
+// its result to bf16 (CT::r, round to nearest even), at the points
+// ops/compositing.py's docstring lists; the sums, the pixel state and
+// the vjp stay float32. It is plain float arithmetic with a rounding
+// after each op, never a fused bf16 multiply-add (__hfma fuses where the
+// chain rounds twice), so K2's recompute repeats K1's bf16 values bit for
+// bit as it does in F32. F32's r is the identity: its instantiation
+// computes what it did before CT existed, bit for bit.
 #pragma once
 #include <cstdint>
+#include <cstring>
 #include <math.h>
 #if defined(__CUDACC__)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #define GS_FN __device__ __forceinline__
 #else
@@ -63,6 +77,47 @@ constexpr float ALPHA_MAX = (float)0.99;
 constexpr float T_EPS = (float)1e-4;
 constexpr float M_SCALE = (float)(100.0 / (100.0 - 0.2));  // FAR/(FAR-NEAR)
 
+// float -> nearest bf16 (ties to even), as a float: cvt.rn.bf16.f32 on
+// the card; on the host the same rounding of the bits (PyTorch's, and
+// __float2bfloat16_rn's: a NaN stays a NaN, an overflow goes to inf).
+GS_FN float bf16_round(float x) {
+#if defined(__CUDA_ARCH__)
+  return __bfloat162float(__float2bfloat16_rn(x));
+#else
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return x;
+  u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+// The compute types. r rounds an op's result; the constants are those
+// the chain's arithmetic reads (bf16 values under BF16, as the JAX chain
+// reads its python scalars); comparisons use the float32 constants above,
+// which give the same answer for every bf16 value.
+struct F32 {
+  static constexpr bool IS_BF16 = false;
+  static GS_FN float r(float x) { return x; }
+  static constexpr float ALPHA_MAX = gs::ALPHA_MAX;
+  static constexpr float NEAR = NEAR_N;
+  static constexpr float M_SCALE = gs::M_SCALE;
+  static constexpr float D_MIN = (float)1e-6;
+  static constexpr float DENOM_MIN = (float)1e-12;
+};
+
+struct BF16 {
+  static constexpr bool IS_BF16 = true;
+  static GS_FN float r(float x) { return bf16_round(x); }
+  static constexpr float ALPHA_MAX = 0.98828125f;          // bf16(0.99)
+  static constexpr float NEAR = 0.2001953125f;             // bf16(0.2)
+  static constexpr float M_SCALE = 1.0f;                   // bf16(M_SCALE)
+  static constexpr float D_MIN = 9.98377799987793e-07f;    // bf16(1e-6)
+  static constexpr float DENOM_MIN = 1.0018652574217413e-12f;  // bf16(1e-12)
+  static constexpr float S_MAX = 9984.0f;                  // bf16(1e4)
+};
+
 struct PixState {
   float T, done, r, g, b, nx, ny, nz, D, D2, M1, M2, dist, mm, nc, mc;
 };
@@ -75,39 +130,58 @@ GS_FN PixState init_state() {
   return s;
 }
 
-// Attribute c of block-local pair j; the block is staged as sa[c][j].
+// Attribute c of block-local pair j; the block is staged as sa[c][j]
+// (float32; under BF16 rounded as it is read).
+template <class CT = F32>
 GS_FN float A(const float* sa, int c, int j) {
-  return sa[c * CHUNK + j];
+  return CT::r(sa[c * CHUNK + j]);
 }
 
 struct Geom {
   float p_x, p_y, p_z, inv_pz, sx, sy, rho3d, rho2d, dx, dy, d_raw, gauss;
   float alpha_raw, a_cl;
   bool pz_ok, use3d;
+  bool clx, cly;  // BF16: sx / sy clamped to +-S_MAX (no gradient through)
 };
 
+// Under BF16, px and py are the bf16-rounded pixel coordinates.
+template <class CT>
 GS_FN void pair_geom(const float* sa, int j, float px,
                                           float py, Geom& g) {
-  g.p_x = px * A(sa, 0, j) + py * A(sa, 3, j) + A(sa, 6, j);
-  g.p_y = px * A(sa, 1, j) + py * A(sa, 4, j) + A(sa, 7, j);
-  g.p_z = px * A(sa, 2, j) + py * A(sa, 5, j) + A(sa, 8, j);
+  const auto r = [](float x) { return CT::r(x); };
+  g.p_x = r(r(r(px * A<CT>(sa, 0, j)) + r(py * A<CT>(sa, 3, j))) +
+            A<CT>(sa, 6, j));
+  g.p_y = r(r(r(px * A<CT>(sa, 1, j)) + r(py * A<CT>(sa, 4, j))) +
+            A<CT>(sa, 7, j));
+  g.p_z = r(r(r(px * A<CT>(sa, 2, j)) + r(py * A<CT>(sa, 5, j))) +
+            A<CT>(sa, 8, j));
   g.pz_ok = g.p_z != 0.f;
-  g.inv_pz = (g.pz_ok ? 1.f : 0.f) / (g.pz_ok ? g.p_z : 1.f);
-  g.sx = g.p_x * g.inv_pz;
-  g.sy = g.p_y * g.inv_pz;
-  g.rho3d = g.sx * g.sx + g.sy * g.sy;
-  g.dx = A(sa, 12, j) - px;
-  g.dy = A(sa, 13, j) - py;
-  g.rho2d = FILTER_INV_SQUARE * (g.dx * g.dx + g.dy * g.dy);
+  g.inv_pz = r((g.pz_ok ? 1.f : 0.f) / (g.pz_ok ? g.p_z : 1.f));
+  g.sx = r(g.p_x * g.inv_pz);
+  g.sy = r(g.p_y * g.inv_pz);
+  g.clx = g.cly = false;
+  if (CT::IS_BF16) {
+    // the JAX bf16 chain clamps sx, sy (compositing.py:159-160 there); a
+    // NaN stays a NaN, as through clip
+    g.clx = fabsf(g.sx) > BF16::S_MAX;
+    g.cly = fabsf(g.sy) > BF16::S_MAX;
+    if (g.clx) g.sx = copysignf(BF16::S_MAX, g.sx);
+    if (g.cly) g.sy = copysignf(BF16::S_MAX, g.sy);
+  }
+  g.rho3d = r(r(g.sx * g.sx) + r(g.sy * g.sy));
+  g.dx = r(A<CT>(sa, 12, j) - px);
+  g.dy = r(A<CT>(sa, 13, j) - py);
+  g.rho2d = r(FILTER_INV_SQUARE * r(r(g.dx * g.dx) + r(g.dy * g.dy)));
   const float rho = fminf(g.rho3d, g.rho2d);
-  const float d3 = g.sx * A(sa, 9, j) + g.sy * A(sa, 10, j) + A(sa, 11, j);
+  const float d3 = r(r(r(g.sx * A<CT>(sa, 9, j)) + r(g.sy * A<CT>(sa, 10, j))) +
+                     A<CT>(sa, 11, j));
   g.use3d = g.rho3d <= g.rho2d;
-  g.d_raw = g.use3d ? d3 : A(sa, 11, j);
-  g.gauss = expf(-0.5f * rho);
-  g.alpha_raw = A(sa, 17, j) * g.gauss;
+  g.d_raw = g.use3d ? d3 : A<CT>(sa, 11, j);
+  g.gauss = r(expf(-0.5f * rho));
+  g.alpha_raw = r(A<CT>(sa, 17, j) * g.gauss);
   // min(alpha, 0.99) written as the JAX version writes it (the clamp's
   // gradient passes through)
-  g.a_cl = g.alpha_raw - fmaxf(g.alpha_raw - ALPHA_MAX, 0.f);
+  g.a_cl = r(g.alpha_raw - r(fmaxf(r(g.alpha_raw - CT::ALPHA_MAX), 0.f)));
 }
 
 GS_FN bool pair_ok(const Geom& g, bool valid, bool live) {
@@ -118,9 +192,10 @@ GS_FN bool pair_ok(const Geom& g, bool valid, bool live) {
 // SA fusion weight (detached in the gradient): conf of a pair with
 // prefix transmittance t, exclusive raw-depth statistics (dp, d2p) and
 // the block's median target mt.
+template <class CT>
 GS_FN float sa_conf(float t, float dp, float d2p,
                                          float mt, float d_raw) {
-  const float denom = fmaxf(1.f - t, (float)1e-12);
+  const float denom = fmaxf(CT::r(1.f - t), CT::DENOM_MIN);
   float exp_std = (d2p - 2.f * dp * mt) / denom + mt * mt;
   exp_std = fmaxf(exp_std, (float)1e-7);
   const float e = mt - d_raw;
@@ -128,18 +203,32 @@ GS_FN float sa_conf(float t, float dp, float d2p,
   return (t > 0.5f || dp <= 0.f) ? 1.f : conf;
 }
 
+template <class CT>
 GS_FN float dist_m(float d_raw) {
-  return M_SCALE * (1.f - NEAR_N / fmaxf(d_raw, (float)1e-6));
+  const auto r = [](float x) { return CT::r(x); };
+  return r(CT::M_SCALE * r(1.f - r(CT::NEAR / fmaxf(d_raw, CT::D_MIN))));
 }
 
 // The walks stage, in the slab's first pad row, each pair's cull
 // radius: the rho beyond which op * exp(-rho / 2) < ALPHA_MIN, widened
 // by a relative and an absolute 2^-10, far above float rounding; -1 for
 // a pair that no pixel can accept (op < ALPHA_MIN; exp(-rho / 2) <= 1).
+// Under BF16 the radius is that of the bf16 opacity op_b against the
+// chain's rounded alpha: a pair passes only if bf16(op_b * g) >=
+// ALPHA_MIN with g = bf16(exp(-rho / 2)); each of the two roundings takes
+// at most 2^-8 relative, so passing needs exp(-rho / 2) >= ALPHA_MIN /
+// (op_b (1 + 2^-8)^2), rho <= 2 ln(op_b / ALPHA_MIN) + 0.0157: the
+// absolute margin is 2^-5. op_b < ALPHA_MIN passes nowhere (g <= 1).
 constexpr int RHO_ROW = GRAD_C;
 
+template <class CT>
 GS_FN float rho_cull(float op) {
   const float m = 1.f / 1024.f;
+  if (CT::IS_BF16) {
+    const float ob = CT::r(op);
+    return ob < ALPHA_MIN ? -1.f
+                          : 2.f * logf(ob / ALPHA_MIN) * (1.f + m) + 1.f / 32.f;
+  }
   return op < ALPHA_MIN ? -1.f : 2.f * logf(op / ALPHA_MIN) * (1.f + m) + m;
 }
 
@@ -150,8 +239,25 @@ GS_FN float rho_cull(float op) {
 // it leaves Run as it was (SA's prefixes add 0 * d_raw, which is 0
 // whenever the pair's geometry is finite), so the first pass (K1's and
 // the backward's) skips its geometry altogether.
+// Under BF16 the rounding of the coordinates and of every op of the
+// chain moves rho by far more than the f32 radius's margin (a pixel
+// coordinate past 256 rounds to an even number), so the test compares the
+// chain's own rounded rho2d, then rho3d (pair_geom's values, bit for bit),
+// with the bf16 radius: the cull is exact up to that radius's margin, and
+// culls only what the chain's own alpha test rejects.
+template <class CT>
 GS_FN bool pair_culled(const float* sa, int j, float px, float py) {
-  const float lim = A(sa, RHO_ROW, j);
+  const float lim = sa[RHO_ROW * CHUNK + j];
+  if (CT::IS_BF16) {
+    const auto r = [](float x) { return CT::r(x); };
+    const float dx = r(A<CT>(sa, 12, j) - px);
+    const float dy = r(A<CT>(sa, 13, j) - py);
+    if (!(r(FILTER_INV_SQUARE * r(r(dx * dx) + r(dy * dy))) > lim))
+      return false;
+    Geom g;
+    pair_geom<CT>(sa, j, px, py, g);
+    return g.rho3d > lim;
+  }
   const float dx = A(sa, 12, j) - px;
   const float dy = A(sa, 13, j) - py;
   if (!(FILTER_INV_SQUARE * (dx * dx + dy * dy) > lim)) return false;
@@ -209,28 +315,31 @@ struct Step {
   float l, T_pref, w;
 };
 
-template <bool USE_SA>
+// T_in is the block's incoming transmittance (under BF16 rounded to
+// bf16 by the caller, as the chain rounds it before its product).
+template <bool USE_SA, class CT>
 GS_FN Step pair_step(const float* sa, int j, int gi, int start, int stop,
                      float px, float py, float T_in, bool live, Run& run) {
+  const auto r = [](float x) { return CT::r(x); };
   Step st;
-  pair_geom(sa, j, px, py, st.g);
+  pair_geom<CT>(sa, j, px, py, st.g);
   st.okf = pair_ok(st.g, gi >= start && gi < stop, live);
   const float a_eff = st.okf ? st.g.a_cl : 0.f;
-  st.l = log1pf(-a_eff);
-  st.T_pref = T_in * expf(run.cum);
+  st.l = r(log1pf(-a_eff));
+  st.T_pref = r(T_in * r(expf(r(run.cum))));
   run.cum = run.cum + st.l;
-  st.below = st.T_pref * (1.f - a_eff) < T_EPS;
+  st.below = r(st.T_pref * r(1.f - a_eff)) < T_EPS;
   st.af = st.okf && !st.below;
-  st.w = st.af ? st.g.a_cl * st.T_pref : 0.f;
+  st.w = st.af ? r(st.g.a_cl * st.T_pref) : 0.f;
   if (USE_SA) {
-    const float wd = st.w * st.g.d_raw;
+    const float wd = r(st.w * st.g.d_raw);
     run.p1 = run.p1 + wd;
-    run.p2 = run.p2 + wd * st.g.d_raw;
+    run.p2 = run.p2 + r(wd * st.g.d_raw);
   } else if (st.af) {
-    const float m = dist_m(st.g.d_raw);
-    const float mw = m * st.w;
+    const float m = dist_m<CT>(st.g.d_raw);
+    const float mw = r(m * st.w);
     run.p1 = run.p1 + mw;
-    run.p2 = run.p2 + m * mw;
+    run.p2 = run.p2 + r(m * mw);
   }
   return st;
 }
@@ -294,22 +403,27 @@ GS_FN int mask_next(const StepMask& m, int j) {
 //    was (SA's prefixes would add 0 * d_raw, which is +0 for the finite
 //    depth of a culled pair; a pair with NaN in it is never culled);
 //  * every pair after the trigger (an okf pair whose inclusive product
-//    T_pref * (1 - a) fell below T_EPS). cum has taken the trigger's l,
-//    and cum only falls, so a later okf pair has T_pref at most
-//    T_in * exp(cum) just past the trigger, which is the trigger's
-//    T_pref * (1 - a) < T_EPS up to float rounding (a few ulp of exp and
-//    log1p, about 1e-6 relative); its own (1 - a) <= 1 - ALPHA_MIN takes
-//    0.39% off that, far more than the rounding, so it is below too: no
-//    later pair is accepted.
+//    T_pref * (1 - a) fell below T_EPS), under F32 only. cum has taken
+//    the trigger's l, and cum only falls, so a later okf pair has T_pref
+//    at most T_in * exp(cum) just past the trigger, which is the
+//    trigger's T_pref * (1 - a) < T_EPS up to float rounding (a few ulp
+//    of exp and log1p, about 1e-6 relative); its own (1 - a) <= 1 -
+//    ALPHA_MIN takes 0.39% off that, far more than the rounding, so it is
+//    below too: no later pair is accepted. Under BF16 the chain rounds
+//    cum, exp, T_in, their product, 1 - a and the test's product, each by
+//    up to 2^-9, more than that 0.39% together: a later pair can pass the
+//    test (the card's phase-2 map showed it), so BF16 walks on.
 // A warp whose lanes all skip a pair, or have all left the block, skips it
 // as a whole (a uniform branch). SA's fusion weights need the block's
 // final median, so a second pass re-runs pair_step over the step mask
 // only: the pairs it skips leave run2 as it was and add nothing to Dacc /
 // D2acc, so the sums come out as over the whole block, bit for bit.
-template <bool USE_SA, bool NN>
+template <bool USE_SA, bool NN, class CT>
 GS_FN void composite_block(PixState& s, const float* sa, int gstart,
                            int start, int stop, float px, float py) {
+  const auto r = [](float x) { return CT::r(x); };
   const float T_in = s.T;
+  const float T_in_c = r(T_in);
   const bool live = s.done < 0.5f;
   const int idx_base = gstart - start + 1;
   Run run = run_init<USE_SA>(s);
@@ -325,11 +439,11 @@ GS_FN void composite_block(PixState& s, const float* sa, int gstart,
   for (int j = 0; j < CHUNK; ++j) {
     const int gi = gstart + j;
     if (gi < start || gi >= stop) continue;
-    if (FWD_SKIP && !(live && !trig)) break;
-    if (FWD_SKIP && pair_culled(sa, j, px, py)) continue;
+    if (FWD_SKIP && !(live && (CT::IS_BF16 || !trig))) break;
+    if (FWD_SKIP && pair_culled<CT>(sa, j, px, py)) continue;
     const Run pre = run;
-    const Step st = pair_step<USE_SA>(sa, j, gi, start, stop, px, py, T_in,
-                                      live, run);
+    const Step st = pair_step<USE_SA, CT>(sa, j, gi, start, stop, px, py,
+                                          T_in_c, live, run);
     trig = trig || (st.okf && st.below);
     if (st.okf || run.p1 != pre.p1 || run.p2 != pre.p2) mask_set(mask, j);
     if (!st.af) continue;
@@ -338,24 +452,24 @@ GS_FN void composite_block(PixState& s, const float* sa, int gstart,
     const float gidx = (float)(idx_base + j);
     if (st.T_pref > 0.5f) { med_idx = gidx; mm_new = d; }
     nc_blk = gidx;
-    racc = racc + A(sa, 18, j) * w;
-    gacc = gacc + A(sa, 19, j) * w;
-    bacc = bacc + A(sa, 20, j) * w;
+    racc = racc + A<CT>(sa, 18, j) * w;
+    gacc = gacc + A<CT>(sa, 19, j) * w;
+    bacc = bacc + A<CT>(sa, 20, j) * w;
     if (NN) {
-      nxacc = nxacc + A(sa, 14, j) * w;
-      nyacc = nyacc + A(sa, 15, j) * w;
-      nzacc = nzacc + A(sa, 16, j) * w;
+      nxacc = nxacc + A<CT>(sa, 14, j) * w;
+      nyacc = nyacc + A<CT>(sa, 15, j) * w;
+      nzacc = nzacc + A<CT>(sa, 16, j) * w;
     }
     if (!USE_SA) {
       // pre.p1, pre.p2: the exclusive M1, M2 prefixes
-      const float m = dist_m(d);
-      const float mw = m * w;
-      dist_add = dist_add +
-                 (m * m * (1.f - st.T_pref) + pre.p2 - 2.f * m * pre.p1) * w;
+      const float m = dist_m<CT>(d);
+      const float mw = r(m * w);
+      dist_add = dist_add + (r(r(m * m) * r(1.f - st.T_pref)) + pre.p2 -
+                             2.f * m * pre.p1) * w;
       m1_add = m1_add + mw;
-      m2_add = m2_add + m * mw;
-      Dacc = Dacc + d * w;
-      D2acc = D2acc + d * d * w;
+      m2_add = m2_add + r(m * mw);
+      Dacc = Dacc + r(d * w);
+      D2acc = D2acc + r(r(d * d) * w);
     }
   }
   const float mm_out = med_idx > 0.f ? mm_new : s.mm;
@@ -368,11 +482,11 @@ GS_FN void composite_block(PixState& s, const float* sa, int gstart,
       const int gi = gstart + j;
       if (gi < start || gi >= stop) continue;
       const Run pre = run2;
-      const Step st = pair_step<true>(sa, j, gi, start, stop, px, py, T_in,
-                                      live, run2);
+      const Step st = pair_step<true, CT>(sa, j, gi, start, stop, px, py,
+                                          T_in_c, live, run2);
       if (st.af) {
         const float conf =
-            sa_conf(st.T_pref, pre.p1, pre.p2, mm_out, st.g.d_raw);
+            sa_conf<CT>(st.T_pref, pre.p1, pre.p2, mm_out, st.g.d_raw);
         const float df = conf * st.g.d_raw + (1.f - conf) * mm_out;
         Dacc = Dacc + df * st.w;
         D2acc = D2acc + df * df * st.w;
@@ -454,11 +568,12 @@ GS_FN Run get_rec(const float* rec, int n, int p) {
 // A pair outside the tile's range, or culled for the pixel, is skipped:
 // neither touches the pixel nor moves its Run. `sa` holds the cull radii
 // (stage_block).
-template <bool USE_SA>
+template <bool USE_SA, class CT>
 GS_FN BlockInfo block_info(const PixState& s, const float* sa, int gstart,
                            int start, int stop, float px, float py, int p,
                            float* rec, StepMask& mask, int& n_rec) {
   const float T_in = s.T;
+  const float T_in_c = CT::r(T_in);
   const bool live = s.done < 0.5f;
   const int idx_base = gstart - start + 1;
   Run run = run_init<USE_SA>(s);
@@ -468,10 +583,10 @@ GS_FN BlockInfo block_info(const PixState& s, const float* sa, int gstart,
 #pragma unroll 1
   for (int j = 0; j < CHUNK; ++j) {
     const int gi = gstart + j;
-    if (gi < start || gi >= stop || pair_culled(sa, j, px, py)) continue;
+    if (gi < start || gi >= stop || pair_culled<CT>(sa, j, px, py)) continue;
     const Run pre = run;
-    const Step st = pair_step<USE_SA>(sa, j, gi, start, stop, px, py, T_in,
-                                      live, run);
+    const Step st = pair_step<USE_SA, CT>(sa, j, gi, start, stop, px, py,
+                                          T_in_c, live, run);
     if (st.okf || run.p1 != pre.p1 || run.p2 != pre.p2) {
       mask_set(mask, j);
       put_rec(rec, n++, p, pre);
@@ -497,11 +612,11 @@ GS_FN BlockInfo block_info(const PixState& s, const float* sa, int gstart,
 // re-run from its start (the stashed carry s) over the pairs of the step
 // mask only. The pairs it skips leave Run as it was, so the records
 // equal the first pass's values bit for bit (up to a zero's sign).
-template <bool USE_SA>
+template <bool USE_SA, class CT>
 GS_FN void refill_records(const PixState& s, const float* sa, int gstart,
                           int start, int stop, float px, float py, int p,
                           const StepMask& mask, int lo, int hi, float* rec) {
-  const float T_in = s.T;
+  const float T_in = CT::r(s.T);
   const bool live = s.done < 0.5f;
   Run run = run_init<USE_SA>(s);
   int n = 0;
@@ -509,7 +624,8 @@ GS_FN void refill_records(const PixState& s, const float* sa, int gstart,
   for (int j = 0; j < CHUNK && n < hi; ++j) {
     if (!mask_test(mask, j)) continue;
     if (n >= lo) put_rec(rec, n, p, run);
-    pair_step<USE_SA>(sa, j, gstart + j, start, stop, px, py, T_in, live, run);
+    pair_step<USE_SA, CT>(sa, j, gstart + j, start, stop, px, py, T_in, live,
+                          run);
     ++n;
   }
 }
@@ -522,32 +638,39 @@ GS_FN void refill_records(const PixState& s, const float* sa, int gstart,
 // (okf); a pair that did not contributes exactly zero. The geometry and
 // the accept decision repeat the forward's roundings; the vjp arithmetic
 // itself rounds once per fused multiply-add (fmaf), which the library's
-// -fmad=false leaves alone.
-template <bool USE_SA, bool NN>
+// -fmad=false leaves alone. Under BF16 the vjp is that same float32
+// arithmetic on the forward's bf16-rounded values (the JAX package
+// differentiates its bf16 chain, rounding each cotangent to bf16): the
+// derivative of each rounding is taken as 1, and sx / sy clamped to
+// +-S_MAX pass no gradient, as the JAX chain's clip.
+template <bool USE_SA, bool NN, class CT>
 GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
                      float px, float py, float T_in, bool live,
                      const BlockInfo& bi, const Cot& c, const Run& r,
                      RevCarry& rc, float* gv) {
+  const auto rd = [](float x) { return CT::r(x); };
   for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
   Geom g;
-  pair_geom(sa, j, px, py, g);
+  pair_geom<CT>(sa, j, px, py, g);
   if (!pair_ok(g, gi >= start && gi < stop, live)) return false;
   const float a_eff = g.a_cl;
-  const float e = expf(r.cum);
-  const float T_pref = T_in * e;
-  const bool af = !(T_pref * (1.f - a_eff) < T_EPS);
-  const float w = af ? g.a_cl * T_pref : 0.f;
+  const float e = rd(expf(rd(r.cum)));
+  const float T_pref = rd(rd(T_in) * e);
+  const bool af = !(rd(T_pref * rd(1.f - a_eff)) < T_EPS);
+  const float w = af ? rd(g.a_cl * T_pref) : 0.f;
   float g_acl = 0.f, g_draw = 0.f, g_Tpref = 0.f;
   if (af) {
     // w = a_cl * T_pref feeds colors, normals, D, D2 (and M1, M2, dist)
-    float g_w = fmaf(c.b, A(sa, 20, j),
-                     fmaf(c.g, A(sa, 19, j), c.r * A(sa, 18, j)));
+    float g_w = fmaf(c.b, A<CT>(sa, 20, j),
+                     fmaf(c.g, A<CT>(sa, 19, j), c.r * A<CT>(sa, 18, j)));
     if (NN)
-      g_w = fmaf(c.nz, A(sa, 16, j),
-                 fmaf(c.ny, A(sa, 15, j), fmaf(c.nx, A(sa, 14, j), g_w)));
+      g_w = fmaf(c.nz, A<CT>(sa, 16, j),
+                 fmaf(c.ny, A<CT>(sa, 15, j),
+                      fmaf(c.nx, A<CT>(sa, 14, j), g_w)));
     if (USE_SA) {
       // d_fused = conf*d_raw + (1-conf)*mm_tgt, conf and mm_tgt detached
-      const float conf = sa_conf(T_pref, r.p1, r.p2, bi.mm_out, g.d_raw);
+      const float conf =
+          sa_conf<CT>(T_pref, r.p1, r.p2, bi.mm_out, g.d_raw);
       const float df = fmaf(conf, g.d_raw, (1.f - conf) * bi.mm_out);
       g_w = fmaf(c.D2, df * df, fmaf(c.D, df, g_w));
       g_draw = conf * (w * fmaf(2.f * c.D2, df, c.D));
@@ -557,9 +680,9 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
       g_draw = w * fmaf(2.f * c.D2, d, c.D);
       // dist = sum_i (m_i^2 A_i + M2p_i - 2 m_i M1p_i) w_i with the
       // exclusive prefixes M1p, M2p (the record) and A_i = 1 - T_pref_i
-      const float m = dist_m(d);
-      const float m2 = m * m;
-      const float Ap = 1.f - T_pref;
+      const float m = dist_m<CT>(d);
+      const float m2 = rd(m * m);
+      const float Ap = rd(1.f - T_pref);
       const float own = fmaf(m2, Ap, fmaf(-2.f * m, r.p1, r.p2));
       const float later = fmaf(m2, rc.S_w, -2.f * m * rc.S_wm);
       g_w = fmaf(c.dist, own + later, fmaf(c.M2, m2, fmaf(c.M1, m, g_w)));
@@ -567,8 +690,8 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
           w * fmaf(2.f * c.dist, fmaf(m, Ap + rc.S_w, -r.p1) - rc.S_wm,
                    fmaf(2.f * m, c.M2, c.M1));
       g_Tpref = -(c.dist * m2 * w);
-      if (d > (float)1e-6)
-        g_draw = fmaf(g_m, (M_SCALE * NEAR_N) / (d * d), g_draw);
+      if (d > CT::D_MIN)
+        g_draw = fmaf(g_m, (CT::M_SCALE * CT::NEAR) / (d * d), g_draw);
       rc.S_w += w;
       rc.S_wm = fmaf(w, m, rc.S_wm);
     }
@@ -591,7 +714,7 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   // alpha_raw = op * exp(-rho / 2), rho = min(rho3d, rho2d); the clamp
   // to ALPHA_MAX passes its gradient through, ties split it evenly
   gv[17] = g_acl * g.gauss;
-  const float g_rho = (g_acl * A(sa, 17, j)) * (g.gauss * -0.5f);
+  const float g_rho = (g_acl * A<CT>(sa, 17, j)) * (g.gauss * -0.5f);
   float g3, g2;
   if (g.rho3d < g.rho2d) { g3 = g_rho; g2 = 0.f; }
   else if (g.rho2d < g.rho3d) { g3 = 0.f; g2 = g_rho; }
@@ -600,10 +723,14 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   float g_sy = 2.f * g.sy * g3;
   // d_raw = rho3d <= rho2d ? sx*twx + sy*twy + twz : twz
   if (g.use3d) {
-    g_sx = fmaf(A(sa, 9, j), g_draw, g_sx);
-    g_sy = fmaf(A(sa, 10, j), g_draw, g_sy);
+    g_sx = fmaf(A<CT>(sa, 9, j), g_draw, g_sx);
+    g_sy = fmaf(A<CT>(sa, 10, j), g_draw, g_sy);
     gv[9] = g.sx * g_draw;
     gv[10] = g.sy * g_draw;
+  }
+  if (CT::IS_BF16) {
+    if (g.clx) g_sx = 0.f;
+    if (g.cly) g_sy = 0.f;
   }
   gv[11] = g_draw;
   // rho2d = 100 * ((cx - px)^2 + (cy - py)^2)
@@ -759,11 +886,12 @@ GS_FN float pixel_y(int t, int tiles_x, int p) {
 #if defined(__CUDACC__)
 // Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j],
 // with each pair's cull radius in row RHO_ROW (padding in the slab).
+template <class CT>
 __device__ __forceinline__ void stage_block(float* sa, const float* attrs,
                                             int64_t R, int64_t gstart) {
   for (int e = threadIdx.x; e < ATTR_C * CHUNK; e += blockDim.x) {
     const int c = e / CHUNK, j = e % CHUNK;
-    sa[e] = c == RHO_ROW ? rho_cull(attrs[17 * R + gstart + j])
+    sa[e] = c == RHO_ROW ? rho_cull<CT>(attrs[17 * R + gstart + j])
                          : attrs[c * R + gstart + j];
   }
 }
@@ -801,7 +929,7 @@ __device__ __forceinline__ void stage_async(float* sa, const float* attrs,
 // radii (the pad row RHO_ROW) once block k is composited. With STASH,
 // each block's incoming carry goes to stash row soff + k (rows past
 // stash_rows are skipped). Returns the number of blocks composited.
-template <bool STASH, bool USE_SA, bool NN>
+template <bool STASH, bool USE_SA, bool NN, class CT>
 __device__ __forceinline__ int forward_walk(
     PixState& s, float* sa, const float* __restrict__ attrs, int R,
     const TileWalk& tw, int nblk, float px, float py, float* stash,
@@ -810,7 +938,8 @@ __device__ __forceinline__ int forward_walk(
   const int64_t g0 = (int64_t)tw.blk0 * CHUNK;
   if (nblk > 0) {
     stage_async(sa, attrs, R, g0);
-    if (p < CHUNK) sa[RHO_ROW * CHUNK + p] = rho_cull(attrs[17 * R + g0 + p]);
+    if (p < CHUNK)
+      sa[RHO_ROW * CHUNK + p] = rho_cull<CT>(attrs[17 * R + g0 + p]);
   }
   int k = 0;
   for (; k < nblk; ++k) {
@@ -832,9 +961,9 @@ __device__ __forceinline__ int forward_walk(
     if (more) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    composite_block<USE_SA, NN>(s, cur, (int)gstart, tw.start, tw.stop, px,
-                                py);
-    if (more && p < CHUNK) nxt[RHO_ROW * CHUNK + p] = rho_cull(op_next);
+    composite_block<USE_SA, NN, CT>(s, cur, (int)gstart, tw.start, tw.stop,
+                                    px, py);
+    if (more && p < CHUNK) nxt[RHO_ROW * CHUNK + p] = rho_cull<CT>(op_next);
   }
   // a walk that stopped early leaves block k + 1's copies in flight
   asm volatile("cp.async.wait_all;\n" ::: "memory");

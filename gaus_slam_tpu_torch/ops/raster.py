@@ -13,6 +13,10 @@ render buffer [n_sub, OUT_C, P] out, as a ``torch.autograd.Function``.
     (tile-local windows, no stash) on every device, and the backward is
     K5 on a CUDA tensor (its plain version on the CPU). All tiles only:
     tile subsets are refused, as the JAX package asserts.
+
+``RenderSettings.compute_dtype`` ("f32" or "bf16") is the dtype of the
+stash path's per-pair chain; the reference backend ignores it, as in the
+JAX package (its compositor and K5 take none).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ class RenderSettings(NamedTuple):
     use_sa: bool = True
     backend: str = "pallas"  # pallas | interpret | reference
     need_normal: bool = True  # gate normal accumulation + its grad paths
+    compute_dtype: str = "f32"  # f32 | bf16: the stash path's pair chain
 
 
 class _RenderPairs(torch.autograd.Function):
@@ -40,7 +45,8 @@ class _RenderPairs(torch.autograd.Function):
     def forward(ctx, pair_attrs, tile_start, tile_stop, tile_ids, settings,
                 grad_mode):
         kw = dict(grid=settings.grid, use_sa=settings.use_sa,
-                  need_normal=settings.need_normal, tile_ids=tile_ids)
+                  need_normal=settings.need_normal, tile_ids=tile_ids,
+                  compute_dtype=settings.compute_dtype)
         ctx.settings = settings
         if not (grad_mode and ctx.needs_input_grad[0]):
             # no gradient wanted: the forward without stash (K3)
@@ -59,7 +65,8 @@ class _RenderPairs(torch.autograd.Function):
         d_attrs = raster_backward_stash(
             pair_attrs, tile_start, tile_stop, stash, kexit, out,
             d_out.contiguous(), grid=s.grid, use_sa=s.use_sa,
-            need_normal=s.need_normal, tile_ids=tile_ids)
+            need_normal=s.need_normal, tile_ids=tile_ids,
+            compute_dtype=s.compute_dtype)
         return d_attrs, None, None, None, None, None
 
 

@@ -19,6 +19,12 @@ laid out as K1's, then runs K2's reverse sweep over it. On the card the
 two phases are two kernels of raster_backward.cu launched by one C call,
 on the CPU ``raster_backward_plain``. Its forward (``composite_ref.render_tiles``)
 has no per-tile cap, so a tile with more than 64k pairs would differ.
+
+K2 takes ``compute_dtype`` as K1 does; "bf16" launches its bf16
+instantiation (counted as ``raster_backward_stash_bf16``), whose
+recompute repeats K1-bf16's roundings and whose vjp runs in float32 on
+those bf16-rounded values (csrc/raster_backward.cu). K5, as in the JAX
+package, takes no dtype.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from .binning import TileGrid
 from .compositing import ATTR_C, OUT_C, PixelState, composite_chunk
 from .composite_ref import tile_pixel_coords
 from .raster_forward import (CHUNK, STASH_C, _aligned, _check_inputs,
-                             _default_ids, raster_forward_plain,
+                             _default_ids, dtype_of, raster_forward_plain,
                              stash_offsets, stash_rows)
 
 # Blocks K5's re-forward visits per tile at most (64k pairs), as the TPU
@@ -78,9 +84,15 @@ def _state_from_stash(rows: torch.Tensor) -> PixelState:
 
 def raster_backward_stash_plain(pair_attrs, tile_start, tile_stop, stash,
                                 kexit, saved_out, d_out, *, grid: TileGrid,
-                                use_sa=True, need_normal=True, tile_ids=None):
+                                use_sa=True, need_normal=True, tile_ids=None,
+                                compute_dtype: str = "f32",
+                                f32_vjp: bool = False):
     """Plain PyTorch version of K2: vjp of composite_chunk per block in
-    reverse, block k of every tile with k < kexit in one batched call."""
+    reverse, block k of every tile with k < kexit in one batched call.
+    ``f32_vjp`` (under "bf16"): differentiate in float32 on the rounded
+    forward values, as K2-bf16 does, instead of through bf16 tensors
+    (composite_chunk)."""
+    cdt = dtype_of(compute_dtype)
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev)
@@ -109,7 +121,8 @@ def raster_backward_stash_plain(pair_attrs, tile_start, tile_stop, stash,
         with torch.enable_grad():
             new = composite_chunk(state_in, attrs, px[idx], py[idx], idx_base,
                                   valid[..., None].float(), use_sa=use_sa,
-                                  need_normal=need_normal)
+                                  need_normal=need_normal, dtype=cdt,
+                                  f32_vjp=f32_vjp)
             outs, gouts = [], []
             for f, gf in zip(new, d_state):
                 if f.requires_grad:
@@ -128,13 +141,15 @@ def raster_backward_stash_plain(pair_attrs, tile_start, tile_stop, stash,
 
 def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
                           saved_out, d_out, *, grid: TileGrid, use_sa=True,
-                          need_normal=True, tile_ids=None):
+                          need_normal=True, tile_ids=None,
+                          compute_dtype: str = "f32"):
     """K2: d_attrs [ATTR_C, R]; rows of blocks no tile swept are 0."""
     if not pair_attrs.is_cuda:
         return raster_backward_stash_plain(
             pair_attrs, tile_start, tile_stop, stash, kexit, saved_out, d_out,
             grid=grid, use_sa=use_sa, need_normal=need_normal,
-            tile_ids=tile_ids)
+            tile_ids=tile_ids, compute_dtype=compute_dtype)
+    bf16 = dtype_of(compute_dtype) == torch.bfloat16
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev).contiguous()
@@ -155,15 +170,16 @@ def raster_backward_stash(pair_attrs, tile_start, tile_stop, stash, kexit,
     fn = _cuda.library("raster_backward").raster_backward
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    _cuda.LAUNCHES["raster_backward_stash"] += 1
+    name = "raster_backward_stash" + ("_bf16" if bf16 else "")
+    _cuda.LAUNCHES[name] += 1
     _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ids), _cuda.ptr(ts),
                    _cuda.ptr(te), _cuda.ptr(soff), _cuda.ptr(kex),
                    _cuda.ptr(stash), stash.shape[0], _cuda.ptr(out),
                    _cuda.ptr(dout), n_sub, grid.tiles_x, int(use_sa),
-                   int(need_normal), _cuda.ptr(d_attrs),
-                   _cuda.stream()), "raster_backward_stash")
+                   int(need_normal), int(bf16), _cuda.ptr(d_attrs),
+                   _cuda.stream()), name)
     return d_attrs
 
 

@@ -6,6 +6,12 @@ CPU: ``raster_forward_plain``, which walks every tile's 128-aligned
 global blocks through ``compositing.composite_chunk`` as ``_kernel_stash``
 does — block k of all still-live tiles in one batched call — and fills
 the stash and kexit the same way, honouring ``tile_ids``.
+
+``compute_dtype`` ("f32" or "bf16", ``tpu.compute_dtype``) picks the
+dtype of the per-pair chain (compositing.py's docstring lists where bf16
+rounds); the stash, kexit and the output stay float32. On the card
+"bf16" launches the kernels' bf16 instantiation, counted under names of
+its own (``raster_forward_stash_bf16``, ``raster_forward_bf16``).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from .composite_ref import tile_pixel_coords
 from .compositing import ATTR_C, OUT_C, composite_chunk, finalize, init_state
 
 CHUNK = 128
+COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # Rows of a stash entry: the block's incoming T, done, D, D2, M1, M2, mm,
 # padded to 8.
 STASH_C = 8
@@ -39,6 +46,15 @@ def stash_rows(r: int, num_tiles: int) -> int:
     """Static bound on total stash rows: the tile ranges partition the
     pair array, so sum(nblk) <= r/CHUNK + one boundary block per tile."""
     return r // CHUNK + num_tiles
+
+
+def dtype_of(compute_dtype: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name; ValueError for any
+    other name."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: one of "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[compute_dtype]
 
 
 def _check_inputs(pair_attrs, grid):
@@ -71,10 +87,12 @@ def _stack_stash(s):
 
 def raster_forward_plain(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
                          use_sa=True, need_normal=True, tile_ids=None,
-                         max_blocks: int | None = None):
+                         max_blocks: int | None = None,
+                         compute_dtype: str = "f32"):
     """Plain PyTorch version of K1. Returns (out [n_sub, OUT_C, P],
     stash [S, STASH_C, P], kexit [n_sub] int32); K3's output is ``out``.
     ``max_blocks`` caps the blocks a tile walks (K5's re-forward)."""
+    cdt = dtype_of(compute_dtype)
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev)
@@ -110,7 +128,7 @@ def raster_forward_plain(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
         idx_base = (b * CHUNK - start[idx] + 1)[:, None, None]
         new = composite_chunk(sub, blocks[b], px[idx], py[idx], idx_base,
                               valid[..., None].float(), use_sa=use_sa,
-                              need_normal=need_normal)
+                              need_normal=need_normal, dtype=cdt)
         state = type(state)(*(torch.index_put(f, (idx,), nf)
                               for f, nf in zip(state, new)))
         kexit[idx] += 1
@@ -119,7 +137,8 @@ def raster_forward_plain(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
 
 
 def _launch(pair_attrs, tile_start, tile_stop, grid, use_sa, need_normal,
-            tile_ids, want_stash):
+            tile_ids, want_stash, compute_dtype):
+    bf16 = dtype_of(compute_dtype) == torch.bfloat16
     r = _check_inputs(pair_attrs, grid)
     dev = pair_attrs.device
     ids = _default_ids(grid, tile_ids, dev).contiguous()
@@ -141,36 +160,42 @@ def _launch(pair_attrs, tile_start, tile_stop, grid, use_sa, need_normal,
         kexit = torch.empty((n_sub,), dtype=torch.int32, device=dev)
     fn = _cuda.library("raster_forward").raster_forward
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
-    name = "raster_forward_stash" if want_stash else "raster_forward"
+    name = ("raster_forward_stash" if want_stash else "raster_forward") + (
+        "_bf16" if bf16 else "")
     _cuda.LAUNCHES[name] += 1
     _cuda.check(fn(_cuda.ptr(attrs), r, _cuda.ptr(ids), _cuda.ptr(ts),
                    _cuda.ptr(te), _cuda.ptr(soff), n_sub, grid.tiles_x,
                    int(use_sa), int(need_normal), int(want_stash), n_rows,
+                   int(bf16),
                    _cuda.ptr(out), _cuda.ptr(stash), _cuda.ptr(kexit),
                    _cuda.stream()), name)
     return out, stash, kexit
 
 
 def raster_forward_stash(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
-                         use_sa=True, need_normal=True, tile_ids=None):
+                         use_sa=True, need_normal=True, tile_ids=None,
+                         compute_dtype: str = "f32"):
     """K1: (out [n_sub, OUT_C, P], stash [S, STASH_C, P], kexit [n_sub])."""
     if not pair_attrs.is_cuda:
         return raster_forward_plain(pair_attrs, tile_start, tile_stop,
                                     grid=grid, use_sa=use_sa,
-                                    need_normal=need_normal, tile_ids=tile_ids)
+                                    need_normal=need_normal, tile_ids=tile_ids,
+                                    compute_dtype=compute_dtype)
     return _launch(pair_attrs, tile_start, tile_stop, grid, use_sa,
-                   need_normal, tile_ids, True)
+                   need_normal, tile_ids, True, compute_dtype)
 
 
 def raster_forward(pair_attrs, tile_start, tile_stop, *, grid: TileGrid,
-                   use_sa=True, need_normal=True, tile_ids=None):
+                   use_sa=True, need_normal=True, tile_ids=None,
+                   compute_dtype: str = "f32"):
     """K3: tile-major render buffer [n_sub, OUT_C, P], no stash."""
     if not pair_attrs.is_cuda:
         return raster_forward_plain(pair_attrs, tile_start, tile_stop,
                                     grid=grid, use_sa=use_sa,
                                     need_normal=need_normal,
-                                    tile_ids=tile_ids)[0]
+                                    tile_ids=tile_ids,
+                                    compute_dtype=compute_dtype)[0]
     return _launch(pair_attrs, tile_start, tile_stop, grid, use_sa,
-                   need_normal, tile_ids, False)[0]
+                   need_normal, tile_ids, False, compute_dtype)[0]

@@ -53,13 +53,15 @@ class RenderOptions(NamedTuple):
     normals_in_tracking: bool = False  # loss.use_normal_loss
     method: str = "2dgs"          # "2dgs" surfels | "3dgs" volumetric
     iso3d: bool = False           # gaussian_distribution == isotropic
+    compute_dtype: str = "f32"    # tpu.compute_dtype: f32 | bf16
 
     def settings(self, need_normal: bool = True) -> RenderSettings:
         # surface-aware depth fusion is a feature of the 2DGS rasterizer;
         # the 3DGS method composites plain weighted depth
         return RenderSettings(grid=self.grid,
                               use_sa=self.use_sa and self.method == "2dgs",
-                              backend=self.backend, need_normal=need_normal)
+                              backend=self.backend, need_normal=need_normal,
+                              compute_dtype=self.compute_dtype)
 
     def r_max(self, n: int) -> int:
         if self.pair_cap > 0:

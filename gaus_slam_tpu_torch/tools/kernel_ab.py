@@ -28,7 +28,11 @@ two to six CTAs per SM asked of ptxas, with the skips and without.
 Checks, bit for bit: every K1 variant's out / stash / kexit against the
 old K1 on both cases, SA on and off, normals on and off (the variants that
 change values fail it by design); K3's out against K1's; K5's re-forward stash against K1's, K5's gradient against K2's, and
-the current K2 against the old. Times are CUDA events around 10 launches
+the current K2 against the old. The current kernels' bf16 instantiation
+(compute type BF16) has no old counterpart: every current K1 variant's
+bf16 out / stash / kexit against the current K1's on every case, K3-BF16's
+out against K1-BF16's, and K2-BF16 with and without the forward walk's
+skips; K1 / K3 / K2 in bf16 are timed beside the f32 ones. Times are CUDA events around 10 launches
 (K5: 5), rounds interleaved (forward, then reverse order), the median
 printed; the timed case is the full one, SA on, normals off, as phase 2
 times it. The last line is a JSON summary.
@@ -83,13 +87,14 @@ NEW_STAGE = [("    if (more) {\n      stage_async(",
 BOUNDS = "__global__ void __launch_bounds__(P) raster_forward_kernel("
 
 # appended to every copy of raster_forward.cu / raster_backward.cu: the
-# CTAs per SM of each instantiation, from the occupancy calculator
+# CTAs per SM of each instantiation (F32 where the kernels take a compute
+# type CT), from the occupancy calculator
 OCC_FWD = """
 extern "C" int ab_occupancy(int stash, int sa, int nn) {
   int n = -1;
 #define GS_OCC(S, A, N) if (stash == S && sa == A && nn == N) \\
   cudaOccupancyMaxActiveBlocksPerMultiprocessor( \\
-      &n, raster_forward_kernel<(S) != 0, (A) != 0, (N) != 0>, P, 0)
+      &n, raster_forward_kernel<(S) != 0, (A) != 0, (N) != 0 CT_ARG>, P, 0)
   GS_OCC(1, 1, 1); GS_OCC(1, 1, 0); GS_OCC(1, 0, 1); GS_OCC(1, 0, 0);
   GS_OCC(0, 1, 1); GS_OCC(0, 1, 0); GS_OCC(0, 0, 1); GS_OCC(0, 0, 0);
 #undef GS_OCC
@@ -99,22 +104,26 @@ extern "C" int ab_occupancy(int stash, int sa, int nn) {
 OCC_BWD = """
 extern "C" int ab_occupancy(int restash, int sa, int nn) {
   int n = -1;
+#define K5_KERNEL(A, N) K5_FIRST<A, N>
+#define SWEEP_KERNEL(A, N) raster_backward_kernel<A, N CT_ARG>
 #define GS_OCC(K, A, N, SMEM) if (sa == A && nn == N) { \\
-  cudaFuncSetAttribute(K<(A) != 0, (N) != 0>, \\
+  cudaFuncSetAttribute(K((A) != 0, (N) != 0), \\
                        cudaFuncAttributeMaxDynamicSharedMemorySize, \\
                        (int)SMEM); \\
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K<(A) != 0, (N) != 0>, \\
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K((A) != 0, (N) != 0), \\
                                                 P, SMEM); }
   if (restash) {
-    GS_OCC(K5_FIRST, 1, 1, K5_SMEM); GS_OCC(K5_FIRST, 1, 0, K5_SMEM);
-    GS_OCC(K5_FIRST, 0, 1, K5_SMEM); GS_OCC(K5_FIRST, 0, 0, K5_SMEM);
+    GS_OCC(K5_KERNEL, 1, 1, K5_SMEM); GS_OCC(K5_KERNEL, 1, 0, K5_SMEM);
+    GS_OCC(K5_KERNEL, 0, 1, K5_SMEM); GS_OCC(K5_KERNEL, 0, 0, K5_SMEM);
   } else {
-    GS_OCC(raster_backward_kernel, 1, 1, SWEEP_SMEM);
-    GS_OCC(raster_backward_kernel, 1, 0, SWEEP_SMEM);
-    GS_OCC(raster_backward_kernel, 0, 1, SWEEP_SMEM);
-    GS_OCC(raster_backward_kernel, 0, 0, SWEEP_SMEM);
+    GS_OCC(SWEEP_KERNEL, 1, 1, SWEEP_SMEM);
+    GS_OCC(SWEEP_KERNEL, 1, 0, SWEEP_SMEM);
+    GS_OCC(SWEEP_KERNEL, 0, 1, SWEEP_SMEM);
+    GS_OCC(SWEEP_KERNEL, 0, 0, SWEEP_SMEM);
   }
 #undef GS_OCC
+#undef SWEEP_KERNEL
+#undef K5_KERNEL
   return n;
 }
 """
@@ -124,11 +133,20 @@ extern "C" int ab_occupancy(int restash, int sa, int nn) {
 K5_SPLIT = "raster_reforward_kernel"
 
 
+# the kernels take a compute type (and their C functions a bf16 flag)
+CT_API = "class CT>"
+
+
+def occ_fwd(text):
+    return OCC_FWD.replace("CT_ARG", ", F32" if CT_API in text else "")
+
+
 def occ_bwd(text):
     split = K5_SPLIT in text
     return OCC_BWD.replace("K5_FIRST", K5_SPLIT if split else
                            "raster_backward_restash_kernel").replace(
-        "K5_SMEM", "0" if split else "SWEEP_SMEM")
+        "K5_SMEM", "0" if split else "SWEEP_SMEM").replace(
+        "CT_ARG", ", F32" if CT_API in text else "")
 
 
 def _patched(text, patches):
@@ -193,7 +211,8 @@ def variants(cur: Path, old: Path, flags):
     return {k: v for k, v in vs.items() if v is not None}
 
 
-ENTRY = re.compile(r"Compiling entry function '_Z\d+(\w+?)I((?:Lb[01]E)+)E")
+ENTRY = re.compile(r"Compiling entry function "
+                   r"'_Z\d+(\w+?)I((?:Lb[01]E)+)(?:N2gs\d+(\w+?)E)?E")
 REGS = re.compile(r"Used (\d+) registers")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
@@ -205,8 +224,9 @@ def ptxas_table(log):
     for line in log.splitlines():
         m = ENTRY.search(line)
         if m:
-            entry = m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E",
-                                                           m.group(2))) + ">"
+            entry = m.group(1) + "<" + ",".join(
+                re.findall(r"Lb([01])E", m.group(2))
+                + ([m.group(3)] if m.group(3) else [])) + ">"
             continue
         m = SPILL.search(line)
         if m:
@@ -228,15 +248,15 @@ def build(vs, out: Path, nvcc):
         d.mkdir(parents=True, exist_ok=True)
         for f, text in files.items():
             if f == main:
-                text += OCC_FWD if main == FWD else occ_bwd(text)
+                text += occ_fwd(text) if main == FWD else occ_bwd(text)
             (d / f).write_text(text)
         lib = d / "libk.so"
         procs[name] = (subprocess.Popen(
             [nvcc, *flags, "-o", str(lib), str(d / main)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
-            K5_SPLIT in files.get(BWD, ""))
+            K5_SPLIT in files.get(BWD, ""), CT_API in files[COM])
     libs = {}
-    for name, (p, lib, split) in procs.items():
+    for name, (p, lib, split, ct) in procs.items():
         log, _ = p.communicate()
         (out / f"{name}.ptxas.log").write_text(log)
         if p.returncode != 0:
@@ -245,7 +265,7 @@ def build(vs, out: Path, nvcc):
         print(f"[ab] {name}: " + "; ".join(
             f"{e} {r} regs, spill {s}/{l} B" for e, r, s, l in rows),
             flush=True)
-        libs[name] = (ctypes.CDLL(str(lib)), rows, split)
+        libs[name] = (ctypes.CDLL(str(lib)), rows, split, ct)
     return libs
 
 
@@ -352,7 +372,7 @@ def main(argv=None) -> int:
           flush=True)
     summary = {"card": card, "k1": {}, "k3": {}, "k5": {}, "k2": {},
                "ptxas": {}, "ctas_per_sm": {}}
-    for name, (lib, rows, _) in libs.items():
+    for name, (lib, rows, _, _) in libs.items():
         summary["ptxas"][name] = rows
         lib.ab_occupancy.argtypes = [ctypes.c_int] * 3
         if name.startswith("k1"):
@@ -374,7 +394,8 @@ def main(argv=None) -> int:
     P, I, V = _cuda.ptr, ctypes.c_int, ctypes.c_void_p
     tiles_x = opts.grid.tiles_x
 
-    def k1_call(lib, case, sa, nn, want_stash=True):
+    def k1_call(name, case, sa, nn, want_stash=True, bf16=False):
+        lib, _, _, ct = libs[name]
         pattrs, ts, te, ids = cases[case]
         n_sub, r = int(ts.shape[0]), int(pattrs.shape[1])
         ids = (torch.arange(n_sub, device=dev) if ids is None else ids) \
@@ -386,12 +407,14 @@ def main(argv=None) -> int:
         stash = torch.zeros((nrows, 8, 256), device=dev)
         kexit = torch.zeros((n_sub,), dtype=torch.int32, device=dev)
         fn = lib.raster_forward
-        fn.argtypes = [V, I] + [V] * 4 + [I] * 6 + [V] * 4
+        fn.argtypes = [V, I] + [V] * 4 + [I] * (7 if ct else 6) + [V] * 4
+        flag = [int(bf16)] if ct else []
+        assert ct or not bf16, name
 
         def run():
             rc = fn(P(pattrs), r, P(ids), P(ts32), P(te32), P(soff), n_sub,
-                    tiles_x, int(sa), int(nn), int(want_stash), nrows, P(out),
-                    P(stash), P(kexit), _cuda.stream())
+                    tiles_x, int(sa), int(nn), int(want_stash), nrows, *flag,
+                    P(out), P(stash), P(kexit), _cuda.stream())
             assert rc == 0, rc
             return out, stash, kexit
         return run
@@ -401,25 +424,39 @@ def main(argv=None) -> int:
 
     # bit-equality with the old K1 on every case (both cases, SA and
     # normals on and off), for every K1 variant, and of K3 with K1
-    k1o, k1n = libs["k1_old"][0], libs["k1_new"][0]
     combos = [(c, sa, nn) for c in cases for sa in (True, False)
               for nn in (False, True)]
-    refs = {cb: [x.clone() for x in k1_call(k1o, *cb)()] for cb in combos}
+    refs = {cb: [x.clone() for x in k1_call("k1_old", *cb)()]
+            for cb in combos}
+    refs16 = {cb: [x.clone() for x in k1_call("k1_new", *cb, bf16=True)()]
+              for cb in combos}
     eq = {}
     for cb in combos:
-        n = k1_call(k1n, *cb)()
-        k3 = k1_call(k1n, *cb, want_stash=False)()[0]
+        n = k1_call("k1_new", *cb)()
+        k3 = k1_call("k1_new", *cb, want_stash=False)()[0]
+        k3b = k1_call("k1_new", *cb, want_stash=False, bf16=True)()[0]
         tag = f"{cb[0]} sa={int(cb[1])} nn={int(cb[2])}"
         eq[tag] = dict(k1_equal_old=same(n, refs[cb]),
-                       k3_out_equal_k1=bool(torch.equal(k3, n[0])))
+                       k3_out_equal_k1=bool(torch.equal(k3, n[0])),
+                       k3_bf16_out_equal_k1_bf16=bool(
+                           torch.equal(k3b, refs16[cb][0])),
+                       bf16_differs_from_f32=not torch.equal(
+                           refs16[cb][0], n[0]))
         print(f"[ab] {tag}: {eq[tag]}", flush=True)
     summary["k1"]["equal"] = eq
-    for name, (lib, _, _) in libs.items():
+    for name, (_, _, _, ct) in libs.items():
         if name.startswith("k1"):
-            n_eq = sum(same(k1_call(lib, *cb)(), refs[cb]) for cb in combos)
+            n_eq = sum(same(k1_call(name, *cb)(), refs[cb]) for cb in combos)
             summary["k1"].setdefault(name, {})["cases_equal_old"] = n_eq
-            print(f"[ab] {name}: out / stash / kexit bit-equal to the old K1 "
-                  f"on {n_eq} of {len(combos)} cases", flush=True)
+            msg = (f"[ab] {name}: out / stash / kexit bit-equal to the old K1 "
+                   f"on {n_eq} of {len(combos)} cases")
+            if ct:
+                n16 = sum(same(k1_call(name, *cb, bf16=True)(), refs16[cb])
+                          for cb in combos)
+                summary["k1"][name]["bf16_cases_equal_new"] = n16
+                msg += (f"; in bf16, to the current K1-BF16 on {n16} of "
+                        f"{len(combos)}")
+            print(msg, flush=True)
 
     # K5's re-forward stash and gradient, the current K2 against the old
     pattrs, ts, te, _ = cases["full"]
@@ -433,21 +470,25 @@ def main(argv=None) -> int:
     d_out[:, :10] = torch.as_tensor(
         rng.normal(size=(n_sub, 10, 256)).astype(np.float32), device=dev)
 
-    def k2_call(lib, out, stash, kexit, sa):
+    def k2_call(name, out, stash, kexit, sa, bf16=False):
+        lib, _, _, ct = libs[name]
         fn = lib.raster_backward
-        fn.argtypes = [V, I] + [V] * 6 + [I] + [V] * 2 + [I] * 4 + [V] * 2
+        fn.argtypes = ([V, I] + [V] * 6 + [I] + [V] * 2
+                       + [I] * (5 if ct else 4) + [V] * 2)
+        flag = [int(bf16)] if ct else []
+        assert ct or not bf16, name
         g = torch.zeros((24, r), device=dev)
         kex = kexit.to(torch.int32).contiguous()
 
         def run():
             assert fn(P(pattrs), r, P(ids), P(ts32), P(te32), P(soff), P(kex),
                       P(stash), nrows, P(out), P(d_out), n_sub, tiles_x,
-                      int(sa), 0, P(g), _cuda.stream()) == 0
+                      int(sa), 0, *flag, P(g), _cuda.stream()) == 0
             return g
         return run
 
     def k5_call(name, out, sa):
-        lib, _, split = libs[name]
+        lib, _, split, _ = libs[name]
         fn = lib.raster_backward_restash
         # the split K5 takes a scratch kexit and tile ids after the stash
         fn.argtypes = ([V, I] + [V] * 4 + [I] + [V] * (4 if split else 2)
@@ -464,36 +505,46 @@ def main(argv=None) -> int:
             return g, scratch
         return run
 
-    b_old, b_new = libs["bwd_old"][0], libs["bwd_new"][0]
     for sa in (True, False):
-        out, stash, kexit = [x.clone() for x in k1_call(k1n, "full", sa, False)()]
-        g2n = k2_call(b_new, out, stash, kexit, sa)().clone()
-        g2o = k2_call(b_old, out, stash, kexit, sa)().clone()
+        out, stash, kexit = [x.clone() for x in
+                             k1_call("k1_new", "full", sa, False)()]
+        g2n = k2_call("bwd_new", out, stash, kexit, sa)().clone()
+        g2o = k2_call("bwd_old", out, stash, kexit, sa)().clone()
         g5, s5 = [x.clone() for x in k5_call("bwd_new", out, sa)()]
+        o16, s16, k16 = refs16[("full", sa, False)]
+        g16 = k2_call("bwd_new", o16, s16, k16, sa, bf16=True)().clone()
+        g16n = k2_call("bwd_new_no_skip", o16, s16, k16, sa, bf16=True)()
         tag = f"sa={int(sa)}"
         summary["k5"][tag] = dict(
             k5_stash_equal_k1=bool(torch.equal(s5, stash)),
             k5_grad_equal_k2=bool(torch.equal(g5, g2n)),
-            k2_equal_old=bool(torch.equal(g2n, g2o)))
+            k2_equal_old=bool(torch.equal(g2n, g2o)),
+            k2_bf16_equal_no_skip=bool(torch.equal(g16, g16n)))
         print(f"[ab] K5 / K2 full {tag}: {summary['k5'][tag]}", flush=True)
 
-    out, stash, kexit = [x.clone() for x in k1_call(k1n, "full", True, False)()]
+    out, stash, kexit = [x.clone() for x in
+                         k1_call("k1_new", "full", True, False)()]
+    o16, s16, k16 = refs16[("full", True, False)]
     print(f"[ab] case full: {n_sub} tiles, R {r}, pairs "
           f"{int((te - ts).clamp(min=0).sum())}, composited blocks "
           f"{int(kexit.sum())} (max {int(kexit.max())} per tile)", flush=True)
     summary["touch"] = touch_stats(pattrs, ts32, te32, stash, kexit, soff,
                                    opts.grid)
     kw = dict(grid=opts.grid, use_sa=True, need_normal=False)
-    runs = {name: k1_call(lib, "full", True, False)
-            for name, (lib, _, _) in libs.items() if name.startswith("k1")}
+    runs = {name: k1_call(name, "full", True, False)
+            for name in libs if name.startswith("k1")}
+    runs["k1_new_bf16"] = k1_call("k1_new", "full", True, False, bf16=True)
     runs["k1_wrapper"] = lambda: raster_forward_stash(pattrs, ts, te, **kw)
-    runs["k3_old"] = k1_call(k1o, "full", True, False, want_stash=False)
-    runs["k3_new"] = k1_call(k1n, "full", True, False, want_stash=False)
+    runs["k3_old"] = k1_call("k1_old", "full", True, False, want_stash=False)
+    runs["k3_new"] = k1_call("k1_new", "full", True, False, want_stash=False)
+    runs["k3_new_bf16"] = k1_call("k1_new", "full", True, False,
+                                  want_stash=False, bf16=True)
     runs["k3_wrapper"] = lambda: raster_forward(pattrs, ts, te, **kw)
-    runs["k2_old"] = k2_call(b_old, out, stash, kexit, True)
-    runs["k2_new"] = k2_call(b_new, out, stash, kexit, True)
-    runs["k2_new_no_skip"] = k2_call(libs["bwd_new_no_skip"][0], out, stash,
-                                     kexit, True)
+    runs["k2_old"] = k2_call("bwd_old", out, stash, kexit, True)
+    runs["k2_new"] = k2_call("bwd_new", out, stash, kexit, True)
+    runs["k2_new_bf16"] = k2_call("bwd_new", o16, s16, k16, True, bf16=True)
+    runs["k2_new_no_skip"] = k2_call("bwd_new_no_skip", out, stash, kexit,
+                                     True)
     runs["k5_old"] = k5_call("bwd_old", out, True)
     runs["k5_new"] = k5_call("bwd_new", out, True)
     runs["k5_new_no_skip"] = k5_call("bwd_new_no_skip", out, True)

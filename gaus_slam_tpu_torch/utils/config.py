@@ -133,11 +133,15 @@ class SystemConfig:
         if method not in ("2dgs", "3dgs"):
             raise ValueError(f"unknown render method {method!r}")
         tpu = config.get("tpu", {})
-        # the port computes in float32 only
+        # the stash path's pair chain in float32 or bfloat16: the CUDA
+        # kernels' bf16 instantiation on "pallas", the plain versions on
+        # "interpret" (the JAX package refuses bf16 on "pallas" only
+        # because v5e Mosaic cannot lower bf16 comparisons);
+        # the reference backend ignores it, as in the JAX package
         compute_dtype = str(tpu.get("compute_dtype", "f32"))
-        if compute_dtype != "f32":
-            raise ValueError(f"tpu.compute_dtype={compute_dtype!r}: the "
-                             f"port computes in float32 only")
+        if compute_dtype not in ("f32", "bf16"):
+            raise ValueError(f"tpu.compute_dtype={compute_dtype!r}: "
+                             f"one of 'f32', 'bf16'")
         # pyramid coarse tracking: several levels need the NESTED phase
         # order, which exists for coarsest stride 2 or 4 only, with each
         # level dividing the previous
@@ -172,6 +176,7 @@ class SystemConfig:
                 config["loss"].get("use_normal_loss", False)),
             method=method,
             iso3d=iso,
+            compute_dtype=compute_dtype,
         )
         loss = config["loss"]
         dens = config["densify"]

@@ -1,6 +1,7 @@
-"""Headless dashboards (port of the plots of gaus_slam_tpu/utils/viz.py):
-the pngs the reference writes per submap (frontend_numpts, depth_l1,
-backend_numpts, ape, trackloss, and the evo_2dplot trajectory plot).
+"""Headless dashboards and the video writer (port of
+gaus_slam_tpu/utils/viz.py): the pngs the reference writes per submap
+(frontend_numpts, depth_l1, backend_numpts, ape, trackloss, and the
+evo_2dplot trajectory plot), and ``frames_to_video``.
 
 matplotlib is imported when a plot is drawn, never at import: a machine
 without it can run everything but the dashboards, and a dashboard asked
@@ -54,3 +55,28 @@ def save_trajectory_plot(est_w2cs, gt_w2cs, path, ate=None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     plt.savefig(path, dpi=90)
     plt.close()
+
+
+def frames_to_video(frames, path, fps=30):
+    """Stack of [H, W, 3] float 0..1 frames -> the video written, as a
+    path: mp4 through imageio where it imports (its .gif beside ``path``
+    if the mp4 writer fails, as the JAX package does), else
+    ``<stem>.gif`` from the port's own encoder (utils/gif.py: a fixed
+    palette and LZW), as on a machine without imageio or cv2."""
+    arr = [np.clip(np.asarray(f) * 255, 0, 255).astype(np.uint8)
+           for f in frames]
+    gif_path = os.path.splitext(path)[0] + ".gif"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        from .gif import write_gif
+
+        write_gif(gif_path, arr, fps=fps)
+        return gif_path
+    try:
+        imageio.mimwrite(path, arr, fps=fps)
+        return path
+    except Exception:  # noqa: BLE001 (no mp4 plugin: the JAX fallback)
+        imageio.mimwrite(gif_path, arr, fps=fps)
+        return gif_path

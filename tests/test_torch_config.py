@@ -115,14 +115,20 @@ def test_escalation_ladder_matches_jax():
     (("frontend", "coarse_levels"), [(10, 3), (6, 2)]),
 ])
 def test_refused_configs(key, value):
-    """bf16 and unnested pyramid strides are refused. The 3DGS method is
-    ported: it loads, and an unknown method is refused."""
+    """Unnested pyramid strides are refused. The 3DGS method and the bf16
+    compute dtype are ported: each loads, and an unknown method or dtype
+    is refused."""
     _, cfg = _configs()
     cfg[key[0]][key[1]] = value
     if key == ("render", "method"):
         assert TC.SystemConfig.from_config(cfg, device="cpu").opts.method \
             == value
         cfg["render"]["method"] = "nerf"
+    if key == ("tpu", "compute_dtype"):
+        opts = TC.SystemConfig.from_config(cfg, device="cpu").opts
+        assert opts.compute_dtype == value
+        assert opts.settings().compute_dtype == value
+        cfg["tpu"]["compute_dtype"] = "f16"
     with pytest.raises(ValueError):
         TC.SystemConfig.from_config(cfg, device="cpu")
 

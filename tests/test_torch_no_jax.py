@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
                 "utils.eval_mesh", "utils.lpips", "utils.checkpoint",
                 "native", "scripts.eval", "scripts.vis_final", "ops.sh",
                 "ops.knn", "ops.preprocess_3dgs", "scripts.splatam",
-                "parallel", "parallel.ba", "scripts.gaus_mp"):
+                "parallel", "parallel.ba", "scripts.gaus_mp",
+                "scripts.eval_nvs", "scripts.gen_video", "utils.gif",
+                "utils.keyframe_selection", "tools.microbench"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
