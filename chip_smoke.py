@@ -146,7 +146,9 @@ line):
    values, K3's out bit-equal to K1's, the bf16 cull checked conservative
    on the bf16 chain; the gap to the f32 kernels printed under
    test_raster_grad's bounds (on the tiles with x, y < 256 and on all);
-   ms per call, plain ms and bounds at the bf16 rates.
+   ms per call (the packed bf16x2 kernels) beside the F32
+   instantiation's on the same case and their ratio, plain ms, bounds at
+   the bf16 rates, and the share of floats bit-equal to the plain chain.
    11b. The driver with tpu.compute_dtype "bf16": at 48x64 x 12 against
    phase 5's bounds moved by the JAX package's bf16-f32 gap
    (SMALL_BOUNDS_BF16); at 340x600 x 30 against phase 6's ATE bound and
@@ -3026,6 +3028,12 @@ def phase_bf16_kernels(ds, sys_cfg, capacity, dev, card):
                            10)
             t_k3 = time_ms(lambda: raster_forward(pattrs, ts, te, **k16), 10)
             t_k2 = time_ms(lambda: raster_backward_stash(*bargs, **k16), 5)
+            # the F32 instantiations on the same case
+            fargs = (pattrs, ts, te, f_stash, f_kexit, f_out, d_out)
+            t_f1 = time_ms(lambda: raster_forward_stash(pattrs, ts, te, **kw),
+                           10)
+            t_f3 = time_ms(lambda: raster_forward(pattrs, ts, te, **kw), 10)
+            t_f2 = time_ms(lambda: raster_backward_stash(*fargs, **kw), 5)
             t_p1 = time_ms(lambda: raster_forward_plain(pattrs, ts, te,
                                                         **k16), 2, warm=1)
             t_p2 = time_ms(lambda: raster_backward_stash_plain(*bargs, **k16),
@@ -3034,25 +3042,32 @@ def phase_bf16_kernels(ds, sys_cfg, capacity, dev, card):
             bwd_acc = BWD_ACCEPTED if use_sa else BWD_ACCEPTED_NO_SA
             work = {
                 "raster_forward_stash_bf16": (
-                    t_k1, t_p1, fwd_acc, in_bytes + out_bytes + stash_bytes,
-                    err1),
-                "raster_forward_bf16": (t_k3, t_p1, fwd_acc,
+                    t_k1, t_f1, t_p1, fwd_acc,
+                    in_bytes + out_bytes + stash_bytes, err1),
+                "raster_forward_bf16": (t_k3, t_f3, t_p1, fwd_acc,
                                         in_bytes + out_bytes, err1),
                 "raster_backward_stash_bf16": (
-                    t_k2, t_p2, bwd_acc,
+                    t_k2, t_f2, t_p2, bwd_acc,
                     2 * in_bytes + 2 * out_bytes + stash_bytes, err2)}
-            for name, (ms, pms, per, nb, err) in work.items():
-                # the function's bound at the bf16 rates, though this
-                # design computes in float32 and rounds (no packed bf16x2);
-                # the f32 rate's beside it
+            for name, (ms, fms, pms, per, nb, err) in work.items():
+                # the function's bound at the bf16 rates (the chain's adds,
+                # subs and muls run packed in bf16x2); the f32 rate's beside
+                # it
                 b = op_bound(evals, accepted, per, nb, culled=culled,
                              bf16=True)
+                share = gbits if "backward" in name else bits
                 results[vi][name] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
                     bound_by=b[1], library_ms=None,
                     bound_ms_f32_rate=op_bound(evals, accepted, per, nb,
                                                culled=culled)[0],
-                    bit_equal_share=gbits if "backward" in name else bits)
+                    bit_equal_share=share, f32_ms=fms)
+                print(f"[bf16 kernels] {variant} {KERNELS[name][0]}: "
+                      f"{ms:.4f} ms, its F32 instantiation {fms:.4f} ms on "
+                      f"the same case, ratio {ms / fms:.3f}; bound "
+                      f"{b[0]:.4f} ms ({b[1]}); floats bit-equal to the "
+                      f"plain bf16 chain{' (its float32 vjp)' if 'backward' in name else ''}: "
+                      f"{share:.4f}")
             print(f"[card] {card_line()}")
             print(f"[bf16 kernels] {variant} ms: K1-bf16 {t_k1:.4f} (plain "
                   f"{t_p1:.1f}), K3-bf16 {t_k3:.4f}, K2-bf16 {t_k2:.4f} "

@@ -35,14 +35,19 @@
 // The compute type CT of the per-pair chain (tpu.compute_dtype) is a
 // template parameter of every function of the walk: F32, or BF16, which
 // is the JAX package's bf16 compute dtype (compositing.py's bf16 branch
-// there). BF16 computes each op in float32 from bf16 values and rounds
-// its result to bf16 (CT::r, round to nearest even), at the points
-// ops/compositing.py's docstring lists; the sums, the pixel state and
-// the vjp stay float32. It is plain float arithmetic with a rounding
-// after each op, never a fused bf16 multiply-add (__hfma fuses where the
-// chain rounds twice), so K2's recompute repeats K1's bf16 values bit for
-// bit as it does in F32. F32's r is the identity: its instantiation
-// computes what it did before CT existed, bit for bit.
+// there). BF16 rounds the result of each op of the chain to bf16 (round
+// to nearest even), at the points ops/compositing.py's docstring lists;
+// the sums, the pixel state and the vjp stay float32. Here BF16 is the
+// one-pixel form: each op in float32 from bf16 values, then CT::r. The
+// kernels run the same chain packed, two pixels a thread in the lanes of
+// a bf16x2 word (raster_bf16x2.cuh): an add, sub or mul of two bf16
+// values rounded once to bf16 equals the float32 op rounded to bf16
+// (float32 holds 24 >= 2 * 8 + 2 bits, so the double rounding is
+// innocuous), so the packed chain gives this one's bits. Neither ever
+// fuses a bf16 multiply-add (__hfma fuses where the chain rounds twice),
+// so K2's recompute repeats K1's bf16 values bit for bit as it does in
+// F32. F32's r is the identity: its instantiation computes what it did
+// before CT existed, bit for bit.
 #pragma once
 #include <cstdint>
 #include <cstring>
@@ -93,13 +98,17 @@ GS_FN float bf16_round(float x) {
 #endif
 }
 
-// The compute types. r rounds an op's result; the constants are those
-// the chain's arithmetic reads (bf16 values under BF16, as the JAX chain
-// reads its python scalars); comparisons use the float32 constants above,
-// which give the same answer for every bf16 value.
+// The compute types. r rounds an op's result; stage makes the word that
+// a block's attribute is staged as, and attr reads staged word i back as
+// the chain's operand; the constants are those the chain's arithmetic
+// reads (bf16 values under BF16, as the JAX chain reads its python
+// scalars); comparisons use the float32 constants above, which give the
+// same answer for every bf16 value.
 struct F32 {
   static constexpr bool IS_BF16 = false;
   static GS_FN float r(float x) { return x; }
+  static GS_FN float stage(float x) { return x; }
+  static GS_FN float attr(const float* sa, int i) { return sa[i]; }
   static constexpr float ALPHA_MAX = gs::ALPHA_MAX;
   static constexpr float NEAR = NEAR_N;
   static constexpr float M_SCALE = gs::M_SCALE;
@@ -110,6 +119,9 @@ struct F32 {
 struct BF16 {
   static constexpr bool IS_BF16 = true;
   static GS_FN float r(float x) { return bf16_round(x); }
+  // the block is staged in float32 and rounded as it is read
+  static GS_FN float stage(float x) { return x; }
+  static GS_FN float attr(const float* sa, int i) { return r(sa[i]); }
   static constexpr float ALPHA_MAX = 0.98828125f;          // bf16(0.99)
   static constexpr float NEAR = 0.2001953125f;             // bf16(0.2)
   static constexpr float M_SCALE = 1.0f;                   // bf16(M_SCALE)
@@ -131,10 +143,10 @@ GS_FN PixState init_state() {
 }
 
 // Attribute c of block-local pair j; the block is staged as sa[c][j]
-// (float32; under BF16 rounded as it is read).
+// (CT::attr reads it).
 template <class CT = F32>
 GS_FN float A(const float* sa, int c, int j) {
-  return CT::r(sa[c * CHUNK + j]);
+  return CT::attr(sa, c * CHUNK + j);
 }
 
 struct Geom {
@@ -387,6 +399,97 @@ GS_FN int mask_next(const StepMask& m, int j) {
   return CHUNK;
 }
 
+// What one pixel's walk over a block sums over the pairs it accepts:
+// their log-sum, the median and contributor indices, the colors, normals
+// and depth statistics, and whether a pair triggered.
+struct BlockAcc {
+  float lsum, med_idx, mm_new, nc_blk;
+  float racc, gacc, bacc, nxacc, nyacc, nzacc;
+  float Dacc, D2acc, dist_add, m1_add, m2_add;
+  bool trig;
+};
+
+GS_FN BlockAcc acc_init() {
+  BlockAcc a;
+  a.lsum = a.med_idx = a.mm_new = a.nc_blk = 0.f;
+  a.racc = a.gacc = a.bacc = a.nxacc = a.nyacc = a.nzacc = 0.f;
+  a.Dacc = a.D2acc = a.dist_add = a.m1_add = a.m2_add = 0.f;
+  a.trig = false;
+  return a;
+}
+
+// Pair j, the idx-th of the tile's range (1-based), accepted with weight
+// w, raw depth d, log1p(-a) l and prefix transmittance T_pref; pre is the
+// Run before it (the exclusive M1, M2 prefixes without SA).
+template <bool USE_SA, bool NN, class CT>
+GS_FN void accept_pair(BlockAcc& a, const float* sa, int j, int idx, float w,
+                       float d, float l, float T_pref, const Run& pre) {
+  const auto r = [](float x) { return CT::r(x); };
+  a.lsum = a.lsum + l;
+  const float gidx = (float)idx;
+  if (T_pref > 0.5f) { a.med_idx = gidx; a.mm_new = d; }
+  a.nc_blk = gidx;
+  a.racc = a.racc + A<CT>(sa, 18, j) * w;
+  a.gacc = a.gacc + A<CT>(sa, 19, j) * w;
+  a.bacc = a.bacc + A<CT>(sa, 20, j) * w;
+  if (NN) {
+    a.nxacc = a.nxacc + A<CT>(sa, 14, j) * w;
+    a.nyacc = a.nyacc + A<CT>(sa, 15, j) * w;
+    a.nzacc = a.nzacc + A<CT>(sa, 16, j) * w;
+  }
+  if (!USE_SA) {
+    const float m = dist_m<CT>(d);
+    const float mw = r(m * w);
+    a.dist_add = a.dist_add + (r(r(m * m) * r(1.f - T_pref)) + pre.p2 -
+                               2.f * m * pre.p1) * w;
+    a.m1_add = a.m1_add + mw;
+    a.m2_add = a.m2_add + r(m * mw);
+    a.Dacc = a.Dacc + r(d * w);
+    a.D2acc = a.D2acc + r(r(d * d) * w);
+  }
+}
+
+// SA's second pass: an accepted pair's fused depth into D and D2, with
+// the block's median target mm_out.
+template <class CT>
+GS_FN void accept_fused(BlockAcc& a, float T_pref, const Run& pre,
+                        float mm_out, float d, float w) {
+  const float conf = sa_conf<CT>(T_pref, pre.p1, pre.p2, mm_out, d);
+  const float df = conf * d + (1.f - conf) * mm_out;
+  a.Dacc = a.Dacc + df * w;
+  a.D2acc = a.D2acc + df * df * w;
+}
+
+// The median after the block: its last accepted pair with T_pref > 0.5,
+// else the incoming one.
+GS_FN float median_after(const BlockAcc& a, const PixState& s) {
+  return a.med_idx > 0.f ? a.mm_new : s.mm;
+}
+
+// The pixel's state after the block from its incoming transmittance T_in.
+template <bool USE_SA, bool NN>
+GS_FN void finish_block(PixState& s, const BlockAcc& a, float T_in,
+                        float mm_out) {
+  s.T = T_in * expf(a.lsum);
+  s.done = fmaxf(s.done, a.trig ? 1.f : 0.f);
+  s.r = s.r + a.racc;
+  s.g = s.g + a.gacc;
+  s.b = s.b + a.bacc;
+  s.nx = NN ? s.nx + a.nxacc : 0.f;
+  s.ny = NN ? s.ny + a.nyacc : 0.f;
+  s.nz = NN ? s.nz + a.nzacc : 0.f;
+  s.D = s.D + a.Dacc;
+  s.D2 = s.D2 + a.D2acc;
+  if (!USE_SA) {
+    s.M1 = s.M1 + a.m1_add;
+    s.M2 = s.M2 + a.m2_add;
+    s.dist = s.dist + a.dist_add;
+  }
+  s.mm = mm_out;
+  s.nc = fmaxf(s.nc, a.nc_blk);
+  s.mc = fmaxf(s.mc, a.med_idx);
+}
+
 // Composite one block for one pixel, updating `s` as composite_chunk does.
 // Only the pairs of the tile's range [start, stop) are walked, each tested
 // by its global index gstart + j, as the backward's first pass does:
@@ -421,58 +524,29 @@ GS_FN int mask_next(const StepMask& m, int j) {
 template <bool USE_SA, bool NN, class CT>
 GS_FN void composite_block(PixState& s, const float* sa, int gstart,
                            int start, int stop, float px, float py) {
-  const auto r = [](float x) { return CT::r(x); };
   const float T_in = s.T;
-  const float T_in_c = r(T_in);
+  const float T_in_c = CT::r(T_in);
   const bool live = s.done < 0.5f;
   const int idx_base = gstart - start + 1;
   Run run = run_init<USE_SA>(s);
-  float lsum = 0.f;
-  float med_idx = 0.f, mm_new = 0.f, nc_blk = 0.f;
-  bool trig = false;
-  float racc = 0.f, gacc = 0.f, bacc = 0.f;
-  float nxacc = 0.f, nyacc = 0.f, nzacc = 0.f;
-  float Dacc = 0.f, D2acc = 0.f;
-  float dist_add = 0.f, m1_add = 0.f, m2_add = 0.f;
+  BlockAcc acc = acc_init();
   StepMask mask = {0u, 0u, 0u, 0u};
 #pragma unroll 1
   for (int j = 0; j < CHUNK; ++j) {
     const int gi = gstart + j;
     if (gi < start || gi >= stop) continue;
-    if (FWD_SKIP && !(live && (CT::IS_BF16 || !trig))) break;
+    if (FWD_SKIP && !(live && (CT::IS_BF16 || !acc.trig))) break;
     if (FWD_SKIP && pair_culled<CT>(sa, j, px, py)) continue;
     const Run pre = run;
     const Step st = pair_step<USE_SA, CT>(sa, j, gi, start, stop, px, py,
                                           T_in_c, live, run);
-    trig = trig || (st.okf && st.below);
+    acc.trig = acc.trig || (st.okf && st.below);
     if (st.okf || run.p1 != pre.p1 || run.p2 != pre.p2) mask_set(mask, j);
     if (!st.af) continue;
-    const float w = st.w, d = st.g.d_raw;
-    lsum = lsum + st.l;
-    const float gidx = (float)(idx_base + j);
-    if (st.T_pref > 0.5f) { med_idx = gidx; mm_new = d; }
-    nc_blk = gidx;
-    racc = racc + A<CT>(sa, 18, j) * w;
-    gacc = gacc + A<CT>(sa, 19, j) * w;
-    bacc = bacc + A<CT>(sa, 20, j) * w;
-    if (NN) {
-      nxacc = nxacc + A<CT>(sa, 14, j) * w;
-      nyacc = nyacc + A<CT>(sa, 15, j) * w;
-      nzacc = nzacc + A<CT>(sa, 16, j) * w;
-    }
-    if (!USE_SA) {
-      // pre.p1, pre.p2: the exclusive M1, M2 prefixes
-      const float m = dist_m<CT>(d);
-      const float mw = r(m * w);
-      dist_add = dist_add + (r(r(m * m) * r(1.f - st.T_pref)) + pre.p2 -
-                             2.f * m * pre.p1) * w;
-      m1_add = m1_add + mw;
-      m2_add = m2_add + r(m * mw);
-      Dacc = Dacc + r(d * w);
-      D2acc = D2acc + r(r(d * d) * w);
-    }
+    accept_pair<USE_SA, NN, CT>(acc, sa, j, idx_base + j, st.w, st.g.d_raw,
+                                st.l, st.T_pref, pre);
   }
-  const float mm_out = med_idx > 0.f ? mm_new : s.mm;
+  const float mm_out = median_after(acc, s);
 
   if (USE_SA) {
     Run run2 = run_init<true>(s);
@@ -484,34 +558,11 @@ GS_FN void composite_block(PixState& s, const float* sa, int gstart,
       const Run pre = run2;
       const Step st = pair_step<true, CT>(sa, j, gi, start, stop, px, py,
                                           T_in_c, live, run2);
-      if (st.af) {
-        const float conf =
-            sa_conf<CT>(st.T_pref, pre.p1, pre.p2, mm_out, st.g.d_raw);
-        const float df = conf * st.g.d_raw + (1.f - conf) * mm_out;
-        Dacc = Dacc + df * st.w;
-        D2acc = D2acc + df * df * st.w;
-      }
+      if (st.af) accept_fused<CT>(acc, st.T_pref, pre, mm_out, st.g.d_raw,
+                                  st.w);
     }
   }
-
-  s.T = T_in * expf(lsum);
-  s.done = fmaxf(s.done, trig ? 1.f : 0.f);
-  s.r = s.r + racc;
-  s.g = s.g + gacc;
-  s.b = s.b + bacc;
-  s.nx = NN ? s.nx + nxacc : 0.f;
-  s.ny = NN ? s.ny + nyacc : 0.f;
-  s.nz = NN ? s.nz + nzacc : 0.f;
-  s.D = s.D + Dacc;
-  s.D2 = s.D2 + D2acc;
-  if (!USE_SA) {
-    s.M1 = s.M1 + m1_add;
-    s.M2 = s.M2 + m2_add;
-    s.dist = s.dist + dist_add;
-  }
-  s.mm = mm_out;
-  s.nc = fmaxf(s.nc, nc_blk);
-  s.mc = fmaxf(s.mc, med_idx);
+  finish_block<USE_SA, NN>(s, acc, T_in, mm_out);
 }
 
 // Cotangent of one pixel's state, in PixelState field order (done,
@@ -643,21 +694,15 @@ GS_FN void refill_records(const PixState& s, const float* sa, int gstart,
 // differentiates its bf16 chain, rounding each cotangent to bf16): the
 // derivative of each rounding is taken as 1, and sx / sy clamped to
 // +-S_MAX pass no gradient, as the JAX chain's clip.
+// pair_vjp is the vjp of a pair that passed the alpha test (okf), from
+// its geometry g, e = exp(cum), T_pref, the accept decision af and weight
+// w; pair_grad (below) recomputes those and calls it.
 template <bool USE_SA, bool NN, class CT>
-GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
-                     float px, float py, float T_in, bool live,
-                     const BlockInfo& bi, const Cot& c, const Run& r,
-                     RevCarry& rc, float* gv) {
+GS_FN void pair_vjp(const float* sa, int j, const Geom& g, float px,
+                    float py, float e, float T_pref, bool af, float w,
+                    const BlockInfo& bi, const Cot& c, const Run& r,
+                    RevCarry& rc, float* gv) {
   const auto rd = [](float x) { return CT::r(x); };
-  for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
-  Geom g;
-  pair_geom<CT>(sa, j, px, py, g);
-  if (!pair_ok(g, gi >= start && gi < stop, live)) return false;
-  const float a_eff = g.a_cl;
-  const float e = rd(expf(rd(r.cum)));
-  const float T_pref = rd(rd(T_in) * e);
-  const bool af = !(rd(T_pref * rd(1.f - a_eff)) < T_EPS);
-  const float w = af ? rd(g.a_cl * T_pref) : 0.f;
   float g_acl = 0.f, g_draw = 0.f, g_Tpref = 0.f;
   if (af) {
     // w = a_cl * T_pref feeds colors, normals, D, D2 (and M1, M2, dist)
@@ -707,7 +752,7 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   // l = log1p(-a_eff) feeds every later pair's T_pref and, if this pair
   // was accepted, T_out = T_in * exp(sum of accepted l)
   const float g_l = af ? fmaf(c.T, bi.T_out, rc.U) : rc.U;
-  g_acl -= g_l / (1.f - a_eff);
+  g_acl -= g_l / (1.f - g.a_cl);
   rc.U = fmaf(g_Tpref, T_pref, rc.U);
   rc.gTin = fmaf(g_Tpref, e, rc.gTin);
 
@@ -744,6 +789,25 @@ GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
   gv[0] = px * g_px; gv[1] = px * g_py; gv[2] = px * g_pz;
   gv[3] = py * g_px; gv[4] = py * g_py; gv[5] = py * g_pz;
   gv[6] = g_px; gv[7] = g_py; gv[8] = g_pz;
+}
+
+
+template <bool USE_SA, bool NN, class CT>
+GS_FN bool pair_grad(const float* sa, int j, int gi, int start, int stop,
+                     float px, float py, float T_in, bool live,
+                     const BlockInfo& bi, const Cot& c, const Run& r,
+                     RevCarry& rc, float* gv) {
+  const auto rd = [](float x) { return CT::r(x); };
+  for (int q = 0; q < GRAD_C; ++q) gv[q] = 0.f;
+  Geom g;
+  pair_geom<CT>(sa, j, px, py, g);
+  if (!pair_ok(g, gi >= start && gi < stop, live)) return false;
+  const float e = rd(expf(rd(r.cum)));
+  const float T_pref = rd(rd(T_in) * e);
+  const bool af = !(rd(T_pref * rd(1.f - g.a_cl)) < T_EPS);
+  const float w = af ? rd(g.a_cl * T_pref) : 0.f;
+  pair_vjp<USE_SA, NN, CT>(sa, j, g, px, py, e, T_pref, af, w, bi, c, r, rc,
+                           gv);
   return true;
 }
 
@@ -884,15 +948,16 @@ GS_FN float pixel_y(int t, int tiles_x, int p) {
 }
 
 #if defined(__CUDACC__)
-// Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j],
-// with each pair's cull radius in row RHO_ROW (padding in the slab).
+// Stage block b of the [ATTR_C, R] slab into shared memory as sa[c][j]
+// (CT::stage of each attribute), with each pair's cull radius in row
+// RHO_ROW (padding in the slab).
 template <class CT>
 __device__ __forceinline__ void stage_block(float* sa, const float* attrs,
                                             int64_t R, int64_t gstart) {
   for (int e = threadIdx.x; e < ATTR_C * CHUNK; e += blockDim.x) {
     const int c = e / CHUNK, j = e % CHUNK;
     sa[e] = c == RHO_ROW ? rho_cull<CT>(attrs[17 * R + gstart + j])
-                         : attrs[c * R + gstart + j];
+                         : CT::stage(attrs[c * R + gstart + j]);
   }
 }
 
@@ -920,7 +985,8 @@ __device__ __forceinline__ void stage_async(float* sa, const float* attrs,
 }
 
 // One CTA's forward walk over the first `nblk` blocks of its tile, from
-// the pixel state `s` (K1, K3, and K5's re-forward): each block staged
+// the pixel state `s` (K1, K3, and K5's re-forward; F32, the packed BF16
+// walk is raster_bf16x2.cuh's forward_walk2): each block staged
 // once, with its pairs' cull radii, every pixel compositing it; the walk
 // stops once every pixel of the tile has terminated. `sa` holds FWD_SA
 // floats, two buffers: block k + 1 is copied into one (stage_async) while
@@ -929,7 +995,7 @@ __device__ __forceinline__ void stage_async(float* sa, const float* attrs,
 // radii (the pad row RHO_ROW) once block k is composited. With STASH,
 // each block's incoming carry goes to stash row soff + k (rows past
 // stash_rows are skipped). Returns the number of blocks composited.
-template <bool STASH, bool USE_SA, bool NN, class CT>
+template <bool STASH, bool USE_SA, bool NN>
 __device__ __forceinline__ int forward_walk(
     PixState& s, float* sa, const float* __restrict__ attrs, int R,
     const TileWalk& tw, int nblk, float px, float py, float* stash,
@@ -939,7 +1005,7 @@ __device__ __forceinline__ int forward_walk(
   if (nblk > 0) {
     stage_async(sa, attrs, R, g0);
     if (p < CHUNK)
-      sa[RHO_ROW * CHUNK + p] = rho_cull<CT>(attrs[17 * R + g0 + p]);
+      sa[RHO_ROW * CHUNK + p] = rho_cull<F32>(attrs[17 * R + g0 + p]);
   }
   int k = 0;
   for (; k < nblk; ++k) {
@@ -961,9 +1027,9 @@ __device__ __forceinline__ int forward_walk(
     if (more) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    composite_block<USE_SA, NN, CT>(s, cur, (int)gstart, tw.start, tw.stop,
+    composite_block<USE_SA, NN, F32>(s, cur, (int)gstart, tw.start, tw.stop,
                                     px, py);
-    if (more && p < CHUNK) nxt[RHO_ROW * CHUNK + p] = rho_cull<CT>(op_next);
+    if (more && p < CHUNK) nxt[RHO_ROW * CHUNK + p] = rho_cull<F32>(op_next);
   }
   // a walk that stopped early leaves block k + 1's copies in flight
   asm volatile("cp.async.wait_all;\n" ::: "memory");

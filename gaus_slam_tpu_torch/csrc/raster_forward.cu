@@ -3,10 +3,10 @@
 // Replaces the Pallas kernels gaus_slam_tpu/ops/pallas_forward.py::
 // raster_forward_stash (K1, kernel _kernel_stash) and ::raster_forward
 // (K3, kernel _kernel). K3 is K1 with the stash writes compiled out
-// (template flag STASH). The compute type CT (F32 or BF16, the JAX
-// kernels' compute_dtype, pallas_forward.py:110 and :297) is a template
-// flag too: BF16 runs the per-pair chain in bf16 (raster_common.cuh), with
-// the bf16 cull radius.
+// (template flag STASH). The compute type (F32 or BF16, the JAX kernels'
+// compute_dtype, pallas_forward.py:110 and :297) picks the kernel: F32
+// runs raster_forward_kernel, BF16 the packed raster_forward_bf16x2_kernel
+// (below), with the bf16 cull radius.
 //
 // Design: one CTA per rendered tile, one thread per pixel (16x16 = 256).
 // The tile's pair range [start, stop) is walked in 128-aligned global
@@ -39,15 +39,19 @@
 // with cp.async while block k is composited. The pixel state stays in
 // registers; four CTAs per SM, the compiler's own choice: asking for five
 // or six spilled and was slower (tools/kernel_ab.py).
-// BF16 is the simple form: float32 arithmetic with a rounding after each
-// op of the chain (no packed bf16x2), and the cull test evaluates the
-// chain's own rounded rho2d and rho3d; it needs the same operations as
-// F32, so it is bound as F32 is.
-#include "raster_common.cuh"
+// BF16 (K1-bf16, K3-bf16) is a kernel of its own, the same walk packed
+// for Hopper's bf16x2 arithmetic (raster_bf16x2.cuh): a CTA of 128
+// threads, two horizontally neighbouring pixels a thread in the two
+// lanes of a bf16x2 word, every rounded op of the chain one packed op for
+// both, the block rounded once as it is staged, and the cull and the step
+// on one geometry per (pair, pixel). Its out, stash and kexit are the
+// one-pixel BF16 walk's bit for bit. The function's bound counts its FLOP
+// at the packed bf16 rate (chip_smoke.py).
+#include "raster_bf16x2.cuh"
 
 using namespace gs;
 
-template <bool STASH, bool USE_SA, bool NN, class CT>
+template <bool STASH, bool USE_SA, bool NN>
 __global__ void __launch_bounds__(P) raster_forward_kernel(
     const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids,
     const int* __restrict__ tstart, const int* __restrict__ tstop,
@@ -59,29 +63,66 @@ __global__ void __launch_bounds__(P) raster_forward_kernel(
   const int p = threadIdx.x;
   const int t = tile_ids[i];
   const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
-  const float px = CT::r(pixel_x(t, tiles_x, p));
-  const float py = CT::r(pixel_y(t, tiles_x, p));
+  const float px = pixel_x(t, tiles_x, p);
+  const float py = pixel_y(t, tiles_x, p);
 
   PixState s = init_state();
-  const int k = forward_walk<STASH, USE_SA, NN, CT>(
+  const int k = forward_walk<STASH, USE_SA, NN>(
       s, sa, attrs, R, tw, tw.nblk, px, py, stash, STASH ? soff[i] : 0,
       stash_rows);
   if (STASH && p == 0) kexit[i] = k;
   store_out<USE_SA>(out + (int64_t)i * OUT_C * P + p, P, s);
 }
 
-template <bool STASH, class CT>
-static void launch(bool use_sa, bool nn, dim3 grid, cudaStream_t st,
-                   const float* attrs, int R, const int* ids, const int* ts,
-                   const int* te, const int* soff, int tiles_x,
+// CTAs per SM the packed kernel's launch bounds ask for: 8 of 128
+// threads, as many warps as the f32 kernel's 4 of 256. That caps a thread
+// at 64 registers, and the two pixels' state spills 200-400 bytes; left
+// to itself ptxas takes 96-116 registers without spills and 4 CTAs fit,
+// which measured 17% slower (tools/kernel_ab.py).
+constexpr int FWD2_MIN_BLOCKS = 8;
+
+template <bool STASH, bool USE_SA, bool NN>
+__global__ void __launch_bounds__(P2, FWD2_MIN_BLOCKS)
+raster_forward_bf16x2_kernel(
+    const float* __restrict__ attrs, int R, const int* __restrict__ tile_ids,
+    const int* __restrict__ tstart, const int* __restrict__ tstop,
+    const int* __restrict__ soff, int tiles_x, int stash_rows,
+    float* __restrict__ out, float* __restrict__ stash,
+    int* __restrict__ kexit) {
+  __shared__ float sa[FWD_SA];
+  const int i = blockIdx.x;
+  const int p = 2 * threadIdx.x;
+  const int t = tile_ids[i];
+  const TileWalk tw = tile_walk(tstart[i], tstop[i], R);
+  const bf2 px = pack2(pixel_x(t, tiles_x, p), pixel_x(t, tiles_x, p + 1));
+  const bf2 py = pack2(pixel_y(t, tiles_x, p), pixel_y(t, tiles_x, p + 1));
+
+  PixState s[2] = {init_state(), init_state()};
+  const int k = forward_walk2<STASH, USE_SA, NN>(
+      s, sa, attrs, R, tw, tw.nblk, px, py, stash, STASH ? soff[i] : 0,
+      stash_rows);
+  if (STASH && threadIdx.x == 0) kexit[i] = k;
+  store_out<USE_SA>(out + (int64_t)i * OUT_C * P + p, P, s[0]);
+  store_out<USE_SA>(out + (int64_t)i * OUT_C * P + p + 1, P, s[1]);
+}
+
+template <bool STASH>
+static void launch(bool bf16, bool use_sa, bool nn, dim3 grid,
+                   cudaStream_t st, const float* attrs, int R, const int* ids,
+                   const int* ts, const int* te, const int* soff, int tiles_x,
                    int stash_rows, float* out, float* stash, int* kexit) {
-#define GS_LAUNCH(SA, N)                                                  \
-  raster_forward_kernel<STASH, SA, N, CT><<<grid, P, 0, st>>>(            \
-      attrs, R, ids, ts, te, soff, tiles_x, stash_rows, out, stash, kexit)
+#define GS_LAUNCH(SA, N)                                                   \
+  if (bf16)                                                                \
+    raster_forward_bf16x2_kernel<STASH, SA, N><<<grid, P2, 0, st>>>(       \
+        attrs, R, ids, ts, te, soff, tiles_x, stash_rows, out, stash,      \
+        kexit);                                                            \
+  else                                                                     \
+    raster_forward_kernel<STASH, SA, N><<<grid, P, 0, st>>>(               \
+        attrs, R, ids, ts, te, soff, tiles_x, stash_rows, out, stash, kexit)
   if (use_sa) {
-    if (nn) GS_LAUNCH(true, true); else GS_LAUNCH(true, false);
+    if (nn) { GS_LAUNCH(true, true); } else { GS_LAUNCH(true, false); }
   } else {
-    if (nn) GS_LAUNCH(false, true); else GS_LAUNCH(false, false);
+    if (nn) { GS_LAUNCH(false, true); } else { GS_LAUNCH(false, false); }
   }
 #undef GS_LAUNCH
 }
@@ -94,15 +135,11 @@ extern "C" int raster_forward(const float* attrs, int R, const int* tile_ids,
                               float* stash, int* kexit, cudaStream_t stream) {
   if (n_sub > 0) {
     dim3 grid(n_sub);
-#define GS_LAUNCH(STASH, CT)                                                \
-  launch<STASH, CT>(use_sa, need_normal, grid, stream, attrs, R, tile_ids,  \
-                    tile_start, tile_stop, soff, tiles_x, stash_rows, out,  \
-                    stash, kexit)
-    if (bf16) {
-      if (want_stash) GS_LAUNCH(true, BF16); else GS_LAUNCH(false, BF16);
-    } else {
-      if (want_stash) GS_LAUNCH(true, F32); else GS_LAUNCH(false, F32);
-    }
+#define GS_LAUNCH(STASH)                                                    \
+  launch<STASH>(bf16, use_sa, need_normal, grid, stream, attrs, R,          \
+                tile_ids, tile_start, tile_stop, soff, tiles_x, stash_rows, \
+                out, stash, kexit)
+    if (want_stash) GS_LAUNCH(true); else GS_LAUNCH(false);
 #undef GS_LAUNCH
   }
   return (int)cudaGetLastError();

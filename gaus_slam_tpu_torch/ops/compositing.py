@@ -19,8 +19,9 @@ the JAX module docstring).
 per-pair [G, P] elementwise chain in bfloat16, the sums and the
 ``PixelState`` in float32. Every elementwise op computes in float32 from
 its bf16 operands and rounds its result to bf16 (round to nearest even),
-as torch does per op; the kernels' bf16 instantiation
-(csrc/raster_common.cuh, ``CT = BF16``) rounds at the same points:
+as torch does per op; the kernels' bf16 chain (csrc/raster_common.cuh,
+``CT = BF16``, and its packed form in csrc/raster_bf16x2.cuh) rounds at
+the same points:
   * inputs: the attributes and the pixel coordinates;
   * geometry, each op: p = x*a0 + y*a1 + a2 (two products, two sums),
     1/p_z, sx and sy (then clamped to +-bf16(1e4) = 9984), rho3d, the

@@ -10,8 +10,9 @@ the stash and kexit the same way, honouring ``tile_ids``.
 ``compute_dtype`` ("f32" or "bf16", ``tpu.compute_dtype``) picks the
 dtype of the per-pair chain (compositing.py's docstring lists where bf16
 rounds); the stash, kexit and the output stay float32. On the card
-"bf16" launches the kernels' bf16 instantiation, counted under names of
-its own (``raster_forward_stash_bf16``, ``raster_forward_bf16``).
+"bf16" launches the packed bf16 kernels (csrc/raster_bf16x2.cuh, two
+pixels a thread in bf16x2 lanes), counted under names of their own
+(``raster_forward_stash_bf16``, ``raster_forward_bf16``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """The bf16 compute dtype of K1-K3 (``tpu.compute_dtype = "bf16"``): the
 port's plain bf16 chain (ops/compositing.py) against the JAX package's
-bf16 path, and the kernels' bf16 instantiation (csrc/raster_common.cuh
-with CT = BF16, built for the CPU with g++) against the plain chain.
+bf16 path, and the kernels' bf16 math (the host library's _bf16 entry
+points: csrc/raster_bf16x2.cuh's packed walk, built for the CPU with g++;
+test_torch_bf16_packed.py holds it to the one-pixel walk bit for bit)
+against the plain chain.
 
 Tolerances:
   * plain bf16 against JAX bf16 (interpret mode), and against the port's
