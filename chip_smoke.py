@@ -162,6 +162,23 @@ line):
    decoded back equal to the quantized frames; keyframe_overlap's
    points_overlap on the card and on the CPU with the same points.
    11d. tools/microbench.py at its defaults: ms per stage.
+12. The last tools, each through its own entry point.
+   12a. tools/backend_probe.py at its defaults (680x1200, 4 reps): the
+   backend-shaped map (capacity 2883584) and each stage's ms under the
+   factor budget and the demand-keyed pair cap; every time finite and
+   > 0, the pair cap's bin without overflow and with num_pairs ==
+   demand; the peak device memory; K1, K2 and K4 launched.
+   12b. tools/quality_ab.py --variants default --seeds 0 --frames 100 at
+   340x600 through its ab_runner child process: the row has no error and
+   clears phase 6's ATE and PSNR bounds (whole run, 100 frames); K1-K4
+   launched in the child (summed from the GAUS_LAUNCH_LOG file).
+   12c. tools/test_spread.py with seeds 0 and 1 at 48x64 x 12 (mesh on),
+   one child process each: every row clears tests/test_full_slam.py's
+   bounds, or fails them only as phase 5 allows (a borderline keyframe
+   whose reversal, rerun here, clears them), or, at a seed where the JAX
+   package misses those bounds too (JAX_SPREAD), clears the bounds the
+   JAX tool suggests from its own five seeds; F-score in (0, 1]; K1-K4
+   launched in the children.
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
 of their own, with their launches in 11b at 340x600), the card line, and
@@ -248,6 +265,14 @@ SPLATAM_PSNR_MIN = 15.0
 # rounding (the port's CPU and card runs count 156 and 153 at 48x64 frame
 # 9 against 153.6)
 KF_MARGIN = 0.02
+# phase 12c: the JAX package's own spread on this tree, tools/test_spread.py
+# over seeds 0-4 on the CPU (interpret). It clears tests/test_full_slam.py's
+# bounds at seed 0 only: seeds 1-4 end near 23.1-23.3 dB with a depth L1 of
+# 38-42 mm (artifacts/test_bounds_spread.json, recorded on older code, has
+# all five near 26.3 dB). Where the JAX package misses those bounds at a
+# seed, a port seed is held to the bounds the JAX tool suggests from these
+# five rows.
+JAX_SPREAD = os.path.join(REPO, "artifacts", "test_bounds_spread_jax_cpu.json")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at a 700 W limit). The
 # special-function units give 16 results (reciprocal, exp2, log2) per SM
@@ -1418,7 +1443,8 @@ def small_bounds_failed(label, result, bounds=None):
     return failed
 
 
-def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None):
+def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None,
+                       seed=0):
     """Phase 5: the driver at 48x64 over 12 frames against the bounds of
     tests/test_full_slam.py (phase 9b: ``edit`` sets the 3DGS ablation
     and ``bounds`` are the JAX package's in that configuration). The seed-0 schedule's keyframe test at frame
@@ -1429,8 +1455,10 @@ def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None):
     package as in the port (PERF.md, section 6). So a run that fails the
     bounds passes only if a keyframe test sat within KF_MARGIN of its
     threshold and a control run, with tau_k moved just across that one
-    count so the frame takes the other decision, clears every bound."""
-    result, launches, probe, secs, _ = run_driver(label, SMALL, dev, edit=edit)
+    count so the frame takes the other decision, clears every bound.
+    ``seed``: the config's SEED (phase 12c reruns a spread seed here)."""
+    env = dict(SMALL, SEED=str(seed))
+    result, launches, probe, secs, _ = run_driver(label, env, dev, edit=edit)
     print(f"[{label}] {secs:.1f} s; keyframe tests (frame, low-alpha "
           f"pixels, threshold): {probe.kf_tests}")
     if not small_bounds_failed(label, result, bounds):
@@ -1445,7 +1473,7 @@ def phase_driver_small(dev, label="driver_48x64", bounds=None, edit=None):
           f"against {thr:.1f}; control: tau_k {tau:.6f}, so that frame "
           f"takes the other decision")
     ctl, _, ctl_probe, _, _ = run_driver(
-        f"{label}_control", dict(SMALL, SYN_TAU_K=repr(tau)), dev, edit=edit)
+        f"{label}_control", dict(env, SYN_TAU_K=repr(tau)), dev, edit=edit)
     print(f"[{label}_control] keyframe tests: {ctl_probe.kf_tests}")
     check(not small_bounds_failed(f"{label}_control", ctl, bounds),
           f"{label}: the control run with frame {t}'s borderline keyframe "
@@ -3251,6 +3279,171 @@ def phase_microbench(dev):
           len(ms) == len(microbench.STAGES), "phase 11d: a stage failed")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the last tools
+
+
+def child_launches(path):
+    """The launch counts the child processes appended to ``path``
+    (ops/_cuda.py's GAUS_LAUNCH_LOG), summed."""
+    import collections
+
+    total = collections.Counter()
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                total.update(json.loads(line)["launches"])
+    return dict(total)
+
+
+@contextlib.contextmanager
+def launch_log(name):
+    """GAUS_LAUNCH_LOG set to a fresh file for the child processes started
+    inside; yields its path."""
+    from gaus_slam_tpu_torch.ops import _cuda
+
+    path = os.path.join(out_dir(name), "launches.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    old = os.environ.get(_cuda.LAUNCH_LOG_ENV)
+    os.environ[_cuda.LAUNCH_LOG_ENV] = path
+    try:
+        yield path
+    finally:
+        if old is None:
+            os.environ.pop(_cuda.LAUNCH_LOG_ENV)
+        else:
+            os.environ[_cuda.LAUNCH_LOG_ENV] = old
+
+
+def phase_backend_probe(card):
+    """Phase 12a: tools/backend_probe.py at its defaults."""
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.tools import backend_probe
+
+    for k in ("PROBE_H", "PROBE_W", "PROBE_REPS"):
+        check(k not in os.environ, f"phase 12a: {k} is set; the probe runs "
+              f"at its defaults")
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = backend_probe.main([])
+    secs = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    stages = ("bin", "map1", "map4", "map4c", "trk", "trkc")
+    print(f"[backend_probe] {card}: 680x1200, capacity {res['capacity']}, "
+          f"active {res['n_active']}; ms per call (wall between fences):")
+    for tag in ("factor1.75", "paircap"):
+        b = res["bins"][tag]
+        print(f"[backend_probe] {tag} (r_max {b['r_max']}: demand "
+              f"{b['demand']}, num_pairs {b['num_pairs']}, overflow "
+              f"{b['overflow']}): " + ", ".join(
+                  f"{k} {res[tag][k]:.3f}" for k in stages))
+    print(f"[backend_probe] peak device memory {res['peak_mib']:.1f} MiB; "
+          f"launches {json.dumps(launches)}; {secs:.1f} s")
+    check(res["capacity"] == 2883584, f"phase 12a: capacity "
+          f"{res['capacity']}, not bucket_capacity(2.36e6) = 2883584")
+    for tag in ("factor1.75", "paircap"):
+        for k in stages:
+            v = res[tag][k]
+            check(v is not None and np.isfinite(v) and v > 0,
+                  f"phase 12a: {tag} {k} = {v}")
+    b = res["bins"]["paircap"]
+    check(not b["overflow"] and b["num_pairs"] == b["demand"] > 0,
+          f"phase 12a: the pair cap's bin {b}")
+    check_launches("phase 12a", launches,
+                   want=("raster_forward_stash", "raster_backward_stash",
+                         "monotone_row_gather"))
+    return launches
+
+
+def phase_quality_ab(card):
+    """Phase 12b: tools/quality_ab.py, the default variant, seed 0, 100
+    frames at 340x600, through its child process."""
+    from gaus_slam_tpu_torch.tools import quality_ab
+
+    out = out_dir("quality_ab")
+    rows_path = os.path.join(out, "rows.jsonl")
+    if os.path.exists(rows_path):
+        os.remove(rows_path)
+    t0 = time.perf_counter()
+    with launch_log("quality_ab") as log:
+        rows = quality_ab.main(["--variants", "default", "--seeds", "0",
+                                "--frames", "100", "--height", str(H),
+                                "--width", str(W), "--out", rows_path,
+                                "--out-root", out])
+    secs = time.perf_counter() - t0
+    launches = child_launches(log)
+    print(f"[quality_ab] {card}: rows {json.dumps(rows)}; launches in the "
+          f"child {json.dumps(launches)}; {secs:.1f} s")
+    check(len(rows) == 1 and "error" not in rows[0],
+          f"phase 12b: quality_ab gave {rows}")
+    r = rows[0]
+    ok_ate = np.isfinite(r["ate_rmse"]) and r["ate_rmse"] < T_ERR_ABS
+    ok_psnr = np.isfinite(r["psnr"]) and r["psnr"] > PSNR_MIN
+    print(f"[quality_ab] ATE RMSE {r['ate_rmse']:.6g} (bound < {T_ERR_ABS}): "
+          f"{'pass' if ok_ate else 'FAIL'}; PSNR {r['psnr']:.6g} over the "
+          f"100 frames (bound > {PSNR_MIN}): {'pass' if ok_psnr else 'FAIL'}")
+    check(ok_ate and ok_psnr, f"phase 12b: the row {r} misses phase 6's "
+          f"bounds")
+    check_launches("phase 12b", launches)
+    return launches
+
+
+def phase_test_spread(dev, card):
+    """Phase 12c: tools/test_spread.py, seeds 0 and 1 at 48x64 x 12."""
+    from gaus_slam_tpu_torch.tools import test_spread
+
+    out = out_dir("test_spread")
+    path = os.path.join(out, "spread.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    with launch_log("test_spread") as log:
+        summary = test_spread.main(["--seeds", "0", "1", "--device", "cuda",
+                                    "--out", path, "--out-root", out])
+    secs = time.perf_counter() - t0
+    launches = child_launches(log)
+    rows = summary["rows"]
+    print(f"[test_spread] {card}: {summary['workload']}; rows "
+          f"{json.dumps(rows)}; launches in the children "
+          f"{json.dumps(launches)}; {secs:.1f} s")
+    check(sorted(r["seed"] for r in rows) == [0, 1],
+          f"phase 12c: rows for seeds {[r['seed'] for r in rows]}")
+    check_launches("phase 12c", launches)
+    keys = {"ATE RMSE": "ate_rmse", "PSNR": "psnr", "MS-SSIM": "ms_ssim",
+            "Depth L1": "depth_l1"}
+    with open(JAX_SPREAD) as f:
+        jax = json.load(f)
+    jax_rows = {r["seed"]: r for r in jax["rows"]}
+    b = jax["suggested_bounds"]
+    spread_bounds = {"ATE RMSE": ("<", b["ate_lt"]),
+                     "PSNR": (">", b["psnr_gt"]),
+                     "Depth L1": ("<", b["depth_l1_lt"])}
+    for r in rows:
+        label = f"spread_seed{r['seed']}"
+        check(0 < r["fscore"] <= 1, f"phase 12c: {label} F-score "
+              f"{r['fscore']}")
+        if not small_bounds_failed(label, {k: r[v] for k, v in keys.items()}):
+            continue
+        j = jax_rows[r["seed"]]
+        jax_missed = small_bounds_failed(
+            f"{label} (JAX package)", {k: j[v] for k, v in keys.items()})
+        if jax_missed:
+            print(f"[{label}] the JAX package misses those bounds at this "
+                  f"seed too; held to its five seeds' suggested bounds "
+                  f"{json.dumps(b)}")
+            check(not small_bounds_failed(
+                label, {k: r[keys[k]] for k in spread_bounds}, spread_bounds)
+                and r["fscore"] > b["fscore_gt"],
+                f"phase 12c: {label} misses the JAX spread's bounds")
+        else:
+            # phase 5's allowance: rerun the seed here to read its keyframe
+            # tests, and the control with the borderline one reversed
+            phase_driver_small(dev, label, seed=r["seed"])
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3301,6 +3494,9 @@ def main() -> int:
         bf16_small, bf16_full = phase_bf16_driver(dev, probe.fps)
         phase_scripts(dev)
         phase_microbench(dev)
+        probe_launches = phase_backend_probe(card)
+        ab_launches = phase_quality_ab(card)
+        spread_launches = phase_test_spread(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3311,7 +3507,8 @@ def main() -> int:
               "9b 340x600": full_3dgs, "9c": splatam_launches,
               "9d": densify_launches, "10a": stream_launches,
               "10b": ba_launches, **mp_launches, "11b 48x64": bf16_small,
-              "11b 340x600": bf16_full}
+              "11b 340x600": bf16_full, "12a": probe_launches,
+              "12b": ab_launches, "12c": spread_launches}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase

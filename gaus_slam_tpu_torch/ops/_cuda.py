@@ -10,13 +10,18 @@ stream; each C function returns ``cudaGetLastError()`` and the wrapper
 raises if it is not 0.
 
 ``LAUNCHES`` counts kernel launches by name: a wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else. With ``GAUS_LAUNCH_LOG`` set to a
+file path, a process appends its counts to that file as one JSON line
+when it exits, so a tool that runs the drivers in child processes
+(tools/quality_ab.py, tools/test_spread.py) can sum their launches.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -37,6 +42,17 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCH_LOG_ENV = "GAUS_LAUNCH_LOG"
+
+
+def _log_launches(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(),
+                            "launches": dict(LAUNCHES)}) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_log_launches, os.environ[LAUNCH_LOG_ENV])
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

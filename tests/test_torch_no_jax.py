@@ -53,7 +53,9 @@ def test_port_imports_no_jax():
                 "ops.knn", "ops.preprocess_3dgs", "scripts.splatam",
                 "parallel", "parallel.ba", "scripts.gaus_mp",
                 "scripts.eval_nvs", "scripts.gen_video", "utils.gif",
-                "utils.keyframe_selection", "tools.microbench"):
+                "utils.keyframe_selection", "tools.microbench",
+                "tools.backend_probe", "tools.ab_runner", "tools.quality_ab",
+                "tools.test_spread"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
