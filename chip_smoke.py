@@ -17,9 +17,13 @@ line):
    twice and bit-equal to itself, K3's out bit-equal to K1's, K5's
    re-forward stash bit-equal to K1's stash and its gradient to K2's, K4
    (the row-layout gather the reduction calls) bit for bit against its
-   plain version and torch.index_select. Prints errors, tolerances, ms
-   per call (CUDA events after warm-up; K4, a short kernel, inside a CUDA
-   graph) and K2's and K4's registers, spills and shared memory.
+   plain version and torch.index_select, also on a binning whose pair
+   budget is cut below demand (it overflows: the reduction's run path,
+   K4 included, runs there too and torch.where drops it), where the
+   selected reduction must be the slab one bit for bit (the run one
+   without overflow). Prints errors, tolerances, ms per call (CUDA events
+   after warm-up; K4, a short kernel, inside a CUDA graph) and K2's and
+   K4's registers, spills and shared memory.
 3. The port's Frontend (backend "pallas": K1-K4) over 24 frames, submaps
    of 10 frames, so at least two submap cuts, then process_final; the
    backend queue is drained after every frame. Per frame: iterations,
@@ -29,7 +33,9 @@ line):
    error of its constant-velocity init, or within T_ERR_ABS (2x the JAX
    system's ATE where that init is already near it); a tracker that never
    moves its pose must fail that check. Every LocalMap must hold finite
-   frozen poses, a descriptor and its kept frames. K1-K4 must launch.
+   frozen poses, a descriptor and its kept frames. K1-K4 must launch. The
+   iterations and losses per frame must equal PARENT_PHASE3 (the code
+   before the step path's host waits were taken out, on this card).
 3b. The same Frontend under backend "reference" (the plain compositor,
    K5 as its backward, the plain gather) with tpu.coarse_map_stride 1,
    6 frames; K5 must launch and K1-K4 must not. This backend tracks at
@@ -39,7 +45,16 @@ line):
    ATE_JAX of the control's error.
    Launches are counted per phase: zeroed just before, read just after.
 4. torch.profiler over a tracking and a mapping iteration on phase 3's
-   final map.
+   final map: wall, device busy, idle share, and the host's ms in the
+   CUDA calls that wait for the card (stream synchronizes, synchronous
+   copies: a step's host waits).
+4b. No host wait inside a step (tools/sync_audit.py): tracking_loop
+   with the config's converged_th, a frontend mapping_step, a
+   Backend.process() running a fused x4 mapping batch and a
+   sharded_ba_step over four slots of the card, at 340x600, each under
+   torch.cuda.set_sync_debug_mode("error"); any flagged call fails. The
+   tracking loop's lagged early-exit read waits on a CUDA event (not a
+   flagged call): its waits and masked iterations are printed.
 5. The port's driver (scripts/gaus.py::rgbd_slam, backend "pallas") at
    the test scale, 48x64 over 12 frames: it must write the result,
    timing and scene artifacts and clear the bounds
@@ -57,7 +72,8 @@ line):
    in the JAX package as in the port: PERF.md, section 6). Prints frames per
    second of the frame loop (backend drains included), ms per backend
    task by kind (a device sync after each), merges, capacity-bucket
-   flips, ms per eval_final frame and the peak device memory.
+   flips, ms per eval_final frame and the peak device memory. ATE and
+   first-submap PSNR must print as PARENT_DRIVER's (the earlier code's).
 7. K6, the bf16 probe: its entry point (python -m
    gaus_slam_tpu_torch.tools.bf16_probe) once, then each of its six
    (chain, dtype) cases against the plain version at the probe's
@@ -116,9 +132,23 @@ line):
    transforms must equal the first "off" run's to the bit wherever the
    two "off" runs agree to the bit, and elsewhere lie within twice their
    difference; every K1/K2/K4 launch inside the backend must run on its
-   stream and every frontend launch on the default stream. The
-   milliseconds in which the two streams' kernels overlapped, from a
-   profiler trace of two turns, are printed, not required.
+   stream and every frontend launch on the default stream. The same
+   holds under allocator pressure (each merge's backend work starts with
+   a spin, and the default stream at once fills fresh tensors of the
+   donor snapshot's sizes); the control without Backend._adopt's
+   record_stream must differ there, as the control without the wait
+   must; and gaus_mp's feeder handoff (_receive) under the same pressure
+   reads its frame, its control without record_stream the next one. The
+   "off" map's digest must equal PARENT_10A_DIGEST when set. The
+   milliseconds in which the two streams' kernels overlapped are read
+   from profiler traces (the backend's stream carries mark kernels) of
+   two turns as scheduled and of two turns with a BACKLOG_CYCLES spin
+   queued on the caller's stream (which the backend's waits for) before
+   their backend tasks, with the host's kernel launches that blocked on
+   a full launch queue; printed, not required (PERF.md, section 6:
+   0.000 ms in both windows, the launches hold the host).
+   (python3 chip_smoke.py --streams-of <root> prints both windows for
+   the port of another tree, unchecked.)
    10b. parallel.sharded_ba_step over four slots of cuda:0 at 340x600 on
    phase 2's random map with the synthetic scene's frames 0-3 against the
    sequential mean-gradient step (loss within 1e-5 relative, parameters
@@ -154,7 +184,8 @@ line):
    (SMALL_BOUNDS_BF16); at 340x600 x 30 against phase 6's ATE bound and
    its first-submap PSNR bound moved by the JAX package's 340x600 render
    gap (PSNR_MIN_BF16), the pixels with x, y < 256 and the rest printed;
-   only the bf16 K1-K3 launch; frames/s beside phase 6's.
+   only the bf16 K1-K3 launch; frames/s beside phase 6's; ATE and
+   first-submap PSNR as PARENT_DRIVER's.
    11c. scripts/eval_nvs.py on phase 6's scene (every 6th frame), without
    and with pose refinement (finite metrics, the refined PSNR at most
    0.1 dB under the unrefined); scripts/gen_video.py on it, flythrough
@@ -167,7 +198,8 @@ line):
    backend-shaped map (capacity 2883584) and each stage's ms under the
    factor budget and the demand-keyed pair cap; every time finite and
    > 0, the pair cap's bin without overflow and with num_pairs ==
-   demand; the peak device memory; K1, K2 and K4 launched.
+   demand; the peak device memory; K1, K2 and K4 launched; demand,
+   num_pairs and n_active equal PARENT_PROBE.
    12b. tools/quality_ab.py --variants default --seeds 0 --frames 100 at
    340x600 through its ab_runner child process: the row has no error and
    clears phase 6's ATE and PSNR bounds (whole run, 100 frames); K1-K4
@@ -201,6 +233,24 @@ CONFIG = os.path.join(REPO, "configs", "synthetic", "config.py")
 
 H, W = 340, 600              # bench shape (bench.py)
 N_FRAMES = 24                # phase 3: two cuts at the default 10-frame submaps
+# What the code before the step path's host waits were taken out printed
+# on this card (commit ecfd254, chip_smoke): the device-side branches
+# and the lagged early exit must give the same numbers, to every digit.
+# phase 3: frame -> (tracking iterations, loss to 4 decimals)
+PARENT_PHASE3 = {
+    1: (30, "1677.6172"), 2: (30, "1887.7397"), 3: (17, "157.1553"),
+    4: (12, "183.1952"), 5: (15, "170.7265"), 6: (13, "280.7792"),
+    7: (13, "206.6241"), 8: (15, "152.5048"), 9: (13, "132.4072"),
+    10: (14, "139.5131"), 11: (16, "146.8007"), 12: (17, "144.3071"),
+    13: (13, "124.1348"), 14: (30, "1101.0991"), 15: (13, "124.2545"),
+    16: (15, "134.2476"), 17: (13, "132.7693"), 18: (13, "160.6365"),
+    19: (12, "157.0670"), 20: (12, "140.6700"), 21: (17, "129.1541"),
+    22: (16, "136.0360"), 23: (16, "130.9289")}
+# phases 6 and 11b: ATE RMSE and first-submap PSNR as printed (.6g)
+PARENT_DRIVER = {"driver_340x600": ("0.00196726", "41.291"),
+                 "bf16_340x600": ("0.00950253", "32.9287")}
+# phase 12a: demand, num_pairs and n_active of the probe's map
+PARENT_PROBE = {"demand": 3772565, "num_pairs": 3772565, "n_active": 2448000}
 N_FRAMES_REF = 6             # phase 3b
 # A tracked frame ends below TRACK_GAIN x its constant-velocity init's
 # translation error, or within T_ERR_ABS: twice the JAX system's
@@ -976,7 +1026,62 @@ def phase_kernels(ds, sys_cfg, capacity, dev):
     results["monotone_row_gather"] = dict(
         max_abs_err=err4, ms=t_k4, plain_ms=t_p4, bound_ms=b4,
         bound_by="bytes", library_ms=t_l4)
+    overflow_reduction(gm, cam, opts, bins, rng, dev)
     return results
+
+
+def overflow_reduction(gm, cam, opts, bins, rng, dev):
+    """Phase 2: the reduction decides its branch on the device, so the
+    run path (K4's landing) also runs on an overflowing binning, whose
+    result torch.where then drops. K4 must hold its plain version there
+    too, and the selected result must be the slab reduction's bits; on
+    the usual binning, the run path's."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.gather import (
+        monotone_row_gather_rows, monotone_row_gather_rows_plain)
+    from gaus_slam_tpu_torch.render import bin_full
+
+    n, d_max = gm.params.xyz.shape[0], opts.max_tiles_per_gaussian
+    demand = int(bins.demand)
+    # a pair budget cut below demand, as tests/test_torch_reduce.py's
+    # r_max = 384 case, at this map's width
+    tight = opts._replace(pair_cap=max(128, demand // 2))
+    with torch.no_grad():
+        obins = bin_full(gm.params, gm.active, cam, tight)
+    r = obins.pair_gauss.shape[0]
+    check(bool(obins.overflow) and int(obins.demand) == demand,
+          f"phase 2: a {r}-pair budget under demand {demand} did not "
+          f"overflow")
+    pos = torch.clamp(torch.cumsum(obins.counts, 0) - 1, 0,
+                      r - 1).to(torch.int32)
+    acc = torch.as_tensor(rng.normal(size=(r, 24)).astype(np.float32),
+                          device=dev)
+    k4 = monotone_row_gather_rows(acc, pos)
+    p4 = monotone_row_gather_rows_plain(acc, pos)
+    g = torch.as_tensor(rng.normal(size=(r, 24)).astype(np.float32),
+                        device=dev)
+    sel = obins.slab_scatter_grads(g, n, backend=opts.backend)
+    zero = torch.zeros((), device=dev)
+    slab = obins._slab_reduce(torch.where(obins.pair_ok[:, None], g, zero),
+                              n, d_max)
+    g_full = torch.as_tensor(rng.normal(
+        size=(bins.pair_gauss.shape[0], 24)).astype(np.float32), device=dev)
+    sel_full = bins.slab_scatter_grads(g_full, n, backend=opts.backend)
+    run_full = bins._run_reduce(
+        torch.where(bins.pair_ok[:, None], g_full, zero), n, d_max,
+        opts.backend)
+    torch.cuda.synchronize()
+    k4_same = bool(torch.equal(k4, p4))
+    picked = bool(torch.equal(sel, slab)) and bool(torch.equal(sel_full,
+                                                              run_full))
+    print(f"[kernels] K4 on an overflowing binning (R={r} under demand "
+          f"{demand}, N={n}): bit-exact against its plain version {k4_same}; "
+          f"the selected reduction is the slab one (overflow) and the run "
+          f"one (no overflow), bit for bit: {picked}")
+    check(k4_same, "phase 2: K4 is not bit-exact on an overflowing binning")
+    check(picked, "phase 2: slab_scatter_grads did not select the slab "
+          "reduction under overflow, or the run one without")
 
 
 # ---------------------------------------------------------------------------
@@ -1098,6 +1203,13 @@ def phase_frontend(cfg, ds, dev):
     check(cuts >= 2, f"phase 3 cut {cuts} submaps, not at least 2")
     for name in STASH_PATH:
         check(launches.get(name, 0) > 0, f"{name} never launched in phase 3")
+    now = {r["t"]: (r["iters"], f"{r['loss']:.4f}") for r in recs if r["t"]}
+    differ = {t: (now.get(t), v) for t, v in PARENT_PHASE3.items()
+              if now.get(t) != v}
+    print(f"[frontend] iterations and losses per frame equal the earlier "
+          f"code's: {not differ}; differing (now, then): {differ}")
+    check(not differ, f"phase 3: iterations or losses moved from the "
+          f"earlier code's: {differ}")
     return launches, recs, state, lms
 
 
@@ -1155,15 +1267,16 @@ def frame_times(label, recs):
 
 def phase_profile(st):
     """torch.profiler over 3 full-resolution tracking iterations and one
-    2-iteration mapping group on phase 3's final map and frame: device
-    busy time (sum of kernel times), the host wall time around it and the
-    busiest device ops. Prints 'not measured' where the profiler sees no
-    device time."""
+    2-iteration mapping group on phase 3's final map and frame
+    (tools/sync_audit.py::profile_window): device busy time (sum of
+    kernel times), the host wall time around it, the busiest device ops,
+    and the host's time in CUDA calls that wait for the card. Prints 'not
+    measured' where the profiler sees no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gaus_slam_tpu_torch.render import bin_for_tracking
     from gaus_slam_tpu_torch.slam.steps import mapping_loop, tracking_loop
+    from gaus_slam_tpu_torch.tools.sync_audit import profile_window
 
     fe, pose, gt = st["fe"], st["pose"], st["gt"]
     s = fe.sys
@@ -1185,32 +1298,46 @@ def phase_profile(st):
                       ("mapping, 1 group of 2 iterations", mapping)):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: a CPU op also reports the time of
-            # the kernels it launched, which would count them twice
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
-                continue
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.count, ev.key))
-        busy = sum(r[0] for r in rows)
-        if busy <= 0:
-            print(f"[profile] {label}: wall {wall:.1f} ms, device time not "
-                  f"measured (the profiler saw none)")
+        w = profile_window(fn)
+        print(f"[profile] {label}: host waits {w['wait_ms']:.3f} ms (stream "
+              f"synchronizes and synchronous copies); by call (ms, count) "
+              f"{json.dumps(w['waits'])}")
+        if w["busy"] <= 0:
+            print(f"[profile] {label}: wall {w['wall']:.1f} ms, device time "
+                  f"not measured (the profiler saw none)")
             continue
-        rows.sort(reverse=True)
-        print(f"[profile] {label}: wall {wall:.1f} ms, device busy "
-              f"{busy:.1f} ms, idle share {1 - busy / wall:.2f}; top: "
+        print(f"[profile] {label}: wall {w['wall']:.1f} ms, device busy "
+              f"{w['busy']:.1f} ms, idle share "
+              f"{1 - w['busy'] / w['wall']:.2f}; top: "
               + "; ".join(f"{k[:60]} x{n} {ms:.2f} ms"
-                          for ms, n, k in rows[:8]))
+                          for ms, n, k in w["top"]))
+
+
+def phase_no_sync(dev, card):
+    """Phase 4b: no host wait inside a step. tools/sync_audit.py's four
+    steps at 340x600 (a Frontend over frames 0-10, a Backend that merged
+    the first submap): tracking_loop with the config's converged_th, the
+    frontend's mapping_step, a Backend.process() that runs a fused x4
+    mapping batch and a sharded_ba_step over four slots of this card,
+    each run once, then once under torch.cuda.set_sync_debug_mode
+    ("error"): a stream synchronize, a blocking copy or a read of a
+    device value inside fails the phase. The tracking loop's lagged
+    early-exit read waits on a CUDA event, which is not a flagged call;
+    its waits and masked iterations are printed."""
+    from gaus_slam_tpu_torch.tools import sync_audit
+
+    st = sync_audit.build_state(H, W, dev)
+    res, aux = sync_audit.audit(st, "error")
+    sync_audit.report(res)
+    iters = int(aux["iters"])
+    print(f"[no_sync] {card}: tracking_loop (converged_th "
+          f"{st['fe'].sys.track_front.converged_th}): {iters} live "
+          f"iterations, {aux['queued'] - iters} masked, {aux['host_waits']} "
+          f"lagged event waits; flagged calls per step "
+          f"{ {k: len(v) for k, v in res.items()} }")
+    for name, found in res.items():
+        if found:
+            check(False, f"phase 4b: {name} made the host wait: {found[0]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1551,6 +1678,12 @@ def phase_driver_full(dev, label="driver_340x600", edit=None, suffix="",
     check(np.isfinite(own).all() and own.mean() > psnr_min,
           f"{label}: PSNR {own.mean()} over the first submap's frames "
           f"not > {psnr_min}")
+    if label in PARENT_DRIVER:
+        got = (f"{ate:.6g}", f"{own.mean():.6g}")
+        print(f"[{label}] ATE RMSE and first-submap PSNR {got}, the earlier "
+              f"code's {PARENT_DRIVER[label]}")
+        check(got == PARENT_DRIVER[label], f"{label}: ATE / PSNR {got} "
+              f"moved from the earlier code's {PARENT_DRIVER[label]}")
     return launches, probe
 
 
@@ -2161,8 +2294,16 @@ def phase_gs_densify(dev, card):
 
 N_LOAD = 12            # 10a: frontend frames tracked beside each backend run
 LATE_HANDOFF_CYCLES = 400_000_000   # 10a: ~0.2 s of spin at the H100's clock
+MARK_KERNELS = ("spin_kernel", "kernelHistogram1D")  # 10a: the stream marks
+# 10a: map_digest of the "off" run's backend state with the code before
+# the step path's host waits were taken out (commit ecfd254, this card)
+PARENT_10A_DIGEST = "5c0d56a78583088a"
 TASKS_PER_TURN = 4     # 10a: backend tasks per turn, as in gaus_mp's loop
 PROFILE_TURNS = range(2, 4)   # 10a: the turns the profiler watches
+BACKLOG_TURNS = range(4, 6)   # 10a: the same with a backlog on the backend
+BACKLOG_CYCLES = 400_000_000  # 10a: ~0.2 s, more than 4 tasks' host time
+# MARK_KERNELS: spins and the histogram kernel are left out of the busy
+# time; the histogram kernel marks the backend's stream
 BA_GROUP = 4           # 10b: keyframes of one sharded step, all on cuda:0
 
 
@@ -2200,13 +2341,23 @@ def stream_overlap(trace_path):
     with open(trace_path) as f:
         trace = json.load(f)["traceEvents"]
     events = [e for e in trace if e.get("cat") == "kernel"]
+
+    def is_mark(e):
+        return any(m in e.get("name", "") for m in MARK_KERNELS)
+
+    # spins (marks, backlogs) may run on either stream; the histogram
+    # kernel marks the backend's alone
     marks = {e["args"].get("stream") for e in events
-             if "spin" in e.get("name", "")}
+             if MARK_KERNELS[1] in e.get("name", "")}
     by_stream = collections.defaultdict(list)
     for e in events:
-        if "spin" not in e.get("name", ""):
+        if not is_mark(e):
             by_stream[e["args"].get("stream")].append(
                 (e["ts"], e["ts"] + e["dur"]))
+    print(f"[streams] trace marks: "
+          f"{sorted({(e['args'].get('stream'), e['name'][:60]) for e in events if is_mark(e)})}"
+          f"; kernels per stream "
+          f"{ {k: len(v) for k, v in sorted(by_stream.items())} }")
     backend = next(iter(marks)) if len(marks) == 1 else None
     other = backend if backend is not None else (
         max(by_stream) if len(by_stream) == 2 else None)
@@ -2220,6 +2371,14 @@ def stream_overlap(trace_path):
     rest = union([iv for k, v in busy.items() if k != other for iv in v])
     span = (max(e["ts"] + e["dur"] for e in events)
             - min(e["ts"] for e in events))
+    # where the host traced its CUDA calls: the launches that blocked it
+    # (a full launch queue) for more than a millisecond
+    blocked = [e["dur"] / 1e3 for e in trace if e.get("cat") == "cuda_runtime"
+               and e.get("name") == "cudaLaunchKernel"
+               and e.get("dur", 0) > 1000]
+    print(f"[streams] kernel launches that held the host over 1 ms: "
+          f"{len(blocked)}, {sum(blocked):.1f} ms in all, longest "
+          f"{max(blocked, default=0.0):.1f} ms")
     return ({k: sum(b - a for a, b in v) / 1e3 for k, v in busy.items()},
             backend, overlap_us(busy[other], rest) / 1e3, span / 1e3)
 
@@ -2250,17 +2409,31 @@ def late_handoff(lm):
     rgb.copy_(saved)
 
 
+def adopt_without_record(be, t):
+    """10a's record_stream control: Backend._adopt with the tensor not
+    marked as in use on the backend's stream, the fault the pressure runs
+    must catch."""
+    if t is None or be.stream is None or t.device != be.device:
+        return type(be)._adopt(be, t)
+    return t
+
+
 def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
-               wait=True):
+               wait=True, pressure=False, record=True):
     """10a: a fresh Backend with tpu.backend_device ``bd`` through one fixed
     call sequence (each of ``lms`` merged, then TASKS_PER_TURN process()
     calls a turn until its queue is empty) while a Frontend tracks the
     synthetic frames on the default stream between the turns. ``late``
     hands each donor snapshot over late (late_handoff); ``wait=False``
     leaves out the backend's wait on the caller's stream (the control).
-    Returns (final state, launches of the run, launches by (kernel,
-    inside the backend, stream handle), the profiled window's overlap or
-    None, seconds)."""
+    ``pressure``: each merge's work on the backend's stream starts with a
+    spin of LATE_HANDOFF_CYCLES, and as soon as the merge call returns
+    the default stream fills fresh tensors of the donor snapshot's sizes,
+    which the caching allocator may place in the donor's freed memory;
+    ``record=False`` leaves out Backend._adopt's record_stream (the
+    control). Returns (final state, launches of the run, launches by
+    (kernel, inside the backend, stream handle), the profiled window's
+    overlap or None, seconds)."""
     import collections
     import copy
     import types
@@ -2280,6 +2453,19 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     if not wait:
         be.stream_context = types.MethodType(stream_context_without_wait,
                                              be)
+    if not record:
+        be._adopt = types.MethodType(adopt_without_record, be)
+    delay = [False]
+    if pressure:
+        entry = be.stream_context
+
+        @contextlib.contextmanager
+        def delayed():
+            with entry():
+                if delay[0]:
+                    torch.cuda._sleep(LATE_HANDOFF_CYCLES)
+                yield
+        be.stream_context = delayed
     fe = Frontend(cfg, queue.Queue(), device=dev)
     inside = [False]
     streams = collections.Counter()
@@ -2303,53 +2489,88 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     merge, process = in_backend(be.process_localmap), in_backend(be.process)
     frames = iter(range(N_LOAD))
 
-    def load():
+    def fetch():
+        # the next frame from the dataset (host work, before the turn's
+        # backend tasks)
         t = next(frames, None)
-        if t is not None:
-            color, depth, _, c2w = ds[t]
+        return None if t is None else (t, ds[t])
+
+    def load(item):
+        if item is not None:
+            t, (color, depth, _, c2w) = item
             fe.process_frame(t, np.asarray(color, np.float32)
                              / np.float32(255), np.asarray(depth), c2w)
             while not fe.to_backend.empty():
                 fe.to_backend.get()
 
     def mark(stream):
-        # a spin kernel tells the backend's stream apart in the trace
+        # a spin kernel and a histogram kernel (which the port never
+        # launches) tell the backend's stream apart in the trace
         with torch.cuda.stream(stream):
             torch.cuda._sleep(1000)
+            torch.histc(torch.ones(64, device=stream.device), bins=4,
+                        min=0.0, max=2.0)
 
-    prof, overlap, turn = None, None, 0
+    # profiled windows: the schedule as it is, then the same turns with
+    # a backlog (a spin queued on the backend's stream before its tasks)
+    windows = ({PROFILE_TURNS.start: ("plain", PROFILE_TURNS),
+                BACKLOG_TURNS.start: ("backlog", BACKLOG_TURNS)}
+               if profile else {})
+    prof, win, overlap, turn = None, None, {}, 0
     torch.cuda.synchronize()
     _cuda.LAUNCHES.clear()
     _cuda.check = counted_check
     t0 = time.perf_counter()
+    filled = []
     try:
         for lm in copy.deepcopy(lms):
             if late:
                 late_handoff(lm)
+            shapes = [(p.shape, p.dtype) for p in lm.map_params[0]]
+            delay[0] = True
             merge(lm, multi_process=True)
+            delay[0] = False
+            if pressure:
+                # the merge dropped the donor snapshot: reuse its sizes now
+                filled.append([torch.full(sh, 1e3, dtype=dt, device=dev)
+                               for sh, dt in shapes])
             while be.task_queue:
-                if profile and turn == PROFILE_TURNS.start:
-                    prof = profiler(activities=[ProfilerActivity.CUDA])
+                if turn in windows:
+                    win = windows[turn]
+                    # the backlog window also traces the host's CUDA calls
+                    prof = profiler(activities=[ProfilerActivity.CUDA] + (
+                        [ProfilerActivity.CPU] if win[0] == "backlog"
+                        else []))
                     prof.start()
+                item = fetch()
+                if prof is not None:
+                    # every turn: a trace may lose a few kernel records
                     mark(be.stream)
+                if prof is not None and win[0] == "backlog":
+                    # on the caller's stream, which the backend's waits
+                    # for: the turn's backend work and the frontend's
+                    # queue up behind it and are released together
+                    torch.cuda._sleep(BACKLOG_CYCLES)
                 for _ in range(TASKS_PER_TURN):
                     if be.task_queue:
                         process()
-                load()
-                if prof is not None and turn == PROFILE_TURNS.stop - 1:
+                load(item)
+                if prof is not None and turn == win[1].stop - 1:
                     mark(be.stream)
                     torch.cuda.synchronize()
                     prof.stop()
-                    path = os.path.join(out_dir("streams"), "trace.json")
+                    path = os.path.join(out_dir("streams"),
+                                        f"trace_{win[0]}.json")
                     os.makedirs(os.path.dirname(path), exist_ok=True)
                     prof.export_chrome_trace(path)
-                    overlap = stream_overlap(path)
+                    overlap[win[0]] = stream_overlap(path)
                     prof = None
                 turn += 1
         be.wait()
         torch.cuda.synchronize()
     finally:
         _cuda.check = real_check
+    del filled
     secs = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     return backend_state_arrays(be), be, launches, streams, overlap, secs
@@ -2364,19 +2585,31 @@ def phase_streams(cfg, ds, lms, dev, card):
 
     check(len(lms) >= 2, f"phase 10a: {len(lms)} LocalMaps from phase 3")
     runs = {}
-    for label, bd, late, wait in (("off", "off", False, True),
-                                  ("off again", "off", False, True),
-                                  ("auto", "auto", False, True),
-                                  ("auto, late handoff", "auto", True, True),
-                                  ("control: auto, late handoff, no wait",
-                                   "auto", True, False)):
+    for label, bd, late, wait, pressure, record in (
+            ("off", "off", False, True, False, True),
+            ("off again", "off", False, True, False, True),
+            ("auto", "auto", False, True, False, True),
+            ("auto, late handoff", "auto", True, True, False, True),
+            ("auto, late handoff, pressure", "auto", True, True, True, True),
+            ("control: auto, late handoff, no wait", "auto", True, False,
+             False, True),
+            ("control: auto, late handoff, pressure, no record_stream",
+             "auto", True, True, True, False)):
         runs[label] = stream_run(label, cfg, lms, ds, dev, bd,
                                  profile=(label == "auto"), late=late,
-                                 wait=wait)
+                                 wait=wait, pressure=pressure, record=record)
         print(f"[streams] {card}: {label}: {len(lms)} merges, "
               f"{runs[label][5]:.2f} s with {N_LOAD} frontend frames beside "
-              f"them; launches {json.dumps(runs[label][2])}")
+              f"them; map digest {map_digest(runs[label][0])}; launches "
+              f"{json.dumps(runs[label][2])}")
     a, b = runs["off"][0], runs["off again"][0]
+    digest = map_digest(a)
+    if PARENT_10A_DIGEST is not None:
+        check(digest == PARENT_10A_DIGEST, f"phase 10a: the off run's map "
+              f"digest {digest} is not the earlier code's "
+              f"{PARENT_10A_DIGEST}")
+        print(f"[streams] {card}: the off run's map equals the earlier "
+              f"code's bit for bit (digest {digest})")
     _, be, launches, streams, overlap, _ = runs["auto"]
     check(be.stream is not None, "phase 10a: backend_device auto has no "
           "stream of its own on one card")
@@ -2406,7 +2639,8 @@ def phase_streams(cfg, ds, lms, dev, card):
                 worst.append((k, dz, spread))
         return n_equal, n_all, worst, broken
 
-    for label in ("auto", "auto, late handoff"):
+    for label in ("auto", "auto, late handoff",
+                  "auto, late handoff, pressure"):
         n_equal, n_all, worst, broken = against_off(label)
         check(not broken, f"phase 10a: {label}: {broken} differ on the "
               f"backend's stream where the two runs on the frontend's agree "
@@ -2428,6 +2662,15 @@ def phase_streams(cfg, ds, lms, dev, card):
     print(f"[streams] {card}: {label}: differs from the frontend-stream run "
           f"where the two frontend-stream runs agree, as it must "
           f"({n_all - n_equal} of {n_all} values, in {len(broken)} arrays)")
+    label = "control: auto, late handoff, pressure, no record_stream"
+    n_equal, n_all, _, broken = against_off(label)
+    check(bool(broken), f"phase 10a: {label}: the map came out bit-equal "
+          f"to the frontend-stream run, so 10a's check cannot see a missing "
+          f"record_stream")
+    print(f"[streams] {card}: {label}: differs from the frontend-stream run "
+          f"where the two frontend-stream runs agree, as it must "
+          f"({n_all - n_equal} of {n_all} values, in {len(broken)} arrays)")
+    feeder_handoff(dev, card)
     default = torch.cuda.default_stream().cuda_stream
     own = be.stream.cuda_stream
     for name in ("raster_forward_stash", "raster_backward_stash",
@@ -2441,18 +2684,126 @@ def phase_streams(cfg, ds, lms, dev, card):
     print(f"[streams] {card}: backend K1/K2/K4 launches on its stream: "
           + ", ".join(f"{w} {n}" for (w, ins, h), n in sorted(streams.items())
                       if ins and h == own))
-    if overlap is None:
-        print(f"[streams] {card}: overlap of frontend and backend kernels "
-              f"not measured (the trace told no two streams apart)")
-    else:
-        busy, bstream, both, span = overlap
-        print(f"[streams] {card}: turns {PROFILE_TURNS.start}-"
-              f"{PROFILE_TURNS.stop - 1} of the auto run under the profiler: "
-              f"window {span:.1f} ms, kernel busy ms by trace stream "
-              f"{json.dumps({str(k): round(v, 3) for k, v in busy.items()})} "
-              f"(the backend's: {bstream if bstream is not None else 'unmarked'}"
-              f"), both streams at once {both:.3f} ms")
+    # no host wait is left in the backend's steps (4b), yet the streams'
+    # kernels do not overlap: the eager host queues each step's ~1100
+    # small kernels no faster than the card runs them, and a backlog
+    # (the backlog window) fills the launch queue, whose full-queue
+    # launches hold the host until the backend's work has drained
+    # (PERF.md, section 6). Printed, not required.
+    print_overlap(card, overlap)
     return launches
+
+
+def print_overlap(card, overlap):
+    """Prints 10a's profiled windows; returns {window: ms in which both
+    streams' kernels ran}. Fails when a trace tells no streams apart."""
+    both, unmarked = {}, []
+    for name, turns in (("plain", PROFILE_TURNS), ("backlog", BACKLOG_TURNS)):
+        check(overlap.get(name) is not None, f"phase 10a: the {name} "
+              f"window's trace told no two streams apart")
+        busy, bstream, both[name], span = overlap[name]
+        print(f"[streams] {card}: turns {turns.start}-{turns.stop - 1} of the "
+              f"auto run under the profiler ({name}"
+              + (f", a {BACKLOG_CYCLES}-cycle spin queued on the caller's "
+                 f"stream before each turn's backend tasks" if name ==
+                 "backlog" else "") + f"): window {span:.1f} ms, kernel busy ms by "
+              f"trace stream "
+              f"{json.dumps({str(k): round(v, 3) for k, v in busy.items()})} "
+              f"(the backend's: "
+              f"{bstream if bstream is not None else 'unmarked'}), both "
+              f"streams at once {both[name]:.3f} ms")
+        if bstream is None:
+            unmarked.append(name)
+    check(not unmarked, f"phase 10a: the traces of {unmarked} did not mark "
+          f"the backend's stream")
+    return both
+
+
+def streams_of(root):
+    """10a's profiled "auto" run with the port found under ``root`` (an
+    unpacked older tree, say): phase 3's LocalMaps, then stream_run's two
+    windows, printed. A measurement to set beside this tree's in one
+    call; nothing is checked. ``python3 chip_smoke.py --streams-of
+    <root>``."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import gaus_slam_tpu_torch
+
+    print(f"[streams_of] the port from {gaus_slam_tpu_torch.__file__}")
+    dev = torch.device("cuda")
+    cfg, ds, _, _ = make_setup(dev)
+    _, _, _, lms = drive_frontend("frontend", cfg, ds, "pallas", N_FRAMES,
+                                  dev)
+    run = stream_run("auto", cfg, lms, ds, dev, "auto", profile=True)
+    print(f"[streams_of] map digest {map_digest(run[0])}")
+    print_overlap(card_line(), run[4])
+
+
+def map_digest(state):
+    """sha1 of a flat {name: array} state (backend_state_arrays), names
+    in order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(np.asarray(state[k])).tobytes())
+    return h.hexdigest()[:16]
+
+
+def feeder_handoff(dev, card):
+    """10a: gaus_mp's feeder hands each frame from its copy stream to the
+    frontend's (scripts/gaus_mp.py::_receive: a wait on the copy's event,
+    then record_stream). Provoked as the backend's handoff: the frontend's
+    stream spins before it reads the frame, the frame's tensors are
+    dropped, and the feeder copies the next frame at once. Through
+    _receive the read sees the first frame; without its record_stream
+    (the control) the next frame's copy lands in the freed memory
+    first."""
+    import torch
+
+    from gaus_slam_tpu_torch.scripts.gaus_mp import _receive
+
+    def receive_without_record(color, depth, event):
+        torch.cuda.current_stream().wait_event(event)
+        return color, depth
+
+    copy_stream = torch.cuda.Stream(device=dev)
+    n = H * W
+
+    def staged(value):
+        with torch.cuda.stream(copy_stream):
+            c = torch.full((n, 3), value, dtype=torch.uint8).pin_memory().to(
+                dev, non_blocking=True)
+            d = torch.full((n,), value, dtype=torch.int16).pin_memory().to(
+                dev, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(copy_stream)
+        return c, d, ev
+
+    seen = {}
+    for label, receive in (("_receive", _receive),
+                           ("control", receive_without_record)):
+        torch.cuda.synchronize()
+        c, d, ev = staged(1)
+        c, d = receive(c, d, ev)
+        torch.cuda._sleep(LATE_HANDOFF_CYCLES)
+        got = (c.float().sum(), d.float().sum())
+        del c, d
+        nxt = staged(2)
+        torch.cuda.synchronize()
+        seen[label] = (float(got[0]) / (3 * n), float(got[1]) / n)
+        del nxt
+    print(f"[streams] {card}: gaus_mp's feeder handoff under the same "
+          f"pressure: the frontend read the frame as {seen['_receive']} "
+          f"(colour, depth mean) through _receive, {seen['control']} "
+          f"without its record_stream (the frame 1, the next copy 2)")
+    check(seen["_receive"] == (1.0, 1.0), "phase 10a: _receive's frame was "
+          "overwritten by the feeder's next copy")
+    check(seen["control"] != (1.0, 1.0), "phase 10a: without record_stream "
+          "the feeder's next copy did not land in the frame's memory, so "
+          "the pressure cannot show the fault")
 
 
 def sequential_ba_step(gm, w2cs, gts, keyframes, s):
@@ -3351,6 +3702,12 @@ def phase_backend_probe(card):
     b = res["bins"]["paircap"]
     check(not b["overflow"] and b["num_pairs"] == b["demand"] > 0,
           f"phase 12a: the pair cap's bin {b}")
+    for tag in ("factor1.75", "paircap"):
+        got = dict(demand=res["bins"][tag]["demand"],
+                   num_pairs=res["bins"][tag]["num_pairs"],
+                   n_active=res["n_active"])
+        check(got == PARENT_PROBE, f"phase 12a: {tag}: {got} moved from the "
+              f"earlier code's {PARENT_PROBE}")
     check_launches("phase 12a", launches,
                    want=("raster_forward_stash", "raster_backward_stash",
                          "monotone_row_gather"))
@@ -3475,6 +3832,7 @@ def main() -> int:
         frame_times("reference", ref_recs)
         phase_profile(state)
         del state
+        phase_no_sync(dev, card)
         small_launches = phase_driver_small(dev)
         full_launches, probe = phase_driver_full(dev)
         k6_launches, numbers["bf16_probe"] = phase_bf16_probe(dev)
@@ -3536,4 +3894,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--streams-of"] and len(sys.argv) == 3:
+        sys.exit(streams_of(sys.argv[2]))
     sys.exit(main())

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.consts import host_to_device
 from ..ops.se3 import pose_matrix, pose_params_from_matrix
 
 
@@ -93,8 +94,9 @@ class ExposureState(NamedTuple):
 
 
 def init_exposure(device="cuda") -> ExposureState:
+    # filled on the device (a host scalar copied there would wait)
     return ExposureState(
-        torch.tensor(1.0, device=device), torch.tensor(0.0, device=device),
+        torch.ones((), device=device), torch.zeros((), device=device),
         torch.zeros(2, device=device), torch.zeros(2, device=device), 0,
     )
 
@@ -160,5 +162,4 @@ class Frame:
     def get_w2c(self) -> torch.Tensor:
         if self.pose is not None:
             return self.pose.w2c
-        return torch.as_tensor(self.est_w2c, dtype=torch.float32,
-                               device=self.device)
+        return host_to_device(self.est_w2c, self.device)

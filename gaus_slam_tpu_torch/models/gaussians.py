@@ -156,7 +156,11 @@ def add_params(gm: GaussianMap, new: Params, valid: torch.Tensor) -> GaussianMap
     zeros_src = [torch.zeros_like(s) for s in new]
     src = torch.cat(list(new) + zeros_src + zeros_src
                     + [valid[:, None].float()], dim=1)
-    dst = _wide(gm).index_put((dest[keep].long(),), src[keep])
+    # every dropped row lands on one spare row past capacity, cut off
+    # after: no boolean mask, so the host never waits for the row count
+    wide = _wide(gm)
+    wide = torch.cat([wide, wide.new_zeros((1, wide.shape[1]))])
+    dst = wide.index_put((torch.where(keep, dest, C).long(),), src)[:C]
     params, m, v, active = _unpack_wide(dst)
     return gm._replace(
         params=params, m=m, v=v, active=active,

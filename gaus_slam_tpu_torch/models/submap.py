@@ -16,6 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops.consts import host_to_device
 from ..ops.se3 import pose_matrix
 from .descriptor import describe_frames, query_covisible
 from .frame import ExposureState, PoseState, init_exposure, init_pose
@@ -101,8 +102,7 @@ class LocalMap:
         (Frame.py:246-248)."""
         assert self.transform is not None
         q = self.transform.quat
-        est = torch.as_tensor(self.frames[f_idx].est_w2c,
-                              dtype=torch.float32, device=q.device)
+        est = host_to_device(self.frames[f_idx].est_w2c, q.device)
         return est @ pose_matrix(q, self.transform.trans)
 
     @property

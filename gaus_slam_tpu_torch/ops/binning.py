@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .consts import cached
 from .gather import monotone_row_gather_rows, monotone_row_gather_rows_plain
 
 SENTINEL = 0x7FFFFFFF
@@ -110,12 +111,20 @@ class Binning(NamedTuple):
 
         Run path (no budget truncation): sort by gaussian, segmented
         scan, land run totals with one K4 gather. Slab path (overflow):
-        sort rows by slab slot and tree-sum over d. JAX's ``lax.cond``
-        on the device overflow flag becomes a host read here."""
+        every pair's row scattered to its slab slot, then a tree-sum
+        over d. JAX's ``lax.cond`` on the device overflow flag becomes
+        ``torch.where`` over both paths: the host never reads the flag."""
         d_max = d_max if d_max is not None else self.num_tiles_touched
-        if bool(self.overflow):
-            return self._slab_reduce(pair_grads, n, d_max)
-        return self._run_reduce(pair_grads, n, d_max, backend)
+        # padding pairs carry no gradient: zeroed once for both paths,
+        # written as row-major rows (the backward hands over a transposed
+        # view, and the row scatter and gather below are slow on strided
+        # rows)
+        grads = torch.where(self.pair_ok[:, None], pair_grads,
+                            torch.zeros((), device=pair_grads.device),
+                            out=pair_grads.new_empty(pair_grads.shape))
+        slab = self._slab_reduce(grads, n, d_max)
+        run = self._run_reduce(grads, n, d_max, backend)
+        return torch.where(self.overflow, slab, run)
 
     def phase_reduce(self, d_pairs_sub: torch.Tensor, phase: int, n: int,
                      d_max: int, backend: str | None = None) -> torch.Tensor:
@@ -149,31 +158,31 @@ class Binning(NamedTuple):
         keep = (counts_p > 0)[:, None] & exact
         return torch.where(keep, out, torch.zeros((), device=dev))
 
-    def _slab_reduce(self, pair_grads: torch.Tensor, n: int,
+    def _slab_reduce(self, grads: torch.Tensor, n: int,
                      d_max: int) -> torch.Tensor:
-        r, c = pair_grads.shape
-        total = d_max * n
-        keys = torch.cat([self.pair_slab, self.slab_tail])
-        pad = keys.shape[0] - r
-        perm = torch.sort(keys, stable=True).indices
-        grads_p = torch.where(self.pair_ok[:, None], pair_grads,
-                              torch.zeros((), device=pair_grads.device))
-        grads_p = torch.nn.functional.pad(grads_p, (0, 0, 0, pad))
-        slab = grads_p[perm[:total]]
-        return slab.reshape(d_max, n, c).sum(dim=0)
+        """``grads``: [R, C] pair gradients, zero where not ``pair_ok``.
+        ``pair_slab ++ slab_tail`` is a permutation of the slab's slots
+        (padded past d_max * n when the budget exceeds the slab), so each
+        pair's row lands at its own slot: one scatter with unique
+        indices, zero rows at the tail's slots, then the sum over d."""
+        r, c = grads.shape
+        size = r + self.slab_tail.shape[0]
+        slab = grads.new_zeros((size, c)).index_copy_(
+            0, self.pair_slab.long(), grads)
+        return slab[:d_max * n].reshape(d_max, n, c).sum(dim=0)
 
-    def _run_reduce(self, pair_grads: torch.Tensor, n: int,
+    def _run_reduce(self, grads: torch.Tensor, n: int,
                     d_max: int, backend: str | None) -> torch.Tensor:
-        r, _ = pair_grads.shape
-        dev = pair_grads.device
+        """``grads``: [R, C] pair gradients, zero where not ``pair_ok``."""
+        r, _ = grads.shape
+        dev = grads.device
         if self.red_perm is not None and self.red_perm.shape[0]:
             keys_sorted, perm = self.red_keys, self.red_perm.long()
         else:
             keys = torch.where(self.pair_ok, self.pair_gauss,
                                torch.full_like(self.pair_gauss, n))
             keys_sorted, perm = torch.sort(keys, stable=True)
-        grads_sorted = torch.where(self.pair_ok[:, None], pair_grads,
-                                   torch.zeros((), device=dev))[perm]
+        grads_sorted = grads[perm]
         acc = _segmented_scan(grads_sorted, keys_sorted, d_max)
         pos = torch.clamp(torch.cumsum(self.counts, 0) - 1, 0,
                           r - 1).to(torch.int32)
@@ -335,10 +344,13 @@ def bin_gaussians(pre, grid: TileGrid, r_max: int | None = None,
     tile_keys = torch.arange(num_tiles + 1, dtype=i32, device=dev) << depth_bits
     bounds = torch.searchsorted(key_sorted, tile_keys, right=False).to(i32)
     if phase_stride > 0:
-        rank_t = torch.as_tensor(rank_np, dtype=torch.long, device=dev)
+        # static per (grid, stride, order): made once per device
+        key = ("phase_tables", grid, phase_stride, phase_nested)
+        rank_t = cached(key + ("rank",), lambda: rank_np.astype(np.int64),
+                        dev)
         tile_start = bounds[rank_t]
         tile_stop = bounds[rank_t + 1]
-        phase_start = bounds[torch.as_tensor(base_np, device=dev)]
+        phase_start = bounds[cached(key + ("base",), lambda: base_np, dev)]
     else:
         tile_start = bounds[:-1]
         tile_stop = bounds[1:]

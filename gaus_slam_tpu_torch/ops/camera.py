@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .consts import constant
+
 # Compositing constants (the CUDA kernels in csrc/raster_common.cuh
 # hold the same values, rounded to float32 the same way).
 NEAR_N = 0.2
@@ -69,31 +71,34 @@ def camera_from_intrinsics(h, w, k, w2c, near=0.01, far=100.0,
 
 
 def opengl_projection(cam: Camera) -> torch.Tensor:
-    """4x4 camera-space -> NDC-homogeneous projection (z forward positive)."""
+    """4x4 camera-space -> NDC-homogeneous projection (z forward positive).
+    Its values depend on the intrinsics alone: made once per camera and
+    device (ops/consts.py), never written by a caller."""
     w, h, near, far = cam.width, cam.height, cam.near, cam.far
-    return torch.tensor(
-        [
-            [2 * cam.fx / w, 0.0, -(w - 2 * cam.cx) / w, 0.0],
-            [0.0, 2 * cam.fy / h, -(h - 2 * cam.cy) / h, 0.0],
-            [0.0, 0.0, far / (far - near), -(far * near) / (far - near)],
-            [0.0, 0.0, 1.0, 0.0],
-        ],
-        dtype=torch.float32, device=cam.w2c.device,
+    return constant(
+        (
+            (2 * cam.fx / w, 0.0, -(w - 2 * cam.cx) / w, 0.0),
+            (0.0, 2 * cam.fy / h, -(h - 2 * cam.cy) / h, 0.0),
+            (0.0, 0.0, far / (far - near), -(far * near) / (far - near)),
+            (0.0, 0.0, 1.0, 0.0),
+        ),
+        torch.float32, cam.w2c.device,
     )
 
 
 def world_to_pix3(cam: Camera) -> torch.Tensor:
     """Linear map [3, 4]: world homogeneous 4-vec -> pixel homogeneous
-    3-vec (w2c, then the OpenGL projection, then ndc2pix)."""
+    3-vec (w2c, then the OpenGL projection, then ndc2pix, whose matrix is
+    made once per image size and device)."""
     P = opengl_projection(cam) @ cam.w2c.float()
     w, h = cam.width, cam.height
-    n2p = torch.tensor(
-        [
-            [w / 2.0, 0.0, 0.0, (w - 1) / 2.0],
-            [0.0, h / 2.0, 0.0, (h - 1) / 2.0],
-            [0.0, 0.0, 0.0, 1.0],
-        ],
-        dtype=torch.float32, device=cam.w2c.device,
+    n2p = constant(
+        (
+            (w / 2.0, 0.0, 0.0, (w - 1) / 2.0),
+            (0.0, h / 2.0, 0.0, (h - 1) / 2.0),
+            (0.0, 0.0, 0.0, 1.0),
+        ),
+        torch.float32, cam.w2c.device,
     )
     return n2p @ P
 

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from .camera import CUTOFF, Camera, world_to_pix3
+from .consts import constant
 from .se3 import quat_to_rotmat
 
 
@@ -67,7 +68,7 @@ def preprocess(xyz, scales, quats, opacities, cam: Camera,
     normal_cam = normal_cam * _sign_flip(cosv)[..., None]
 
     c2 = CUTOFF * CUTOFF
-    tmp = torch.tensor([c2, c2, -1.0], dtype=torch.float32, device=xyz.device)
+    tmp = constant((c2, c2, -1.0), torch.float32, xyz.device)
     distance = torch.sum(t_w * t_w * tmp, dim=-1)
     valid = valid & (distance != 0.0)
     safe_dist = torch.where(distance == 0.0, torch.ones_like(distance),

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .consts import constant
+
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     n = torch.linalg.norm(q, dim=-1, keepdim=True)
@@ -87,7 +89,7 @@ def quat_multiply_rows(q1: torch.Tensor, q2_rows: torch.Tensor) -> torch.Tensor:
 
 
 def _bottom_row(like: torch.Tensor) -> torch.Tensor:
-    b = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
+    b = constant((0.0, 0.0, 0.0, 1.0), like.dtype, like.device)
     return b.expand(like.shape[:-2] + (1, 4))
 
 

@@ -12,10 +12,14 @@ from one process: the Backend is one object in one driver process, so
 the group is a list of torch.devices and no process group is formed.
 Shard k puts the map's parameters on ``devices[k]`` (no copy when that
 is the map's own device), renders keyframe k there and takes its
-gradients with ``torch.autograd.grad``. Launches on distinct cards are
-asynchronous, so the shards overlap. The gradients come back to the
-map's device and are summed there in shard order, so the result does
-not depend on which shard finishes first.
+gradients with ``torch.autograd.grad``. No step of a shard waits on the
+host for its card (tools/sync_audit.py), so the host goes on to the next
+shard's launches at once; but the host issues a shard's many small
+kernels no faster than one card runs them, so on four cards a step took
+about as long as on four slots of one card (PERF.md, section 6).
+The gradients come back to the map's device and are summed there in
+shard order, so the result does not depend on which shard finishes
+first.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from ..models import gaussians as G
 from ..ops.camera import Camera
+from ..ops.consts import constant
 from ..render import RenderOptions, render_full
 from ..slam.loss import LossConfig, mapping_loss
 
@@ -101,7 +106,7 @@ def sharded_ba_step(devices, gm: G.GaussianMap, w2cs: torch.Tensor,
             loss = loss + l_k
     grads = G.Params(*(g / wsum for g in grads))
     loss = loss / wsum
-    live = torch.tensor([x > 0 for x in w], device=home)
+    live = constant(tuple(x > 0 for x in w), torch.bool, home)
     ov, ns, dm = (torch.stack([s[2][i].to(home, non_blocking=True)
                                for s in shards]) for i in range(3))
     diag = {"overflow": torch.any(ov & live),

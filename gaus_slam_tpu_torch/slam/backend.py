@@ -49,6 +49,7 @@ from ..models import gaussians as G
 from ..models.frame import init_exposure
 from ..models.submap import LocalMap, Localmaps
 from ..ops.composite_ref import frame_to_tiles
+from ..ops.consts import host_to_device
 from ..ops.se3 import invert_se3, quat_multiply, rotmat_to_quat
 from ..utils.config import SystemConfig
 from .densify import prune_gaussians
@@ -249,7 +250,11 @@ class Backend:
     def _check_escalation(self):
         if not self._map_aux_acc:
             return
-        diag = {k: v.item() for k, v in fold_diags(self._map_aux_acc).items()}
+        folded = fold_diags(self._map_aux_acc)
+        # one stacked device-to-host copy for the three scalars
+        diag = dict(zip(("overflow", "n_shrunk", "demand"), torch.stack(
+            [folded[k].to(torch.int64) for k in ("overflow", "n_shrunk",
+                                                  "demand")]).tolist()))
         self._map_aux_acc = []
         cap = self.map.capacity if self.map is not None else 0
         if os.environ.get("GAUS_DEMAND"):
@@ -326,8 +331,9 @@ class Backend:
         return frame.gt_tiled
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=self.device)
+        """Host data of a task (a frame's pose, an exposure) on the
+        backend's device, copied without a host wait."""
+        return host_to_device(a, self.device)
 
     # ------------------------------------------------------------------
     def mapping(self, lm_idx: int):

@@ -263,9 +263,12 @@ class Frontend:
             predict=predict, use_vel=self.vel_pose_init,
             compact_coarse=bool(strides))
         frame.pose = pose
+        # the iteration count is a device scalar (as in JAX): it rides the
+        # one readback below
         fetch = {"overflow": cache.overflow, "n_shrunk": cache.n_shrunk,
                  "demand": cache.demand, "depth_l1": aux["depth_l1"],
-                 "loss": aux["loss"], "w2c": aux["w2c"]}
+                 "loss": aux["loss"], "w2c": aux["w2c"],
+                 "iters": aux["iters"] + iters_pre}
         if diag_pre is not None:
             fetch["overflow"] = torch.logical_or(fetch["overflow"], diag_pre[0])
             fetch["n_shrunk"] = torch.maximum(fetch["n_shrunk"], diag_pre[1])
@@ -288,7 +291,7 @@ class Frontend:
         self._spec = ((self.map, spec_next, aux["pred_pose"],
                        np.asarray(host["pred_w2c"]))
                       if predict and self.sys is sys_before else None)
-        iters = aux["iters"] + iters_pre
+        iters = int(host["iters"])
         if prof:
             print(f"[prof] track: bin={t_bin*1000:.0f}ms "
                   f"loop={(time.perf_counter()-t0-t_bin)*1000:.0f}ms "

@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.consts import constant
+
 
 class LossConfig(NamedTuple):
     use_weight_norm: bool = True
@@ -47,7 +49,7 @@ def apply_exposure(color: torch.Tensor, exposure) -> torch.Tensor:
 
 
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    big = torch.tensor(3.4e38, dtype=x.dtype, device=x.device)
+    big = constant(3.4e38, x.dtype, x.device)
     v = torch.sort(torch.where(mask, x, big).reshape(-1)).values
     n = torch.sum(mask)
     return v[torch.clamp(n // 2, min=0)]

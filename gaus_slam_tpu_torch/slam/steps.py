@@ -4,7 +4,10 @@ The JAX package compiles a whole tracking loop (``lax.while_loop``) and
 a whole mapping schedule (``lax.scan``) into single XLA programs; here
 they are Python loops over eagerly launched kernels. Where the JAX
 program tests a device scalar (the convergence counter of the tracking
-early exit), the port reads it on the host.
+early exit), the port keeps it on the device too: every queued iteration
+is masked by a device flag, and the host learns of the stop a few
+iterations late through a pinned copy (``_LaggedFlag``), never by reading
+the device.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from ..models import gaussians as G
 from ..models.frame import (ExposureState, LrSchedule, PoseState,
                             exposure_adam_step, init_exposure, pose_adam_step)
 from ..ops.camera import Camera
+from ..ops.consts import cached, constant
 from ..ops.se3 import invert_se3, pose_params_from_matrix
 from ..render import (PairCache, RenderOptions, bin_for_tracking, bin_full,
                       phase_budget, render_full, render_tracking,
@@ -53,46 +57,124 @@ def _coarse_tile_ids(grid, stride: int, device) -> torch.Tensor:
     return (ty[:, None] * grid.tiles_x + tx[None, :]).reshape(-1)
 
 
+class _LaggedFlag:
+    """The host's view of the tracking loop's device flags (``live``, the
+    count of live iterations), ``lag`` queued iterations late. After
+    iteration k is queued its flags are copied into slot k % (lag + 1) of
+    a pinned ring (non-blocking) and an event is recorded; ``read(k)``
+    waits on that event alone. With lag + 1 slots no copy overwrites a
+    slot before the host has read it. On the CPU the copy is the value
+    itself and the read a plain read. ``reads`` counts the reads (on a
+    card, the event waits)."""
+
+    def __init__(self, lag: int, device: torch.device):
+        self.n = lag + 1
+        self.cuda = device.type == "cuda"
+        self.reads = 0
+        if self.cuda:
+            self.buf = torch.empty((self.n, 2), dtype=torch.int32,
+                                   pin_memory=True)
+            self.events = [torch.cuda.Event() for _ in range(self.n)]
+        else:
+            self.buf = [None] * self.n
+
+    def push(self, k: int, live: torch.Tensor, iters: torch.Tensor):
+        flags = torch.stack([live.to(torch.int32), iters])
+        i = k % self.n
+        if self.cuda:
+            self.buf[i].copy_(flags, non_blocking=True)
+            self.events[i].record()
+        else:
+            self.buf[i] = flags
+
+    def read(self, k: int) -> tuple[bool, int]:
+        """(live, live iterations) as they stood after iteration k."""
+        i = k % self.n
+        if self.cuda:
+            self.events[i].synchronize()
+        self.reads += 1
+        live, iters = self.buf[i].tolist()
+        return bool(live), int(iters)
+
+
 def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
                   cam_proj: Camera, opts: RenderOptions, tcfg: TrackConfig,
                   lcfg: LossConfig, want_view: bool = False,
                   prev_pose: PoseState | None = None, predict: bool = False,
-                  use_vel: bool = True, compact_coarse: bool = False):
+                  use_vel: bool = True, compact_coarse: bool = False,
+                  lag: int = 1):
     """Full tracking optimization for one frame.
 
     ``want_view=True`` also renders the final pose (detached, all tiles,
     same pair cache: K3) and counts its low-alpha pixels (the keyframe
     test). ``predict=True`` also emits the constant-velocity pose init of
-    the next frame. Returns (pose, aux)."""
+    the next frame. Returns (pose, aux); ``aux["iters"]`` is the device
+    count of iterations run, as in the JAX loop.
+
+    The early exit (``converged_th`` > 0) is decided on the device, as
+    the JAX while_loop's carry does: each queued iteration computes its
+    Adam step and applies it (pose, moments, loss, depth_l1) only while
+    the device flag ``live`` holds; ``live`` falls once the convergence
+    counter passes 3. The host stops queuing when it sees the fall,
+    ``lag`` iterations late: before it queues iteration j it waits on the
+    flags copied after iteration j - 1 - lag (lag 0 waits for the
+    iteration before). The masked iterations leave every value where the
+    stop left it, so the result does not depend on ``lag``. The returned
+    pose's host step counts the live iterations; when the loop ends
+    without a seen stop, the host waits once, at the end, for the newest
+    flags. aux["host_waits"] counts the waits, aux["queued"] the queued
+    iterations."""
     dev = gt_tiled.device
+    early = tcfg.converged_th > 0
     pose = pose0
-    state = {"k": 0, "conv": 0, "loss": torch.zeros((), device=dev),
-             "depth_l1": torch.zeros((), device=dev)}
+    loss = torch.zeros((), device=dev)
+    depth_l1 = torch.zeros((), device=dev)
+    conv = torch.zeros((), dtype=torch.int32, device=dev)
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = _LaggedFlag(lag, dev) if early else None
+    state = {"k": 0, "seen": None}  # queued; (live, iters) of a seen stop
 
     def run(kmax, tile_ids, gt_sub, pair_hi):
-        nonlocal pose
-        while state["k"] < kmax and not (
-                tcfg.converged_th > 0 and state["conv"] > 3):
+        nonlocal pose, loss, depth_l1, conv, live, iters
+        while state["k"] < kmax and state["seen"] is None:
+            k = state["k"]
+            if early and k - 1 - lag >= 0:
+                seen = flags.read(k - 1 - lag)
+                if not seen[0]:
+                    state["seen"] = seen
+                    return
             quat = pose.quat.detach().requires_grad_()
             trans = pose.trans.detach().requires_grad_()
             out = render_tracking(cache, quat, trans, cam_proj, opts,
                                   tile_ids=tile_ids, pair_hi=pair_hi)
-            loss, aux = tracking_loss(out, gt_sub, lcfg)
-            g_q, g_t = torch.autograd.grad(loss, (quat, trans))
-            new_pose = pose_adam_step(pose._replace(quat=quat.detach(),
-                                                    trans=trans.detach()),
-                                      g_q, g_t, tcfg.rot_sched,
+            loss_k, aux = tracking_loss(out, gt_sub, lcfg)
+            g_q, g_t = torch.autograd.grad(loss_k, (quat, trans))
+            pose = pose._replace(quat=quat.detach(), trans=trans.detach())
+            new_pose = pose_adam_step(pose, g_q, g_t, tcfg.rot_sched,
                                       tcfg.trans_sched, tcfg.betas)
-            if tcfg.converged_th > 0:
-                # host read of the convergence test (a device scalar in
-                # the JAX while_loop)
-                delta = float(torch.linalg.norm(new_pose.trans - pose.trans))
-                state["conv"] = state["conv"] + 1 \
-                    if delta < tcfg.converged_th else 0
+            if early:
+                # the JAX body and cond on the device: the step applies
+                # only while live; the test in float64, as a host float
+                # compares the float32 norm with the threshold
+                delta = torch.linalg.norm(new_pose.trans - pose.trans)
+                new_pose = PoseState(*(torch.where(live, a, b) for a, b in
+                                       zip(new_pose[:6], pose[:6])),
+                                     new_pose.step)
+                loss = torch.where(live, loss_k.detach(), loss)
+                depth_l1 = torch.where(live, aux["depth_l1"].detach(),
+                                       depth_l1)
+                near = delta.double() < tcfg.converged_th
+                conv = torch.where(live, torch.where(
+                    near, conv + 1, torch.zeros_like(conv)), conv)
+                iters = iters + live.to(torch.int32)
+                live = live & (conv <= 3)
+                flags.push(k, live, iters)
+            else:
+                loss = loss_k.detach()
+                depth_l1 = aux["depth_l1"].detach()
             pose = new_pose
-            state["k"] += 1
-            state["loss"] = loss.detach()
-            state["depth_l1"] = aux["depth_l1"].detach()
+            state["k"] = k + 1
 
     consumed = 0
     # the reference backend renders all tiles only: no coarse phase
@@ -109,8 +191,10 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
     run(tcfg.num_iters, None, gt_tiled, None)
 
     pose = pose._replace(quat=pose.quat.detach(), trans=pose.trans.detach())
-    aux = {"iters": state["k"], "loss": state["loss"],
-           "depth_l1": state["depth_l1"], "w2c": pose.w2c}
+    if not early:
+        iters = torch.full((), state["k"], dtype=torch.int32, device=dev)
+    aux = {"iters": iters, "loss": loss, "depth_l1": depth_l1,
+           "w2c": pose.w2c}
     if predict:
         w2c_f = aux["w2c"]
         pred_m = (w2c_f @ invert_se3(prev_pose.w2c) @ w2c_f
@@ -124,6 +208,15 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
             out = render_tracking(cache, pose.quat, pose.trans, cam_proj, opts)
         aux["view"] = out
         aux["n_low"] = torch.sum(out[:, 4] < 0.5).to(torch.int32)
+    if early:
+        # everything is queued: the one wait for the live count, unless
+        # the seen stop already carried it
+        seen = state["seen"]
+        if seen is None and state["k"] > 0:
+            seen = flags.read(state["k"] - 1)
+        pose = pose._replace(step=pose0.step + (seen[1] if seen else 0))
+    aux["host_waits"] = flags.reads if early else 0
+    aux["queued"] = state["k"]
     return pose, aux
 
 
@@ -222,10 +315,10 @@ def mapping_step(gm: G.GaussianMap, w2c: torch.Tensor, gt_tiled: torch.Tensor,
                           **{k: v.detach() for k, v in aux.items()}, **diag}
 
 
-def _coarse_map_phases(grid, stride: int, device):
-    """([stride^2, Ts] tile-id phases, [stride^2, Ts] validity): the
-    rotating checkerboard schedule; shorter phases are padded with
-    repeats marked invalid (rendered empty)."""
+def _coarse_map_phases_host(grid, stride: int):
+    """([stride^2, Ts] tile-id phases, [stride^2, Ts] validity) as host
+    arrays: the rotating checkerboard schedule; shorter phases are padded
+    with repeats marked invalid (rendered empty)."""
     phases, valids = [], []
     for oy in range(stride):
         for ox in range(stride):
@@ -238,8 +331,17 @@ def _coarse_map_phases(grid, stride: int, device):
     out = np.stack([np.resize(p, ts) for p in phases]).astype(np.int32)
     val = np.stack([np.concatenate([v, np.zeros(ts - len(v), bool)])
                     for v in valids])
-    return (torch.as_tensor(out, device=device),
-            torch.as_tensor(val, device=device))
+    return out, val
+
+
+def _coarse_map_phases(grid, stride: int, device):
+    """``_coarse_map_phases_host`` on ``device``, made once per (grid,
+    stride, device)."""
+    key = ("coarse_map_phases", grid, stride)
+    return (cached(key + ("ids",),
+                   lambda: _coarse_map_phases_host(grid, stride)[0], device),
+            cached(key + ("valid",),
+                   lambda: _coarse_map_phases_host(grid, stride)[1], device))
 
 
 def mapping_loop(gm: G.GaussianMap, w2cs: torch.Tensor, gts: torch.Tensor,
@@ -302,7 +404,7 @@ def backend_tracking_step(gm: G.GaussianMap, pose: PoseState,
     exp = None
     if exposure is not None and lcfg.enable_exposure:
         fe = (frame_exp if frame_exp is not None
-              else torch.tensor([1.0, 0.0], device=exposure.gain.device))
+              else constant((1.0, 0.0), torch.float32, exposure.gain.device))
         exp = exposure._replace(
             gain=(exposure.gain * fe[0]).detach(),
             bias=(exposure.gain * fe[1] + exposure.bias).detach())
