@@ -145,8 +145,9 @@ line):
    two turns as scheduled and of two turns with a BACKLOG_CYCLES spin
    queued on the caller's stream (which the backend's waits for) before
    their backend tasks, with the host's kernel launches that blocked on
-   a full launch queue; printed, not required (PERF.md, section 6:
-   0.000 ms in both windows, the launches hold the host).
+   a full launch queue; printed, not required (PERF.md, section 6). The
+   replays of the captured steps (phase 13) inside the backend must run
+   on its stream too.
    (python3 chip_smoke.py --streams-of <root> prints both windows for
    the port of another tree, unchecked.)
    10b. parallel.sharded_ba_step over four slots of cuda:0 at 340x600 on
@@ -211,6 +212,26 @@ line):
    package misses those bounds too (JAX_SPREAD), clears the bounds the
    JAX tool suggests from its own five seeds; F-score in (0, 1]; K1-K4
    launched in the children.
+13. The captured steps (slam/programs.py: each step of the loops one
+   CUDA graph, captured at its key's first call and replayed).
+   13a. The bias-correction tables against the host floats they replace
+   (a division by a table entry equals the division by the host float,
+   steps 1-300); a Frontend over frames 0-11 and process_final, then a
+   Backend over its LocalMaps with their task queues and two each of the
+   per-step mapping, ba and tracking tasks, once with the steps captured
+   and once under programs.eager(): every pose, iteration count, loss and
+   map array bit-equal (so every program equals its eager run on the
+   card: the tracking iterations at both levels and the tail, the
+   frontend's and the backend's mapping_loop dense and coarse,
+   mapping_step, ba_step, backend_tracking_step); the programs each ran,
+   the graph pools' MiB and the peak device memory above the start.
+   13b. Per step on the captured programs, under torch.profiler: graph
+   launches, kernels launched outside a graph and kernels the card ran,
+   wall and device busy ms and the idle share, for a frontend tracking
+   loop, the frontend's fused mapping, a backend fused x4 batch (at most
+   X4_LAUNCH_LIMIT graph launches + kernels outside a graph), a backend
+   mapping step and a backend tracking step. Phases 3, 4b, 6, 10a, 11b
+   and 12a ran with the steps captured before it (4b audits the replays).
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
 of their own, with their launches in 11b at 340x600), the card line, and
@@ -234,8 +255,9 @@ CONFIG = os.path.join(REPO, "configs", "synthetic", "config.py")
 H, W = 340, 600              # bench shape (bench.py)
 N_FRAMES = 24                # phase 3: two cuts at the default 10-frame submaps
 # What the code before the step path's host waits were taken out printed
-# on this card (commit ecfd254, chip_smoke): the device-side branches
-# and the lagged early exit must give the same numbers, to every digit.
+# on this card (commit ecfd254, chip_smoke; commit 9d6a38e, eager, printed
+# the same): the device-side branches, the lagged early exit and the
+# captured steps must give the same numbers, to every digit.
 # phase 3: frame -> (tracking iterations, loss to 4 decimals)
 PARENT_PHASE3 = {
     1: (30, "1677.6172"), 2: (30, "1887.7397"), 3: (17, "157.1553"),
@@ -2442,6 +2464,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     from torch.profiler import ProfilerActivity, profile as profiler
 
     from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.slam import programs
     from gaus_slam_tpu_torch.slam.backend import Backend
     from gaus_slam_tpu_torch.slam.frontend import Frontend
     from gaus_slam_tpu_torch.utils.checkpoint import backend_state_arrays
@@ -2472,10 +2495,20 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     real_check = _cuda.check
 
     def counted_check(rc, what):
-        # a wrapper calls check right after its launch, on its stream
-        streams[(what, inside[0],
-                 torch.cuda.current_stream().cuda_stream)] += 1
+        # a wrapper calls check right after its launch, on its stream; in
+        # a capture it launched nothing (the graph's replays run it)
+        if not torch.cuda.is_current_stream_capturing():
+            streams[(what, inside[0],
+                     torch.cuda.current_stream().cuda_stream)] += 1
         return real_check(rc, what)
+
+    real_replay = programs.Owner._replay
+
+    def counted_replay(own, prog):
+        # a program replays on the caller's stream (slam/programs.py)
+        streams[("graph:" + prog.name, inside[0],
+                 torch.cuda.current_stream().cuda_stream)] += 1
+        return real_replay(own, prog)
 
     def in_backend(fn):
         def run(*a, **kw):
@@ -2520,6 +2553,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     torch.cuda.synchronize()
     _cuda.LAUNCHES.clear()
     _cuda.check = counted_check
+    programs.Owner._replay = counted_replay
     t0 = time.perf_counter()
     filled = []
     try:
@@ -2570,6 +2604,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
         torch.cuda.synchronize()
     finally:
         _cuda.check = real_check
+        programs.Owner._replay = real_replay
     del filled
     secs = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
@@ -2673,8 +2708,12 @@ def phase_streams(cfg, ds, lms, dev, card):
     feeder_handoff(dev, card)
     default = torch.cuda.default_stream().cuda_stream
     own = be.stream.cuda_stream
+    graphs = {w for (w, ins, h) in streams if w.startswith("graph:")}
+    check(graphs, "phase 10a: no captured step replayed")
     for name in ("raster_forward_stash", "raster_backward_stash",
-                 "monotone_row_gather"):
+                 "monotone_row_gather") + tuple(
+                     g for g in sorted(graphs) if any(
+                         w == g and ins for (w, ins, h) in streams)):
         on = {h: n for (w, ins, h), n in streams.items() if w == name and ins}
         check(on and set(on) == {own} and own != default,
               f"phase 10a: {name} ran inside the backend on streams {on}, "
@@ -2684,12 +2723,9 @@ def phase_streams(cfg, ds, lms, dev, card):
     print(f"[streams] {card}: backend K1/K2/K4 launches on its stream: "
           + ", ".join(f"{w} {n}" for (w, ins, h), n in sorted(streams.items())
                       if ins and h == own))
-    # no host wait is left in the backend's steps (4b), yet the streams'
-    # kernels do not overlap: the eager host queues each step's ~1100
-    # small kernels no faster than the card runs them, and a backlog
-    # (the backlog window) fills the launch queue, whose full-queue
-    # launches hold the host until the backend's work has drained
-    # (PERF.md, section 6). Printed, not required.
+    # no host wait is left in the backend's steps (4b), and each step is
+    # one graph launch (phase 13): the overlap of the streams' kernels is
+    # printed, not required (PERF.md, section 6)
     print_overlap(card, overlap)
     return launches
 
@@ -3801,6 +3837,247 @@ def phase_test_spread(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the captured steps
+
+
+N_FRAMES_PROGRAMS = 12   # 13a: one cut, at frame 10
+X4_LAUNCH_LIMIT = 10     # 13b: graph launches + kernels outside a graph
+def programs_frontend(cfg, ds, dev, eager):
+    """13a: a Frontend over frames 0 .. N_FRAMES_PROGRAMS-1, then
+    process_final, with its steps captured (or all under
+    programs.eager()); returns (per-frame (w2c, tracking record), the
+    LocalMaps cut, the final map's arrays, the Frontend)."""
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
+    from gaus_slam_tpu_torch.utils.checkpoint import _flatten, _map_state
+
+    fe = Frontend(cfg, queue.Queue(), device=dev)
+    recs, lms = [], []
+    with (programs.eager() if eager else contextlib.nullcontext()):
+        for t in range(N_FRAMES_PROGRAMS):
+            color, depth, _, c2w = ds[t]
+            fe.process_frame(t, np.asarray(color, np.float32)
+                             / np.float32(255), np.asarray(depth), c2w)
+            while not fe.to_backend.empty():
+                lms.append(fe.to_backend.get())
+            last = fe.local_frames[-1]
+            recs.append((np.asarray(getattr(last, "_w2c_host", np.eye(4))),
+                         fe.last_track))
+        fe.process_final()
+        while not fe.to_backend.empty():
+            lms.append(fe.to_backend.get())
+    sync(dev)
+    return recs, lms, _flatten(_map_state(fe.map)), fe
+
+
+def programs_backend(cfg, lms, dev, eager):
+    """13a: a Backend (random_process off) merging copies of ``lms``,
+    each merge's task queue drained (fused x4 batches dense and coarse,
+    prune, backend tracking), then two each of the per-step mapping, ba
+    and tracking tasks on the first submap; captured or all under
+    programs.eager().
+    Returns the backend's state arrays and the Backend."""
+    import copy
+
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.slam.backend import Backend
+    from gaus_slam_tpu_torch.utils.checkpoint import backend_state_arrays
+
+    cfg = copy.deepcopy(cfg)
+    cfg["backend"]["random_process"] = False
+    be = Backend(cfg, device=dev)
+    with (programs.eager() if eager else contextlib.nullcontext()):
+        for lm in copy.deepcopy(lms):
+            be.process_localmap(lm)
+        for _ in range(2):
+            be.mapping(0)
+            be.ba(0)
+            be.tracking(0)
+        be._check_escalation()
+    sync(dev)
+    return backend_state_arrays(be), be
+
+
+def step_window(fn) -> dict:
+    """One call of ``fn`` (its programs captured before) under
+    torch.profiler (tools/sync_audit.py::profile_window): wall ms, device
+    busy ms, idle share and launches."""
+    from gaus_slam_tpu_torch.tools.sync_audit import profile_window
+
+    w = profile_window(fn)
+    w["idle"] = (1 - w["busy"] / w["wall"]) if w["busy"] > 0 else None
+    return w
+
+
+def pool_bytes() -> int:
+    """Bytes the caching allocator holds in graph pools (segments of a
+    private pool)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def phase_programs(cfg, ds, dev, card):
+    """Phase 13: the captured steps (slam/programs.py)."""
+    import torch
+
+    from gaus_slam_tpu_torch.models import gaussians as G
+    from gaus_slam_tpu_torch.models.frame import _f32_pow, bias_table
+    from gaus_slam_tpu_torch.ops.consts import at, div_by_entry
+    from gaus_slam_tpu_torch.slam import programs
+
+    # the step tables on the card: an entry's multiplication equals the
+    # division by the host float it replaces (CUDA multiplies by the
+    # float32 reciprocal), at steps 1 .. 300
+    x = torch.randn(1 << 16, device=dev)
+    for b in (0.9, 0.999, 0.7, 0.99):
+        for kind, tab, host in (
+                ("map", G.bias_table(b, dev), lambda t: G._bias_correction(
+                    b, t)),
+                ("pose", bias_table(b, dev), lambda t: 1 - _f32_pow(b, t))):
+            for t in range(1, 301):
+                d = at(tab, torch.tensor(t, dtype=torch.int32, device=dev))
+                check(torch.equal(div_by_entry(x, d), x / host(t)),
+                      f"phase 13: the {kind} bias table of {b} at step {t} "
+                      f"does not divide as the host float")
+    print(f"[programs] {card}: bias-correction tables divide bit-equal to "
+          f"the host floats at steps 1-300 (betas 0.9, 0.999, 0.7, 0.99)")
+
+    # 13a: every program bit-equal to its eager run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    f_prog = programs_frontend(cfg, ds, dev, eager=False)
+    secs_prog = time.perf_counter() - t0
+    peak_front = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    f_eager = programs_frontend(cfg, ds, dev, eager=True)
+    secs_eager = time.perf_counter() - t0
+    check(len(f_prog[1]) >= 1, "phase 13: no submap cut in 13a's frames")
+    for t, ((w_p, tr_p), (w_e, tr_e)) in enumerate(zip(f_prog[0],
+                                                       f_eager[0])):
+        check(np.array_equal(w_p, w_e) and tr_p == tr_e,
+              f"phase 13: frame {t}'s pose or tracking ({tr_p}) differs from "
+              f"the eager run's ({tr_e})")
+    for k in f_eager[2]:
+        check(np.array_equal(np.asarray(f_prog[2][k]),
+                             np.asarray(f_eager[2][k])),
+              f"phase 13: the frontend's map {k} differs from the eager run's")
+    fe = f_prog[3]
+    print(f"[programs] {card}: the Frontend over {N_FRAMES_PROGRAMS} frames "
+          f"with its steps captured equals the eager run bit for bit (every "
+          f"pose, iteration count, loss and the final map): {secs_prog:.1f} "
+          f"s captured (captures included), {secs_eager:.1f} s eager; "
+          f"{len(fe.programs.programs)} programs "
+          f"{sorted({p.name for p in fe.programs.programs.values()})}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b_prog, be = programs_backend(cfg, f_prog[1], dev, eager=False)
+    peak_back = torch.cuda.max_memory_allocated() - base
+    b_eager, _ = programs_backend(cfg, f_eager[1], dev, eager=True)
+    check(map_digest(b_prog) == map_digest(b_eager),
+          f"phase 13: the backend's state differs from the eager run's "
+          f"({map_digest(b_prog)} against {map_digest(b_eager)})")
+    names = sorted({p.name for p in be.programs.programs.values()})
+    for want in ("mapping_loop", "mapping_step", "ba_step",
+                 "backend_tracking_step"):
+        check(want in names, f"phase 13: the backend ran no {want} program "
+              f"({names})")
+    print(f"[programs] {card}: the Backend over {len(f_prog[1])} merges, "
+          f"their task queues, 2 mapping and 2 ba tasks with its steps "
+          f"captured equals the eager run bit for bit (digest "
+          f"{map_digest(b_prog)}); programs {names}; graph pools "
+          f"{pool_bytes() / 2**20:.1f} MiB; peak device memory above the "
+          f"start: frontend {peak_front / 2**20:.1f} MiB, backend "
+          f"{peak_back / 2**20:.1f} MiB; captures "
+          f"{json.dumps(dict(programs.CAPTURES))}")
+
+    # 13b: launches and idle share per step, on the captured programs
+    from gaus_slam_tpu_torch.render import bin_for_tracking
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
+    from gaus_slam_tpu_torch.slam.steps import (ComposedW2C, mapping_loop,
+                                                tracking_loop)
+
+    # a Frontend over frames 0-4 (no cut: its frames keep their images)
+    fe = Frontend(cfg, queue.Queue(), device=dev)
+    for t in range(5):
+        color, depth, _, c2w = ds[t]
+        fe.process_frame(t, np.asarray(color, np.float32) / np.float32(255),
+                         np.asarray(depth), c2w)
+    s = fe.sys
+    frame = fe.local_frames[-1]
+    gt = fe._tile_gt(frame)
+    pose = frame.pose
+    strides = fe._track_strides()
+    cache = bin_for_tracking(fe.map, s.cam.replace_w2c(pose.w2c), s.opts,
+                             coarse_strides=strides)
+    tc = s.track_front._replace(converged_th=-1.0)
+    sel = [fe.local_frames[i % len(fe.local_frames)] for i in range(
+        fe.num_mapping_iters // fe.rebin_every)]
+
+    def track():
+        tracking_loop(cache, pose, gt, s.cam, s.opts, tc, s.lcfg,
+                      compact_coarse=bool(strides), owner=fe.programs)
+
+    def fmap():
+        mapping_loop(fe.map, [ComposedW2C(None, f.pose.quat, f.pose.trans)
+                              for f in sel],
+                     [fe._tile_gt(f) for f in sel], s.cam, s.opts, s.mcfg,
+                     s.lcfg, rebin_every=fe.rebin_every,
+                     coarse_stride=fe.coarse_map_stride, owner=fe.programs)
+
+    def x4():
+        with be.stream_context():
+            be.task_queue.clear()
+            be.task_queue.extend([("mapping", 0, True)] * be.MAP_BATCH)
+            be.process()
+        be.wait()
+
+    def bmap():
+        with be.stream_context():
+            be.mapping(0)
+        be.wait()
+
+    def btrack():
+        with be.stream_context():
+            be.tracking(0)
+        be.wait()
+
+    rows = {}
+    for label, fn, per in (
+            (f"tracking loop, {tc.num_iters} iterations", track,
+             tc.num_iters),
+            (f"frontend mapping, {fe.num_mapping_iters} iterations", fmap, 1),
+            ("backend fused x4 mapping batch", x4, 1),
+            ("backend mapping step", bmap, 1),
+            ("backend tracking step", btrack, 1)):
+        fn()
+        torch.cuda.synchronize()
+        w = step_window(fn)
+        rows[label] = w
+        n = w["launches"]
+        idle = ("not measured" if w["idle"] is None else f"{w['idle']:.3f}")
+        print(f"[programs] {card}: {label}: graph launches {n['graphs']}, "
+              f"kernels launched outside a graph {n['kernels']}, kernels on "
+              f"the card {n['device_kernels']}"
+              + (f" ({(n['graphs'] + n['kernels']) / per:.2f} launches per "
+                 f"iteration)" if per > 1 else "")
+              + f"; wall {w['wall']:.3f} ms, device busy {w['busy']:.3f} ms, "
+              f"idle share {idle}; host waits {w['wait_ms']:.3f} ms")
+    n = rows["backend fused x4 mapping batch"]["launches"]
+    check(n["graphs"] >= 1 and n["graphs"] + n["kernels"] <= X4_LAUNCH_LIMIT,
+          f"phase 13: the fused x4 batch issued {n['graphs']} graph launches "
+          f"and {n['kernels']} kernels outside a graph (limit "
+          f"{X4_LAUNCH_LIMIT})")
+    print(f"[programs] {card}: graph launches by program since the start "
+          f"{json.dumps(dict(programs.GRAPH_LAUNCHES))}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3855,6 +4132,7 @@ def main() -> int:
         probe_launches = phase_backend_probe(card)
         ab_launches = phase_quality_ab(card)
         spread_launches = phase_test_spread(dev, card)
+        phase_programs(cfg, ds, dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -37,6 +37,20 @@ from .utils.config import SystemConfig
 POSE_FIELDS = ("quat", "trans", "m_q", "v_q", "m_t", "v_t")
 
 
+def _step(x, device) -> torch.Tensor:
+    """An Adam step count as the port keeps it: a device int32 scalar."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return torch.as_tensor(np.array(x, np.int32).reshape(()), device=device)
+
+
+def _host_step(x) -> np.int32:
+    """A step count (a device scalar, or a number) on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.int32(np.asarray(x))
+
+
 def _params(x, device) -> Params:
     if hasattr(x, "_asdict"):
         x = x._asdict()
@@ -52,7 +66,7 @@ def gaussian_map_from_numpy(d, device="cuda") -> GaussianMap:
         params=_params(d["params"], device),
         m=_params(d["m"], device),
         v=_params(d["v"], device),
-        step=int(np.asarray(d["step"])),
+        step=_step(d["step"], device),
         active=torch.as_tensor(np.array(d["active"], bool), device=device),
         n_active=torch.as_tensor(np.array(d["n_active"], np.int32),
                                  device=device),
@@ -68,7 +82,7 @@ def gaussian_map_to_numpy(gm: GaussianMap) -> dict:
         "params": _np_params(gm.params),
         "m": _np_params(gm.m),
         "v": _np_params(gm.v),
-        "step": np.int32(gm.step),
+        "step": _host_step(gm.step),
         "active": gm.active.cpu().numpy(),
         "n_active": np.int32(int(gm.n_active)),
     }
@@ -79,12 +93,12 @@ def pose_from_numpy(d, device="cuda") -> PoseState:
         d = d._asdict()
     vals = [torch.as_tensor(np.array(d[f], np.float32), device=device)
             for f in POSE_FIELDS]
-    return PoseState(*vals, int(np.asarray(d["step"])))
+    return PoseState(*vals, _step(d["step"], device))
 
 
 def pose_to_numpy(ps: PoseState) -> dict:
     out = {f: getattr(ps, f).detach().cpu().numpy() for f in POSE_FIELDS}
-    out["step"] = np.int32(ps.step)
+    out["step"] = _host_step(ps.step)
     return out
 
 
@@ -111,7 +125,7 @@ def _frame_from(f, device) -> Frame:
         e = f.exposure
         out.exposure = ExposureState(
             _tensor(e.gain, device), _tensor(e.bias, device),
-            _tensor(e.m, device), _tensor(e.v, device), int(np.asarray(e.step)))
+            _tensor(e.m, device), _tensor(e.v, device), _step(e.step, device))
     if getattr(f, "_w2c_host", None) is not None:
         out._w2c_host = np.array(f._w2c_host)
     return out
@@ -173,7 +187,7 @@ def _exposure_from(e, device) -> ExposureState | None:
         return None
     return ExposureState(_tensor(e.gain, device), _tensor(e.bias, device),
                          _tensor(e.m, device), _tensor(e.v, device),
-                         int(np.asarray(e.step)))
+                         _step(e.step, device))
 
 
 def localmap_from_jax(lm, device="cuda") -> LocalMap:

@@ -15,7 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.consts import host_to_device
+from ..ops.consts import (at, div_by_entry, host_scalar_divisor,
+                          host_to_device, step_table)
 from ..ops.se3 import pose_matrix, pose_params_from_matrix
 
 
@@ -24,6 +25,40 @@ def _f32_pow(b: float, step: int) -> float:
     corrections."""
     return float(torch.tensor(b, dtype=torch.float32)
                  ** torch.tensor(float(step), dtype=torch.float32))
+
+
+def saturation_step(b: float) -> int:
+    """An Adam step from which on b ** t < 2 ** -30: far under the
+    2 ** -25 at which 1 - b ** t rounds to 1.0 in float32, so a bias
+    correction table ends there and its last entry holds for good."""
+    return int(np.ceil(-30 * np.log(2) / np.log(b))) + 1
+
+
+def bias_table(b: float, device) -> torch.Tensor:
+    """The divisors of the bias correction 1 - b ** t for the device Adam
+    steps t = 0 .. saturation_step(b), each from the host arithmetic the
+    step used before it moved to the device (``_f32_pow``, then 1 - in
+    double) as ``device`` divides by it; t = 0 is never read."""
+    n = saturation_step(b)
+
+    def entries():
+        assert np.float32(1 - _f32_pow(b, n)) == 1.0, (b, n)
+        return [1.0] + [host_scalar_divisor(1 - _f32_pow(b, t), device)
+                        for t in range(1, n + 1)]
+    return step_table(("pose_bias", float(b)), entries, device)
+
+
+def lr_table(sched, device) -> torch.Tensor:
+    """``sched.at(k)`` for k = 0 .. max(max_steps, 1), where it stops
+    moving."""
+    n = max(int(sched.max_steps), 1)
+    return step_table(("lr",) + tuple(sched),
+                      lambda: [sched.at(k) for k in range(n + 1)], device)
+
+
+def zero_step(device) -> torch.Tensor:
+    """A fresh Adam step counter: a device int32 scalar, as in JAX."""
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 class LrSchedule(NamedTuple):
@@ -45,7 +80,7 @@ class PoseState(NamedTuple):
     v_q: torch.Tensor
     m_t: torch.Tensor
     v_t: torch.Tensor
-    step: int
+    step: torch.Tensor   # device int32 Adam step count
 
     @property
     def w2c(self) -> torch.Tensor:
@@ -54,28 +89,36 @@ class PoseState(NamedTuple):
 
 def _fresh_pose(q: torch.Tensor, t: torch.Tensor) -> PoseState:
     z4, z3 = torch.zeros_like(q), torch.zeros_like(t)
-    return PoseState(q, t, z4, z4.clone(), z3, z3.clone(), 0)
+    return PoseState(q, t, z4, z4.clone(), z3, z3.clone(), zero_step(q.device))
 
 
 def init_pose(initial_w2c, device="cuda") -> PoseState:
     q, t = pose_params_from_matrix(
         torch.as_tensor(initial_w2c, dtype=torch.float32, device=device))
-    return _fresh_pose(q, t)
+    # the translation on its own (not a column view of the matrix): a
+    # captured step is keyed by its arguments' layouts (slam/programs.py),
+    # and an Adam step's pose is laid out so
+    return _fresh_pose(q, t.contiguous())
 
 
 def pose_adam_step(ps: PoseState, g_quat, g_trans, rot_sched: LrSchedule,
                    trans_sched: LrSchedule, betas=(0.7, 0.99),
                    eps: float = 1e-8) -> PoseState:
+    """One Adam step of the pose. Its bias corrections and learning rates
+    come from tables indexed by the device step (lr used at iteration k
+    is sched(k)), so the step reads no host value that changes per step."""
     b1, b2 = betas
+    dev = ps.quat.device
     step = ps.step + 1
-    c1, c2 = 1 - _f32_pow(b1, step), 1 - _f32_pow(b2, step)
-    lr_q = rot_sched.at(ps.step)     # lr used at iteration k is sched(k)
-    lr_t = trans_sched.at(ps.step)
+    d1, d2 = at(bias_table(b1, dev), step), at(bias_table(b2, dev), step)
+    lr_q = at(lr_table(rot_sched, dev), ps.step)
+    lr_t = at(lr_table(trans_sched, dev), ps.step)
 
     def upd(p, m, v, g, lr):
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        return p - lr * (m / c1) / (torch.sqrt(v / c2) + eps), m, v
+        return p - lr * div_by_entry(m, d1) / (
+            torch.sqrt(div_by_entry(v, d2)) + eps), m, v
 
     q, m_q, v_q = upd(ps.quat, ps.m_q, ps.v_q, g_quat, lr_q)
     tr, m_t, v_t = upd(ps.trans, ps.m_t, ps.v_t, g_trans, lr_t)
@@ -87,7 +130,7 @@ class ExposureState(NamedTuple):
     bias: torch.Tensor   # scalar
     m: torch.Tensor      # [2]
     v: torch.Tensor      # [2]
-    step: int
+    step: torch.Tensor   # device int32 Adam step count
 
     def apply(self, img):
         return self.gain * img + self.bias
@@ -97,20 +140,22 @@ def init_exposure(device="cuda") -> ExposureState:
     # filled on the device (a host scalar copied there would wait)
     return ExposureState(
         torch.ones((), device=device), torch.zeros((), device=device),
-        torch.zeros(2, device=device), torch.zeros(2, device=device), 0,
+        torch.zeros(2, device=device), torch.zeros(2, device=device),
+        zero_step(device),
     )
 
 
 def exposure_adam_step(es: ExposureState, g_gain, g_bias, sched: LrSchedule,
                        betas=(0.9, 0.99), eps: float = 1e-8) -> ExposureState:
     b1, b2 = betas
+    dev = es.m.device
     step = es.step + 1
-    c1, c2 = 1 - _f32_pow(b1, step), 1 - _f32_pow(b2, step)
-    lr = sched.at(es.step)
+    d1, d2 = at(bias_table(b1, dev), step), at(bias_table(b2, dev), step)
+    lr = at(lr_table(sched, dev), es.step)
     g = torch.stack([g_gain, g_bias])
     m = b1 * es.m + (1 - b1) * g
     v = b2 * es.v + (1 - b2) * g * g
-    upd = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+    upd = lr * div_by_entry(m, d1) / (torch.sqrt(div_by_entry(v, d2)) + eps)
     return ExposureState(es.gain - upd[0], es.bias - upd[1], m, v, step)
 
 

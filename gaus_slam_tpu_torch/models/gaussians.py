@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.consts import at, div_by_entry, host_scalar_divisor, step_table
+
 PARAM_FIELDS = ("xyz", "log_scales", "quats", "opacity_logit", "rgb")
 PARAM_DIMS = {"xyz": 3, "log_scales": 2, "quats": 4, "opacity_logit": 1, "rgb": 3}
 LR_KEYS = {
@@ -40,7 +42,7 @@ class GaussianMap(NamedTuple):
     params: Params
     m: Params                    # Adam first moments
     v: Params                    # Adam second moments
-    step: int                    # shared Adam step count
+    step: torch.Tensor           # shared Adam step count (device int32)
     active: torch.Tensor         # [C] bool
     n_active: torch.Tensor       # scalar int32 (device)
 
@@ -69,7 +71,8 @@ def empty_map(capacity: int, device="cuda") -> GaussianMap:
     p = p._replace(quats=_identity_quats(capacity, device))
     return GaussianMap(
         params=p, m=_zeros_params(capacity, device),
-        v=_zeros_params(capacity, device), step=0,
+        v=_zeros_params(capacity, device),
+        step=torch.zeros((), dtype=torch.int32, device=device),
         active=torch.zeros((capacity,), dtype=torch.bool, device=device),
         n_active=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -113,7 +116,7 @@ def map_to(gm: GaussianMap, device) -> GaussianMap:
     def move(ps):
         return Params(*(p.to(device) for p in ps))
     return gm._replace(params=move(gm.params), m=move(gm.m), v=move(gm.v),
-                       active=gm.active.to(device),
+                       step=gm.step.to(device), active=gm.active.to(device),
                        n_active=gm.n_active.to(device))
 
 
@@ -236,20 +239,40 @@ def cap_opacity(gm: GaussianMap, max_opacity: float = 0.01) -> GaussianMap:
     )
 
 
+def _bias_correction(b: float, step: int) -> float:
+    """1 - b ** step in float32, as the JAX version computes it."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
+
+
+def bias_table(b: float, device) -> torch.Tensor:
+    """The divisors of ``_bias_correction(b, t)`` for the device Adam steps
+    t = 0 .. saturation_step(b), as ``device`` divides by a host float;
+    t = 0 is never read."""
+    from .frame import saturation_step
+
+    n = saturation_step(b)
+
+    def entries():
+        assert _bias_correction(b, n) == 1.0, (b, n)
+        return [1.0] + [host_scalar_divisor(_bias_correction(b, t), device)
+                        for t in range(1, n + 1)]
+    return step_table(("map_bias", float(b)), entries, device)
+
+
 def adam_step(gm: GaussianMap, grads: Params, lrs: dict,
               betas: tuple = (0.9, 0.999), eps: float = 1e-15,
               isotropic: bool = False) -> GaussianMap:
     """One torch-semantics Adam step over all param groups, masked to
-    active rows. ``isotropic`` ties the two scale columns."""
+    active rows. ``isotropic`` ties the two scale columns. The bias
+    corrections come from tables indexed by the device step."""
     if isotropic:
         tied = torch.sum(grads.log_scales, dim=-1, keepdim=True)
         grads = grads._replace(log_scales=tied.expand_as(grads.log_scales))
     b1, b2 = betas
+    dev = gm.active.device
     step = gm.step + 1
-    # bias corrections in float32, as the JAX version computes them
-    t = torch.tensor(float(step), dtype=torch.float32)
-    c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
-    c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
+    d1, d2 = at(bias_table(b1, dev), step), at(bias_table(b2, dev), step)
     act = gm.active[:, None]
 
     new_p, new_m, new_v = [], [], []
@@ -257,7 +280,7 @@ def adam_step(gm: GaussianMap, grads: Params, lrs: dict,
         g = torch.where(act, g, torch.zeros_like(g))
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+        upd = div_by_entry(m, d1) / (torch.sqrt(div_by_entry(v, d2)) + eps)
         p = p - lrs[LR_KEYS[name]] * torch.where(act, upd, torch.zeros_like(upd))
         new_p.append(p)
         new_m.append(m)
@@ -330,5 +353,8 @@ def densify_and_prune(gm: GaussianMap, grad_stat: torch.Tensor,
 
 
 def extract_params(gm: GaussianMap) -> tuple[Params, torch.Tensor, torch.Tensor]:
-    """Detached snapshot for submap handoff (Gaussians.extract_params)."""
-    return (Params(*(p.detach() for p in gm.params)), gm.active, gm.n_active)
+    """Detached snapshot for submap handoff (Gaussians.extract_params): a
+    copy, since a captured step rewrites the map's buffers in place
+    (slam/programs.py)."""
+    return (Params(*(p.detach().clone() for p in gm.params)),
+            gm.active.clone(), gm.n_active.clone())

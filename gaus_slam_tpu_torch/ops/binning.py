@@ -126,15 +126,16 @@ class Binning(NamedTuple):
         run = self._run_reduce(grads, n, d_max, backend)
         return torch.where(self.overflow, slab, run)
 
-    def phase_reduce(self, d_pairs_sub: torch.Tensor, phase: int, n: int,
+    def phase_reduce(self, d_pairs_sub: torch.Tensor, phase, n: int,
                      d_max: int, backend: str | None = None) -> torch.Tensor:
         """Per-gaussian reduce of ONE coarse phase's compact pair grads
         [r_phase, C], indexed from the 128-aligned floor of the phase
-        start (phase-major binning with ``reduce_perm``)."""
+        start (phase-major binning with ``reduce_perm``); ``phase`` a
+        python int or a device int scalar (a captured step's)."""
         r_phase, c = d_pairs_sub.shape
         dev = d_pairs_sub.device
-        p0 = self.phase_start[phase].long()
-        p1 = self.phase_start[phase + 1].long()
+        p0 = row(self.phase_start, phase).long()
+        p1 = row(self.phase_start, phase + 1).long()
         p0_al = (p0 // 128) * 128
         keys_pad = torch.cat([self.red_keys, torch.full(
             (r_phase,), SENTINEL, dtype=torch.int32, device=dev)])
@@ -189,6 +190,14 @@ class Binning(NamedTuple):
         out = _land(acc, pos, backend)
         return torch.where((self.counts > 0)[:, None], out,
                            torch.zeros((), device=dev))
+
+
+def row(t: torch.Tensor, i) -> torch.Tensor:
+    """``t[i]`` for a python int or a device int scalar ``i`` (indexed on
+    the device: no host read)."""
+    if isinstance(i, int):
+        return t[i]
+    return t.index_select(0, i.reshape(1)).reshape(())
 
 
 def gaussian_rects(pre, grid: TileGrid):

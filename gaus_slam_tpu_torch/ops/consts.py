@@ -60,3 +60,38 @@ def host_to_device(a, device, dtype: torch.dtype = torch.float32
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def step_table(key, entries, device) -> torch.Tensor:
+    """A float32 table indexed by a device step counter: ``entries()``
+    gives its host values (made once per key and device, with
+    ``cached``). A captured step reads its per-step scalars (a bias
+    correction, a learning rate) from such a table through ``at``, so the
+    graph bakes the table, never the value of one step."""
+    return cached(("step_table",) + tuple(key),
+                  lambda: np.asarray(entries(), dtype=np.float32), device)
+
+
+def at(table: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """``table[min(step, len - 1)]`` as a 0-d tensor, indexed on the
+    device (the last entry holds for every later step)."""
+    i = torch.clamp(step, max=table.shape[0] - 1).reshape(1)
+    return table.index_select(0, i).reshape(())
+
+
+def host_scalar_divisor(c, device) -> np.float32:
+    """What ``x / c`` multiplies or divides by for a host float ``c``
+    and a float32 tensor ``x`` on ``device``: CUDA divides by a host
+    scalar as a multiplication by its reciprocal, taken in double and
+    rounded to float32 (PyTorch 2.11 on the H100, chip_smoke phase 13);
+    the CPU divides by c rounded to float32. A table of these and
+    ``div_by_entry`` give the same bits as the host scalar did."""
+    if torch.device(device).type == "cuda":
+        return np.float32(1.0 / float(c))
+    return np.float32(c)
+
+
+def div_by_entry(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``x / c`` for the host float ``c`` behind the table entry ``d``
+    (``host_scalar_divisor``)."""
+    return x * d if x.is_cuda else x / d

@@ -94,9 +94,10 @@ def expand_pairs(attrs_t: torch.Tensor, bins: B.Binning, d_max: int,
     return _ExpandPairs.apply(attrs_t, bins, d_max, backend)
 
 
-def _phase_base(bins: B.Binning, phase: int) -> torch.Tensor:
-    """128-aligned floor of the phase's first pair index (device)."""
-    return (bins.phase_start[phase].long() // 128) * 128
+def _phase_base(bins: B.Binning, phase) -> torch.Tensor:
+    """128-aligned floor of the phase's first pair index (device);
+    ``phase`` a python int or a device int scalar."""
+    return (B.row(bins.phase_start, phase).long() // 128) * 128
 
 
 def _phase_rows(attrs_t, bins, phase, r_phase):

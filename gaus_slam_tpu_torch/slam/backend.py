@@ -53,8 +53,9 @@ from ..ops.consts import host_to_device
 from ..ops.se3 import invert_se3, quat_multiply, rotmat_to_quat
 from ..utils.config import SystemConfig
 from .densify import prune_gaussians
-from .steps import (ba_step, backend_tracking_step, fold_diags, mapping_loop,
-                    mapping_step)
+from . import programs
+from .steps import (ComposedW2C, DiagFold, ba_step, backend_tracking_step,
+                    mapping_loop, mapping_step)
 
 
 def transform_params(params: G.Params, transfer: torch.Tensor) -> G.Params:
@@ -197,9 +198,12 @@ class Backend:
         self.exposure_start = int(be.get("exposure_start", 120))
         self.ape_rec = []
         self.totalpts_rec = []
-        # per-step binning diagnostics (device scalars), folded into one
+        # the steps' binning diagnostics, folded on the device into one
         # readback at an idle moment or at the end of a merge
-        self._map_aux_acc: list = []
+        self._diag = DiagFold()
+        # the captured steps and the map's buffers they step in place
+        # (slam/programs.py), apart from the frontend's
+        self.programs = programs.Owner("backend")
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -241,21 +245,17 @@ class Backend:
 
     def _note_diag(self, aux):
         if aux and "overflow" in aux:
-            self._map_aux_acc.append(
-                {"overflow": aux["overflow"], "n_shrunk": aux["n_shrunk"],
-                 "demand": aux.get("demand", 0)})
-            if len(self._map_aux_acc) >= 256:  # bound the device-scalar pile
+            self._diag.add(aux)
+            if self._diag.n >= 256:  # read back at least this often
                 self._check_escalation()
 
     def _check_escalation(self):
-        if not self._map_aux_acc:
+        if not self._diag.n:
             return
-        folded = fold_diags(self._map_aux_acc)
-        # one stacked device-to-host copy for the three scalars
-        diag = dict(zip(("overflow", "n_shrunk", "demand"), torch.stack(
-            [folded[k].to(torch.int64) for k in ("overflow", "n_shrunk",
-                                                  "demand")]).tolist()))
-        self._map_aux_acc = []
+        # one device-to-host copy for the three folded scalars
+        diag = dict(zip(("overflow", "n_shrunk", "demand"),
+                        self._diag.v.to(torch.int64).tolist()))
+        self._diag = DiagFold()
         cap = self.map.capacity if self.map is not None else 0
         if os.environ.get("GAUS_DEMAND"):
             print(f"[prof] backend pair demand={int(diag['demand'])} "
@@ -335,6 +335,13 @@ class Backend:
         backend's device, copied without a host wait."""
         return host_to_device(a, self.device)
 
+    def _frame_w2c(self, lm: LocalMap, fid: int) -> ComposedW2C:
+        """A kept frame's camera, lm.get_frame_w2c(fid), composed inside
+        the step that uses it."""
+        tf = lm.transform
+        return ComposedW2C(self._tensor(lm.frames[fid].est_w2c), tf.quat,
+                           tf.trans)
+
     # ------------------------------------------------------------------
     def mapping(self, lm_idx: int):
         s = self.sys
@@ -347,11 +354,12 @@ class Backend:
         # this call, exceeds exposure_start (Backend.py:121-124)
         live_exp = self.enable_exposure and lm.exposure is not None
         gm, exp_out, aux = mapping_step(
-            self.map, lm.get_frame_w2c(fid), self._tile_gt(frame),
+            self.map, self._frame_w2c(lm, fid), self._tile_gt(frame),
             lm.exposure if live_exp else self.exposure,
             live_exp and lm.mapping_times + 1 > self.exposure_start,
             s.exp_sched_back, s.cam, s.opts, s.mcfg, s.lcfg,
-            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None)
+            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None,
+            owner=self.programs)
         self.map = gm
         if live_exp:
             lm.exposure = exp_out
@@ -407,7 +415,7 @@ class Backend:
             if not lm.saved_idxs:
                 continue
             fid = self.rng.choice(lm.saved_idxs)
-            w2cs.append(lm.get_frame_w2c(fid))
+            w2cs.append(self._frame_w2c(lm, fid))
             gts.append(self._tile_gt(lm.frames[fid]))
             touched.append(lm)
         if not w2cs:
@@ -419,9 +427,9 @@ class Backend:
                 self.mapping(i)
             return {}
         phase0 = self._map_phase if coarse else self._map_phase_pre
-        gm, aux = mapping_loop(self.map, torch.stack(w2cs), torch.stack(gts),
-                               s.cam, s.opts, s.mcfg, s.lcfg, rebin_every=1,
-                               coarse_stride=stride, phase0=phase0)
+        gm, aux = mapping_loop(self.map, w2cs, gts, s.cam, s.opts, s.mcfg,
+                               s.lcfg, rebin_every=1, coarse_stride=stride,
+                               phase0=phase0, owner=self.programs)
         if stride > 1:
             nxt = (phase0 + len(w2cs)) % (stride * stride)
             if coarse:
@@ -476,7 +484,8 @@ class Backend:
             self.map, lm.transform, self._tensor(frame.est_w2c),
             self._tile_gt(frame), s.cam, s.opts, tcfg or s.track_back, s.lcfg,
             exposure=lm.exposure if live_exp else None,
-            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None)
+            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None,
+            owner=self.programs)
         lm.transform = pose
         self._note_diag(aux)
         return aux
@@ -497,7 +506,8 @@ class Backend:
             self.map, lm.transform, self._tensor(frame.est_w2c),
             self._tile_gt(frame), lm.exposure if live_exp else self.exposure,
             s.cam, s.opts, s.mcfg, s.lcfg, s.exp_sched_back,
-            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None)
+            frame_exp=self._tensor(lm.frame_exp(fid)) if live_exp else None,
+            owner=self.programs)
         self.map = gm
         lm.transform = pose
         if live_exp:

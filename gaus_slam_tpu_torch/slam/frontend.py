@@ -25,13 +25,15 @@ from ..models import gaussians as G
 from ..models.frame import Frame, init_exposure
 from ..models.submap import LocalMap
 from ..ops.composite_ref import frame_to_tiles
-from ..render import bin_for_tracking, bin_full, render_view
+from ..render import bin_full, render_view
 from ..utils.config import SystemConfig
 from ..utils.fence import probe_fence
 from ..utils.stage import DEPTH_U16_SCALE
 from .densify import add_new_gaussians, prune_gaussians
 from .init_map import initialize_map
-from .steps import fold_diags, mapping_loop, mapping_step, tracking_loop
+from . import programs
+from .steps import (ComposedW2C, DiagFold, bin_tracking, mapping_loop,
+                    mapping_step, tracking_loop)
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -56,11 +58,12 @@ def _to_device(x, device) -> torch.Tensor:
 
 def _readback(fetch: dict) -> dict:
     """Host copies of the values the host needs after a loop: numpy for
-    arrays, python scalars for 0-d tensors."""
+    arrays, python scalars for 0-d tensors. Copies also on the CPU, where
+    ``cpu()`` would share a program's buffer (slam/programs.py)."""
     def host(x):
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu()
-            return x.numpy() if x.dim() else x.item()
+            return x.numpy().copy() if x.dim() else x.item()
         return x
 
     return {k: host(v) for k, v in fetch.items()}
@@ -72,6 +75,14 @@ def _host_w2c(frame) -> np.ndarray:
     one device readback."""
     w = getattr(frame, "_w2c_host", None)
     return w if w is not None else frame.get_w2c.detach().cpu().numpy()
+
+
+def _w2c_arg(frame):
+    """A frame's w2c for a captured step (Frame.get_w2c, made inside it
+    when the frame has a live pose)."""
+    if frame.pose is None:
+        return frame.get_w2c
+    return ComposedW2C(None, frame.pose.quat, frame.pose.trans)
 
 
 def _host_inv_se3(m: np.ndarray) -> np.ndarray:
@@ -127,10 +138,14 @@ class Frontend:
         # frame's readback; dropped whenever the map or self.sys changes
         self.speculative_bin = bool(tpu.get("speculative_bin", True))
         self._spec = None
+        self._spec_slot = 0
         # compact coarse tracking: a phase-major tracking cache whose head
         # block holds the coarse checkerboard's pairs
         self.compact_coarse_track = bool(tpu.get("compact_coarse_track", True))
 
+        # the captured steps (tracking iterations, mapping) and the map's
+        # buffers they step in place (slam/programs.py)
+        self.programs = programs.Owner("frontend")
         self.map: G.GaussianMap | None = None
         self.local_frames: list[Frame] = []
         self.cur_lmid = 0
@@ -230,8 +245,8 @@ class Frontend:
         if spec_cache is not None:
             cache = spec_cache
         else:
-            cache = bin_for_tracking(self.map, s.cam.replace_w2c(frame.pose.w2c),
-                                     s.opts, coarse_strides=strides)
+            cache = bin_tracking(self.map, _w2c_arg(frame), s.cam, s.opts,
+                                 coarse_strides=strides, owner=self.programs)
         if prof:
             probe_fence(cache.raw_t)
             t_bin = time.perf_counter() - t0
@@ -245,11 +260,13 @@ class Frontend:
             pose, aux1 = tracking_loop(
                 cache, frame.pose, self._tile_gt(frame), s.cam, s.opts,
                 tcfg._replace(num_iters=n_coarse), s.lcfg,
-                compact_coarse=bool(strides))
+                compact_coarse=bool(strides), owner=self.programs)
             # the init-pose cache's diagnostics reach the escalation too
-            diag_pre = (cache.overflow, cache.n_shrunk)
-            cache = bin_for_tracking(self.map, s.cam.replace_w2c(pose.w2c),
-                                     s.opts)
+            # (copied: the next binning rewrites the cache's buffers)
+            diag_pre = (cache.overflow.clone(), cache.n_shrunk.clone())
+            cache = bin_tracking(
+                self.map, ComposedW2C(None, pose.quat, pose.trans), s.cam,
+                s.opts, owner=self.programs)
             frame.pose = pose
             iters_pre = aux1["iters"]
             tcfg = tcfg._replace(num_iters=tcfg.num_iters - n_coarse,
@@ -261,7 +278,7 @@ class Frontend:
             tcfg, s.lcfg, want_view=want_view,
             prev_pose=prev_pose if predict else None,
             predict=predict, use_vel=self.vel_pose_init,
-            compact_coarse=bool(strides))
+            compact_coarse=bool(strides), owner=self.programs)
         frame.pose = pose
         # the iteration count is a device scalar (as in JAX): it rides the
         # one readback below
@@ -279,9 +296,12 @@ class Frontend:
             # the readback below; dropped (by map identity) if anything
             # changes the map first
             fetch["pred_w2c"] = aux["pred_w2c"]
-            spec_next = bin_for_tracking(
-                self.map, s.cam.replace_w2c(aux["pred_w2c"]), s.opts,
-                coarse_strides=self._track_strides())
+            # into one of two slots: this frame's cache may be the other
+            self._spec_slot ^= 1
+            spec_next = bin_tracking(
+                self.map, aux["pred_w2c"], s.cam, s.opts,
+                coarse_strides=self._track_strides(), owner=self.programs,
+                into=f"spec_cache{self._spec_slot}")
         host = _readback(fetch)
         sys_before = self.sys
         self._check_escalation(host)
@@ -315,12 +335,15 @@ class Frontend:
             t0 = time.perf_counter()
             k = self.num_mapping_iters // self.rebin_every
             sel = [self.rng.choice(frames) for _ in range(k)]
-            w2cs = torch.stack([f.get_w2c for f in sel])
-            gts = torch.stack([self._tile_gt(f) for f in sel])
+            # the program binds each frame's pose and tiles on their own,
+            # and makes a tracked frame's w2c (Frame.get_w2c) itself
+            w2cs = [_w2c_arg(f) for f in sel]
+            gts = [self._tile_gt(f) for f in sel]
             gm, aux = mapping_loop(self.map, w2cs, gts, s.cam, s.opts,
                                    s.mcfg, s.lcfg,
                                    rebin_every=self.rebin_every,
-                                   coarse_stride=self.coarse_map_stride)
+                                   coarse_stride=self.coarse_map_stride,
+                                   owner=self.programs)
             self.map = gm
             for f in sel:
                 f.mapping_times += self.rebin_every
@@ -338,7 +361,7 @@ class Frontend:
         exp_dummy = init_exposure(self.device)
         t0 = time.perf_counter()
         n_steps = 0
-        diags = []  # per-step binning diagnostics (device scalars)
+        diags = DiagFold()  # the steps' binning diagnostics, on the device
         it = 0
         while it < self.num_mapping_iters:
             frame: Frame = self.rng.choice(frames)
@@ -357,9 +380,9 @@ class Frontend:
                     self.map, f_w2c, self._tile_gt(frame), exp,
                     s.lcfg.enable_exposure and frame.mapping_times > 10,
                     s.exp_sched_front, s.cam, s.opts, s.mcfg, s.lcfg,
-                    bins=bins)
+                    bins=bins, owner=self.programs)
                 self.map = gm
-                diags.append(aux)
+                diags.add(aux)
                 if frame.exposure is not None:
                     frame.exposure = exp
                 frame.mapping_times += 1
@@ -370,10 +393,10 @@ class Frontend:
                         % self.densify_interval == 0):
                     self._densify(frame)
                     break  # map rows changed: stale bins, resample
-        # one readback for the whole loop; fold_diags keeps a transient
+        # one readback for the whole loop; the fold keeps a transient
         # mid-loop overflow
-        if diags:
-            self._check_escalation(_readback(fold_diags(diags)))
+        if diags.n:
+            self._check_escalation(_readback(diags.folded()))
         dt = time.perf_counter() - t0
         if os.environ.get("GAUS_PROFILE"):
             print(f"[prof] frontend mapping x{n_steps}: {dt*1000:.0f}ms "

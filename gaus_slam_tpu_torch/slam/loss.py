@@ -52,7 +52,8 @@ def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     big = constant(3.4e38, x.dtype, x.device)
     v = torch.sort(torch.where(mask, x, big).reshape(-1)).values
     n = torch.sum(mask)
-    return v[torch.clamp(n // 2, min=0)]
+    # indexed on the device (indexing with a device scalar reads it)
+    return v.index_select(0, torch.clamp(n // 2, min=0).reshape(1))[0]
 
 
 def tracking_loss(out_tiled, gt_tiled, cfg: LossConfig, exposure=None):

@@ -19,9 +19,11 @@ Builds a synthetic surfel map shaped like the 340x600 steady state
     map      mapping_step (binning, render, loss, Adam)
 
 On a card each stage is timed between CUDA events over MB_REPS calls
-after two warm-up calls, in device milliseconds; ``--device cpu`` runs
-the plain versions, after one warm-up call, and times them on the host
-clock (a CPU time, not a device one).
+after two warm-up calls, in device milliseconds, and one more call is
+profiled for its launches: graph launches (``track`` and ``map`` replay
+the steps captured by slam/programs.py) and kernels launched outside a
+graph. ``--device cpu`` runs the plain versions, after one warm-up call,
+and times them on the host clock (a CPU time, not a device one).
 
     python -m gaus_slam_tpu_torch.tools.microbench [--device cuda|cpu] \
         [stage ...]
@@ -78,16 +80,33 @@ def make_scene(h, w, n_act, cap, dev, seed=0):
         rgb=t(rng.uniform(size=(cap, 3))))
     gm = G.GaussianMap(
         params=params, m=G._zeros_params(cap, dev),
-        v=G._zeros_params(cap, dev), step=10,
+        v=G._zeros_params(cap, dev),
+        step=torch.tensor(10, dtype=torch.int32, device=dev),
         active=torch.arange(cap, device=dev) < n_act,
         n_active=torch.tensor(n_act, dtype=torch.int32, device=dev))
     return cam, gm
+
+
+def _launches(fn, *args) -> str:
+    """One more call of ``fn`` under torch.profiler: its graph launches and
+    the kernels it launched outside a graph (slam/programs.py captures the
+    steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .sync_audit import count_launches
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    n = count_launches(prof.key_averages())
+    return f"graphs {n['graphs']}, kernels outside a graph {n['kernels']}"
 
 
 def _timer(dev, reps):
     def bench(name, fn, *args):
         for _ in range(2 if dev.type == "cuda" else 1):
             fn(*args)
+        launches = ""
         if dev.type == "cuda":
             torch.cuda.synchronize()
             t0 = torch.cuda.Event(enable_timing=True)
@@ -98,12 +117,13 @@ def _timer(dev, reps):
             t1.record()
             torch.cuda.synchronize()
             ms = t0.elapsed_time(t1) / reps
+            launches = f"  (a call: {_launches(fn, *args)})"
         else:
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn(*args)
             ms = (time.perf_counter() - t0) / reps * 1e3
-        print(f"{name:34s} {ms:9.3f} ms", flush=True)
+        print(f"{name:34s} {ms:9.3f} ms{launches}", flush=True)
         return ms
     return bench
 

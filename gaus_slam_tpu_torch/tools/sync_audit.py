@@ -100,15 +100,18 @@ def step_fns(st: dict) -> dict:
     sched = LrSchedule(0.0, 0.0, 1)
     out = {}
 
+    # the frontend's own programs (slam/programs.py), as its frames run
+    # them: the mapping step steps the frontend's map in place
+
     def tracking():
         cache = bin_for_tracking(fe.map, s.cam.replace_w2c(pose.w2c), s.opts)
         _, aux = tracking_loop(cache, pose, gt, s.cam, s.opts, s.track_front,
-                               s.lcfg)
+                               s.lcfg, owner=fe.programs)
         out["tracking"] = aux
 
     def mapping():
         mapping_step(fe.map, w2c, gt, exp0, False, sched, s.cam, s.opts,
-                     s.mcfg, s.lcfg)
+                     s.mcfg, s.lcfg, owner=fe.programs)
 
     def backend():
         # four mapping tasks of one class at the queue's head: one fused
@@ -198,14 +201,35 @@ def audit(st: dict, mode: str = "error", steps=STEPS) -> dict:
 # CUDA runtime calls in which the host can wait for the card
 HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                    "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+# runtime calls that launch work on the card: a kernel outside a graph,
+# a captured graph (slam/programs.py)
+KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def count_launches(events) -> dict:
+    """Launches in a profiler window's ``key_averages()``: kernels launched
+    outside a graph and graph launches (host calls), and the kernels the
+    card ran, inside graphs or not."""
+    out = {"kernels": 0, "graphs": 0, "device_kernels": 0}
+    for ev in events:
+        if ev.key in KERNEL_CALLS:
+            out["kernels"] += ev.count
+        elif ev.key in GRAPH_CALLS:
+            out["graphs"] += ev.count
+        elif ("CUDA" in str(getattr(ev, "device_type", ""))
+              and not ev.key.startswith(("Memcpy", "Memset"))):
+            out["device_kernels"] += ev.count
+    return out
 
 
 def profile_window(fn) -> dict:
     """One call of ``fn`` under torch.profiler (CPU and CUDA activity),
     closed by a device synchronize: wall ms, device busy ms (the sum of
     the kernels' own times), the eight busiest device ops (ms, count,
-    name), the host's ms and count in each of HOST_WAIT_CALLS, and
-    ``wait_ms``, the host's ms in stream synchronizes and synchronous
+    name), the host's ms and count in each of HOST_WAIT_CALLS,
+    ``launches`` (``count_launches``) and ``wait_ms``, the host's ms in stream synchronizes and synchronous
     copies (the closing device synchronize is the window's fence, not
     the step's; an event synchronize is the tracking loop's lagged read,
     counted apart)."""
@@ -236,7 +260,8 @@ def profile_window(fn) -> dict:
     wait_ms = sum(waits.get(k, (0.0, 0))[0] for k in
                   ("cudaStreamSynchronize", "cudaMemcpy"))
     return dict(wall=wall, busy=sum(r[0] for r in rows), top=rows[:8],
-                waits=dict(sorted(waits.items())), wait_ms=wait_ms)
+                waits=dict(sorted(waits.items())), wait_ms=wait_ms,
+                launches=count_launches(prof.key_averages()))
 
 
 def profile_steps(st: dict, steps=STEPS) -> dict:
@@ -327,9 +352,12 @@ def main(argv=None) -> dict:
               flush=True)
     if args.profile:
         for name, w in profile_steps(st, args.steps).items():
+            n = w["launches"]
             print(f"[sync_audit] profile {name}: wall {w['wall']:.3f} ms, "
                   f"device busy {w['busy']:.3f} ms, idle share "
-                  f"{1 - w['busy'] / w['wall']:.3f}, host waits "
+                  f"{1 - w['busy'] / w['wall']:.3f}, launches: graphs "
+                  f"{n['graphs']}, kernels outside a graph {n['kernels']}, "
+                  f"kernels on the card {n['device_kernels']}; host waits "
                   f"{w['wait_ms']:.3f} ms; by call (ms, count) "
                   f"{w['waits']}; busiest: " + "; ".join(
                       f"{k[:70]} x{c} {ms:.3f} ms" for ms, c, k in w["top"]),

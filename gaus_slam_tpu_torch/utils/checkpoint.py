@@ -51,10 +51,15 @@ def _map_state(gm: G.GaussianMap) -> dict:
         "params": {f: _np(p) for f, p in zip(G.PARAM_FIELDS, gm.params)},
         "m": {f: _np(p) for f, p in zip(G.PARAM_FIELDS, gm.m)},
         "v": {f: _np(p) for f, p in zip(G.PARAM_FIELDS, gm.v)},
-        "step": np.int32(gm.step),
+        "step": np.int32(_np(gm.step)),
         "active": _np(gm.active),
         "n_active": np.int32(int(gm.n_active)),
     }
+
+
+def _step(a, device) -> torch.Tensor:
+    """A saved step count as the port keeps it: a device int32 scalar."""
+    return torch.as_tensor(np.array(a, np.int32).reshape(()), device=device)
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -82,7 +87,7 @@ def _map_from(arrays: dict, prefix: str, device) -> G.GaussianMap:
 
     return G.GaussianMap(
         params=params("params"), m=params("m"), v=params("v"),
-        step=int(arrays[f"{prefix}/step"]),
+        step=_step(arrays[f"{prefix}/step"], device),
         active=torch.as_tensor(arrays[f"{prefix}/active"], dtype=torch.bool,
                                device=device),
         n_active=torch.as_tensor(arrays[f"{prefix}/n_active"],
@@ -92,7 +97,7 @@ def _map_from(arrays: dict, prefix: str, device) -> G.GaussianMap:
 def _state_from(sub: dict, fields, cls, device):
     vals = [torch.as_tensor(sub[f], dtype=torch.float32, device=device)
             for f in fields[:-1]]
-    return cls(*vals, int(sub["step"]))
+    return cls(*vals, _step(sub["step"], device))
 
 
 def run_state_arrays(frontend, backend) -> dict:
@@ -112,13 +117,13 @@ def backend_state_arrays(backend) -> dict:
     if backend.map is not None:
         state["backend_map"] = _map_state(backend.map)
         state["transforms"] = {
-            str(i): {f: np.int32(lm.transform.step) if f == "step"
+            str(i): {f: np.int32(_np(lm.transform.step)) if f == "step"
                      else _np(getattr(lm.transform, f)) for f in POSE_FIELDS}
             for i, lm in enumerate(backend.local_maps)
             if lm.transform is not None
         }
         exposures = {
-            str(i): {f: np.int32(lm.exposure.step) if f == "step"
+            str(i): {f: np.int32(_np(lm.exposure.step)) if f == "step"
                      else _np(getattr(lm.exposure, f))
                      for f in EXPOSURE_FIELDS}
             for i, lm in enumerate(backend.local_maps)
