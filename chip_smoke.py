@@ -50,7 +50,7 @@ line):
    copies: a step's host waits).
 4b. No host wait inside a step (tools/sync_audit.py): tracking_loop
    with the config's converged_th, a frontend mapping_step, a
-   Backend.process() running a fused x4 mapping batch and a
+   Backend.process() running a fused x4 mapping batch and a captured
    sharded_ba_step over four slots of the card, at 340x600, each under
    torch.cuda.set_sync_debug_mode("error"); any flagged call fails. The
    tracking loop's lagged early-exit read waits on a CUDA event (not a
@@ -154,10 +154,14 @@ line):
    phase 2's random map with the synthetic scene's frames 0-3 against the
    sequential mean-gradient step (loss within 1e-5 relative, parameters
    bit-equal or within 1e-6 of each field's scale), also with weights
-   [1, 1, 1, 0] against the 3-keyframe step; ms per sharded step beside
-   4 sequential mapping steps; then a Backend whose BA group is those
-   four slots through two merges: sharded steps ran, the map is finite,
-   K1, K2 and K4 launched.
+   [1, 1, 1, 0] against the 3-keyframe step; ms per captured sharded
+   step (a shard program per slot and the reduction's, with owners of
+   their own, the map stepped in place) beside 4 sequential captured
+   mapping steps, and one step under torch.profiler: at most 5 graph
+   launches and SHARDED_OUTSIDE_LIMIT kernels, copies and fills outside
+   a graph; then a Backend whose BA group is those four slots through
+   two merges: sharded steps ran, the map is finite, K1, K2 and K4
+   launched.
    10c. scripts/gaus_mp.py at 340x600 over the config's 30 frames with
    the backend on the frontend's stream and on its own: three merges,
    phase 6's ATE and first-submap PSNR bounds, K1-K4 launched (K3 inside
@@ -223,15 +227,28 @@ line):
    map array bit-equal (so every program equals its eager run on the
    card: the tracking iterations at both levels and the tail, the
    frontend's and the backend's mapping_loop dense and coarse,
-   mapping_step, ba_step, backend_tracking_step); the programs each ran,
-   the graph pools' MiB and the peak device memory above the start.
+   mapping_step, ba_step, backend_tracking_step, the submap init, the
+   keyframe's add_and_prune, both prunes); the programs each ran,
+   the graph pools' MiB and the peak device memory above the start. The
+   eval frame (render, PSNR, MS-SSIM, depth metrics) captured against
+   its eager run on the Frontend's last frames, bit for bit, with ms
+   per frame each way; the sharded BA step over four slots, captured,
+   against its eager run over two chained steps, weights 1 and
+   [1, 1, 1, 0], bit for bit.
    13b. Per step on the captured programs, under torch.profiler: graph
-   launches, kernels launched outside a graph and kernels the card ran,
-   wall and device busy ms and the idle share, for a frontend tracking
-   loop, the frontend's fused mapping, a backend fused x4 batch (at most
-   X4_LAUNCH_LIMIT graph launches + kernels outside a graph), a backend
-   mapping step and a backend tracking step. Phases 3, 4b, 6, 10a, 11b
-   and 12a ran with the steps captured before it (4b audits the replays).
+   launches, kernels and copies outside a graph and kernels the card
+   ran, wall and device busy ms and the idle share, for a frontend
+   tracking loop, the frontend's fused mapping, a backend fused x4 batch
+   (at most X4_LAUNCH_LIMIT graph launches + kernels outside a graph), a
+   backend mapping step, a backend tracking step, the sharded BA step on
+   four slots with the Backend's owners (at most 5 graph launches and
+   SHARDED_OUTSIDE_LIMIT operations outside a graph), an eval frame, a
+   keyframe's view and add_and_prune, and a submap init; then the
+   frontend's GAUS_PROFILE marks over 12 frames by kind of frame
+   (tools/frame_split.py), the graph launches and captures by program
+   and the graph pools' MiB. Phases 3, 4b, 6, 10a, 11b and 12a ran with
+   the steps captured before it (4b audits the replays, the sharded
+   step's included).
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
 of their own, with their launches in 11b at 340x600), the card line, and
@@ -2327,6 +2344,7 @@ BACKLOG_CYCLES = 400_000_000  # 10a: ~0.2 s, more than 4 tasks' host time
 # MARK_KERNELS: spins and the histogram kernel are left out of the busy
 # time; the histogram kernel marks the backend's stream
 BA_GROUP = 4           # 10b: keyframes of one sharded step, all on cuda:0
+SHARDED_OUTSIDE_LIMIT = 16   # 10b: kernels, copies, fills outside a graph
 
 
 def union(intervals):
@@ -2875,6 +2893,7 @@ def phase_sharded_ba(cfg, ds, lms, capacity, dev, card):
     from gaus_slam_tpu_torch.ops import _cuda
     from gaus_slam_tpu_torch.ops.composite_ref import frame_to_tiles
     from gaus_slam_tpu_torch.parallel import sharded_ba_step
+    from gaus_slam_tpu_torch.slam import programs
     from gaus_slam_tpu_torch.slam.backend import Backend
     from gaus_slam_tpu_torch.slam.steps import mapping_step
     from gaus_slam_tpu_torch.utils.config import SystemConfig
@@ -2925,12 +2944,35 @@ def phase_sharded_ba(cfg, ds, lms, capacity, dev, card):
                                    s.cam, s.opts, s.mcfg, s.lcfg)
         return m
 
-    step_ms = time_ms(sharded, 5, warm=1)
+    # the captured step as the Backend runs it: its owners, the map
+    # stepped in place in the map owner's buffers
+    owners = [programs.Owner(f"10b-shard{k}", device=d)
+              for k, d in enumerate(devs)] + [programs.Owner("10b-map")]
+    chain = {"gm": gm}
+
+    def sharded_chain():
+        chain["gm"], _, _ = sharded_ba_step(devs, chain["gm"], w2cs, gts,
+                                            s.cam, s.opts, s.mcfg, s.lcfg,
+                                            owners=owners)
+
+    step_ms = time_ms(sharded_chain, 5, warm=2)
     seq_ms = time_ms(four_steps, 5, warm=1)
-    print(f"[sharded_ba] {card}: {step_ms:.2f} ms per sharded step over "
-          f"{BA_GROUP} keyframes on one card, {seq_ms:.2f} ms for "
-          f"{BA_GROUP} sequential mapping steps ({H}x{W}, capacity "
-          f"{gm.capacity})")
+    w = step_window(sharded_chain)
+    n = w["launches"]
+    print(f"[sharded_ba] {card}: {step_ms:.2f} ms per captured sharded step "
+          f"over {BA_GROUP} keyframes on one card, {seq_ms:.2f} ms for "
+          f"{BA_GROUP} sequential captured mapping steps (ratio "
+          f"{step_ms / seq_ms:.3f}; {H}x{W}, capacity {gm.capacity}); one "
+          f"step profiled: graph launches {n['graphs']}, kernels outside a "
+          f"graph {n['kernels']}, copies and fills outside a graph "
+          f"{n['copies']}, kernels on the card {n['device_kernels']}, wall "
+          f"{w['wall']:.3f} ms, device busy {w['busy']:.3f} ms, idle share "
+          + ("not measured" if w["idle"] is None else f"{w['idle']:.3f}"))
+    check(n["graphs"] <= BA_GROUP + 1
+          and n["kernels"] + n["copies"] <= SHARDED_OUTSIDE_LIMIT,
+          f"phase 10b: the captured sharded step made {n['graphs']} graph "
+          f"launches and {n['kernels'] + n['copies']} operations outside a "
+          f"graph (limits {BA_GROUP + 1}, {SHARDED_OUTSIDE_LIMIT})")
 
     c = copy.deepcopy(cfg)
     c["backend"]["random_process"] = False
@@ -3899,6 +3941,106 @@ def programs_backend(cfg, lms, dev, eager):
     return backend_state_arrays(be), be
 
 
+def eval_inputs(frame, ds, dev):
+    """A Frontend frame's eval_final inputs at its pose."""
+    import torch
+
+    color, depth, _, _ = ds[frame.time_idx]
+    w2c = torch.as_tensor(np.asarray(frame.get_w2c.detach().cpu()),
+                          device=dev)
+    return (w2c, torch.as_tensor(np.asarray(color, np.float32) / 255.0,
+                                 device=dev),
+            torch.as_tensor(np.asarray(depth, np.float32), device=dev))
+
+
+def programs_eval(fe, ds, dev, card):
+    """13a: utils/eval.py's eval frame (render, image, PSNR, MS-SSIM, depth
+    metrics) captured against programs.eager() on the Frontend's map and
+    frames, bit for bit; ms per eval frame each way."""
+    import torch
+
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.utils.eval import _eval_frame
+
+    s = fe.sys
+    own = programs.Owner("13-eval")
+    frames = [f.time_idx for f in fe.local_frames]
+    ins = [eval_inputs(f, ds, dev) for f in fe.local_frames]
+    for t, (w2c, color, depth) in zip(frames, ins):
+        vals, rgb = _eval_frame(fe.map, w2c, color, depth, s.cam, s.opts,
+                                s.lcfg, owner=own)
+        rgb = rgb.clone()
+        with programs.eager():
+            v_e, rgb_e = _eval_frame(fe.map, w2c, color, depth, s.cam,
+                                     s.opts, s.lcfg)
+        check(torch.equal(vals, v_e) and torch.equal(rgb, rgb_e),
+              f"phase 13: the eval frame {t} differs from its eager run "
+              f"({vals.tolist()} against {v_e.tolist()})")
+    ms = {}
+    for label, ctx in (("captured", contextlib.nullcontext),
+                       ("eager", programs.eager)):
+        def run():
+            with ctx():
+                for w2c, color, depth in ins:
+                    _eval_frame(fe.map, w2c, color, depth, s.cam, s.opts,
+                                s.lcfg, owner=own)
+        ms[label] = time_ms(run, 3, warm=1) / len(ins)
+    print(f"[programs] {card}: the eval frame captured equals its eager run "
+          f"bit for bit on {len(ins)} frames; ms per eval frame (render, "
+          f"PSNR, MS-SSIM, depth; LPIPS apart) captured {ms['captured']:.3f}, "
+          f"eager {ms['eager']:.3f}")
+    return ms
+
+
+def programs_sharded(be, dev, card):
+    """13a: the sharded BA step over BA_GROUP slots of the card, two
+    chained steps with weights 1 and with [1, 1, 1, 0], captured (shard
+    owners and a map owner) against programs.eager(), bit for bit."""
+    import torch
+
+    from gaus_slam_tpu_torch.parallel import sharded_ba_step
+    from gaus_slam_tpu_torch.slam import programs
+
+    s = be.sys
+    lm = be.local_maps[0]
+    fids = [lm.saved_idxs[k % len(lm.saved_idxs)] for k in range(BA_GROUP)]
+    w2cs = torch.stack([lm.get_frame_w2c(f).detach() for f in fids])
+    gts = torch.stack([be._tile_gt(lm.frames[f]) for f in fids])
+    devs = [torch.device(dev)] * BA_GROUP
+    gm0 = programs._clone(be.map)
+    for weights in (None, [1, 1, 1, 0]):
+        owners = [programs.Owner(f"13-shard{k}", device=d)
+                  for k, d in enumerate(devs)] + [programs.Owner("13-map")]
+        runs = []
+        for ctx, own in ((contextlib.nullcontext, owners),
+                         (programs.eager, None)):
+            gm, out = gm0, []
+            with ctx():
+                for _ in range(2):
+                    gm, loss, diag = sharded_ba_step(
+                        devs, gm, w2cs, gts, s.cam, s.opts, s.mcfg, s.lcfg,
+                        weights=weights, owners=own)
+                    out.append(programs._clone((loss, diag)))
+            runs.append(programs._clone((gm, out)))
+        a, b = ([t for _, t in _leaves(r)] for r in runs)
+        check(len(a) == len(b) and all(torch.equal(x, y)
+                                       for x, y in zip(a, b)),
+              f"phase 13: the captured sharded step (weights {weights}) "
+              f"differs from its eager run")
+    print(f"[programs] {card}: the sharded BA step over {BA_GROUP} slots, "
+          f"captured ({BA_GROUP} shard programs and the reduction), equals "
+          f"its eager run bit for bit over two chained steps, weights 1 and "
+          f"[1, 1, 1, 0]")
+
+
+def _leaves(tree):
+    from gaus_slam_tpu_torch.slam import programs
+
+    out = []
+    programs._flatten(tree, "", out)
+    return out
+
+
 def step_window(fn) -> dict:
     """One call of ``fn`` (its programs captured before) under
     torch.profiler (tools/sync_audit.py::profile_window): wall ms, device
@@ -3967,6 +4109,10 @@ def phase_programs(cfg, ds, dev, card):
                              np.asarray(f_eager[2][k])),
               f"phase 13: the frontend's map {k} differs from the eager run's")
     fe = f_prog[3]
+    names = {p.name for p in fe.programs.programs.values()}
+    for want in ("initialize_map", "add_and_prune", "prune_gaussians"):
+        check(want in names, f"phase 13: the frontend ran no {want} program "
+              f"({sorted(names)})")
     print(f"[programs] {card}: the Frontend over {N_FRAMES_PROGRAMS} frames "
           f"with its steps captured equals the eager run bit for bit (every "
           f"pose, iteration count, loss and the final map): {secs_prog:.1f} "
@@ -3984,7 +4130,7 @@ def phase_programs(cfg, ds, dev, card):
           f"({map_digest(b_prog)} against {map_digest(b_eager)})")
     names = sorted({p.name for p in be.programs.programs.values()})
     for want in ("mapping_loop", "mapping_step", "ba_step",
-                 "backend_tracking_step"):
+                 "backend_tracking_step", "prune_gaussians"):
         check(want in names, f"phase 13: the backend ran no {want} program "
               f"({names})")
     print(f"[programs] {card}: the Backend over {len(f_prog[1])} merges, "
@@ -3996,11 +4142,18 @@ def phase_programs(cfg, ds, dev, card):
           f"{peak_back / 2**20:.1f} MiB; captures "
           f"{json.dumps(dict(programs.CAPTURES))}")
 
+    eval_rows = programs_eval(fe, ds, dev, card)
+    programs_sharded(be, dev, card)
+
     # 13b: launches and idle share per step, on the captured programs
-    from gaus_slam_tpu_torch.render import bin_for_tracking
+    from gaus_slam_tpu_torch.parallel import sharded_ba_step
+    from gaus_slam_tpu_torch.render import bin_for_tracking, render_view
+    from gaus_slam_tpu_torch.slam.densify import add_and_prune
     from gaus_slam_tpu_torch.slam.frontend import Frontend
+    from gaus_slam_tpu_torch.slam.init_map import initialize_map
     from gaus_slam_tpu_torch.slam.steps import (ComposedW2C, mapping_loop,
                                                 tracking_loop)
+    from gaus_slam_tpu_torch.utils.eval import _eval_frame
 
     # a Frontend over frames 0-4 (no cut: its frames keep their images)
     fe = Frontend(cfg, queue.Queue(), device=dev)
@@ -4047,6 +4200,38 @@ def phase_programs(cfg, ds, dev, card):
             be.tracking(0)
         be.wait()
 
+    def eval_frame():
+        _eval_frame(fe.map, *ins, s.cam, s.opts, s.lcfg, owner=eval_owner)
+
+    def keyframe():
+        # render_view, then add_and_prune on its view, as _densify runs
+        # them (the map grows in place; rows past capacity are dropped)
+        view = render_view(fe.map, s.cam.replace_w2c(ins[0]), s.opts,
+                           owner=fe.programs)
+        fe.map = add_and_prune(fe.map, ins[0], ins[1], ins[2], view, s.cam,
+                               s.opts, s.dcfg, s.lcfg, owner=fe.programs)
+
+    def init():
+        initialize_map(fe.map.capacity, ins[1], ins[2], ins[0], s.cam,
+                       owner=init_owner)
+
+    ba_devs = [torch.device(dev)] * BA_GROUP
+    lm = be.local_maps[0]
+    fids = [lm.saved_idxs[k % len(lm.saved_idxs)] for k in range(BA_GROUP)]
+    ba_w2cs = torch.stack([lm.get_frame_w2c(f).detach() for f in fids])
+    ba_gts = torch.stack([be._tile_gt(lm.frames[f]) for f in fids])
+
+    def sharded():
+        with be.stream_context():
+            bs = be.sys
+            be.map, _, _ = sharded_ba_step(
+                ba_devs, be.map, ba_w2cs, ba_gts, bs.cam, bs.opts, bs.mcfg,
+                bs.lcfg, owners=be.ba_owners(ba_devs))
+        be.wait()
+
+    eval_owner = programs.Owner("13b-eval")
+    init_owner = programs.Owner("13b-init")
+    ins = eval_inputs(frame, ds, dev)
     rows = {}
     for label, fn, per in (
             (f"tracking loop, {tc.num_iters} iterations", track,
@@ -4054,7 +4239,11 @@ def phase_programs(cfg, ds, dev, card):
             (f"frontend mapping, {fe.num_mapping_iters} iterations", fmap, 1),
             ("backend fused x4 mapping batch", x4, 1),
             ("backend mapping step", bmap, 1),
-            ("backend tracking step", btrack, 1)):
+            ("backend tracking step", btrack, 1),
+            (f"sharded BA step, {BA_GROUP} slots", sharded, 1),
+            ("eval frame", eval_frame, 1),
+            ("keyframe view + densify and prune", keyframe, 1),
+            ("submap init (initialize_map)", init, 1)):
         fn()
         torch.cuda.synchronize()
         w = step_window(fn)
@@ -4062,7 +4251,8 @@ def phase_programs(cfg, ds, dev, card):
         n = w["launches"]
         idle = ("not measured" if w["idle"] is None else f"{w['idle']:.3f}")
         print(f"[programs] {card}: {label}: graph launches {n['graphs']}, "
-              f"kernels launched outside a graph {n['kernels']}, kernels on "
+              f"kernels launched outside a graph {n['kernels']}, copies and "
+              f"fills outside a graph {n['copies']}, kernels on "
               f"the card {n['device_kernels']}"
               + (f" ({(n['graphs'] + n['kernels']) / per:.2f} launches per "
                  f"iteration)" if per > 1 else "")
@@ -4073,9 +4263,44 @@ def phase_programs(cfg, ds, dev, card):
           f"phase 13: the fused x4 batch issued {n['graphs']} graph launches "
           f"and {n['kernels']} kernels outside a graph (limit "
           f"{X4_LAUNCH_LIMIT})")
+    n = rows[f"sharded BA step, {BA_GROUP} slots"]["launches"]
+    check(1 <= n["graphs"] <= BA_GROUP + 1
+          and n["kernels"] + n["copies"] <= SHARDED_OUTSIDE_LIMIT,
+          f"phase 13: the sharded BA step issued {n['graphs']} graph "
+          f"launches and {n['kernels'] + n['copies']} operations outside a "
+          f"graph (limits {BA_GROUP + 1}, {SHARDED_OUTSIDE_LIMIT})")
+    keyframe_split(cfg, dev, card)
     print(f"[programs] {card}: graph launches by program since the start "
-          f"{json.dumps(dict(programs.GRAPH_LAUNCHES))}")
+          f"{json.dumps(dict(programs.GRAPH_LAUNCHES))}; captures "
+          f"{json.dumps(dict(programs.CAPTURES))}; graph pools "
+          f"{pool_bytes() / 2**20:.1f} MiB")
     return rows
+
+
+def keyframe_split(cfg, dev, card):
+    """13b: the frontend's GAUS_PROFILE marks over N_FRAMES_PROGRAMS frames
+    at 340x600 (tools/frame_split.py's frontend run): median ms of each
+    mark by kind of frame."""
+    import copy
+    import io
+
+    from gaus_slam_tpu_torch.tools import frame_split as FS
+
+    buf = io.StringIO()
+    os.environ["GAUS_PROFILE"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            FS.run_frontend(copy.deepcopy(cfg), H, W, N_FRAMES_PROGRAMS, dev)
+    finally:
+        os.environ.pop("GAUS_PROFILE")
+    kinds = FS.summarize(FS.parse_marks(buf.getvalue()))
+    check(kinds["keyframe"]["n"] > 0 and kinds["cut"]["n"] > 0,
+          f"phase 13: no keyframe or no cut among the profiled frames "
+          f"({kinds})")
+    for kind, row in kinds.items():
+        print(f"[programs] {card}: [prof] {kind} frames ({row['n']}), median "
+              f"ms: " + ", ".join(f"{k} {v:.0f}"
+                                  for k, v in row["median_ms"].items()))
 
 
 def main() -> int:

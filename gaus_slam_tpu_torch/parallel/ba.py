@@ -12,14 +12,13 @@ from one process: the Backend is one object in one driver process, so
 the group is a list of torch.devices and no process group is formed.
 Shard k puts the map's parameters on ``devices[k]`` (no copy when that
 is the map's own device), renders keyframe k there and takes its
-gradients with ``torch.autograd.grad``. No step of a shard waits on the
-host for its card (tools/sync_audit.py), so the host goes on to the next
-shard's launches at once; but the host issues a shard's many small
-kernels no faster than one card runs them, so on four cards a step took
-about as long as on four slots of one card (PERF.md, section 6).
-The gradients come back to the map's device and are summed there in
-shard order, so the result does not depend on which shard finishes
-first.
+gradients with ``torch.autograd.grad``: one captured program
+(slam/programs.py) of its own owner on that device, so the host issues
+a shard as one graph launch and goes on to the next card's at once. The
+gradients come back to the map's device and are summed there in shard
+order, so the result does not depend on which shard finishes first;
+the sum, the diagnostics and the Adam step are one more program, of the
+map's owner.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ import torch
 from ..models import gaussians as G
 from ..ops.camera import Camera
 from ..ops.consts import constant
-from ..render import RenderOptions, render_full
+from ..render import RenderOptions, capturable, render_full
+from ..slam import programs
 from ..slam.loss import LossConfig, mapping_loss
 
 
@@ -60,43 +60,33 @@ def _on(dev: torch.device):
         contextlib.nullcontext()
 
 
-def _shard(gm: G.GaussianMap, w2c, gt_tiled, cam_proj, opts, lcfg, dev):
-    """(loss, grads, diag) of one keyframe on ``dev``."""
-    with _on(dev):
-        params = [p.to(dev, non_blocking=True).detach().requires_grad_()
-                  for p in gm.params]
-        loss, diag = _ba_loss(G.Params(*params),
-                              gm.active.to(dev, non_blocking=True),
-                              w2c.to(dev, non_blocking=True).detach(),
-                              gt_tiled.to(dev, non_blocking=True), cam_proj,
-                              opts, lcfg)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-    return loss.detach(), grads, diag
+def _shard_body(params, active, w2cs, gts, cam_proj, *, k, dev, opts, lcfg):
+    """Shard k's program on ``dev``: keyframe k's loss, its map gradients
+    (zeros where a field gets none) and its binning diagnostics. Its
+    arguments lie on ``dev`` already in a program (the owner's buffers);
+    eagerly they move there first."""
+    params = [p.to(dev, non_blocking=True).detach().requires_grad_()
+              for p in params]
+    loss, diag = _ba_loss(G.Params(*params),
+                          active.to(dev, non_blocking=True),
+                          w2cs[k].to(dev, non_blocking=True).detach(),
+                          gts[k].to(dev, non_blocking=True), cam_proj, opts,
+                          lcfg)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return loss.detach(), G.Params(*grads), diag
 
 
-def sharded_ba_step(devices, gm: G.GaussianMap, w2cs: torch.Tensor,
-                    gt_tiled: torch.Tensor, cam_proj: Camera,
-                    opts: RenderOptions, mcfg, lcfg: LossConfig,
-                    weights=None):
-    """One keyframe-parallel BA step: keyframe k (``w2cs`` [n, 4, 4],
-    ``gt_tiled`` [n, T, 4, P]) renders on ``devices[k]``, the map
-    gradients are reduced to a weighted mean, and one Adam step updates
-    the map on its own device. ``weights`` ([n] host numbers, 1 each by
-    default; 0 masks a padded slot) lets a partly filled group contribute
-    an unbiased mean.
-
-    Returns (map, loss, diag): diag holds the binning diagnostics of the
-    live shards, OR / max reduced, and ``losses``, each shard's loss."""
-    n = len(devices)
-    w = [1.0] * n if weights is None else [float(x) for x in weights]
+def _reduce_body(gm, shards, *, weights, mcfg):
+    """The map's program: the weighted mean of the shards' gradients and
+    losses (summed in shard order), their diagnostics OR / max reduced
+    over the live shards, and one Adam step. The shards' results lie on
+    the map's device already in a program; eagerly they move there."""
     home = gm.params.xyz.device
-    shards = [_shard(gm, w2cs[k], gt_tiled[k], cam_proj, opts, lcfg,
-                     devices[k]) for k in range(n)]
-    wsum = max(sum(w), 1e-9)
+    wsum = max(sum(weights), 1e-9)
     grads = loss = None
-    for (l_k, g_k, _), w_k in zip(shards, w):
+    for (l_k, g_k, _), w_k in zip(shards, weights):
         g_k = [g.to(home, non_blocking=True) * w_k for g in g_k]
         l_k = l_k.to(home, non_blocking=True) * w_k
         if grads is None:
@@ -106,7 +96,7 @@ def sharded_ba_step(devices, gm: G.GaussianMap, w2cs: torch.Tensor,
             loss = loss + l_k
     grads = G.Params(*(g / wsum for g in grads))
     loss = loss / wsum
-    live = constant(tuple(x > 0 for x in w), torch.bool, home)
+    live = constant(tuple(x > 0 for x in weights), torch.bool, home)
     ov, ns, dm = (torch.stack([s[2][i].to(home, non_blocking=True)
                                for s in shards]) for i in range(3))
     diag = {"overflow": torch.any(ov & live),
@@ -119,3 +109,69 @@ def sharded_ba_step(devices, gm: G.GaussianMap, w2cs: torch.Tensor,
     gm = G.adam_step(gm, grads, dict(mcfg.lrs), mcfg.betas, mcfg.eps,
                      isotropic=mcfg.isotropic)
     return gm, loss, diag
+
+
+_SHARD_OWNERS: dict = {}
+
+
+def default_owners(devices) -> list:
+    """The owners of a call that names none: shard k's per (device, k),
+    distinct also for slots of one card, and the default owner of the
+    map's device for the reduction (programs.default_owner, appended by
+    ``sharded_ba_step``)."""
+    out = []
+    for k, dev in enumerate(devices):
+        key = (torch.device(dev), k)
+        if key not in _SHARD_OWNERS:
+            _SHARD_OWNERS[key] = programs.Owner(f"shard{k}", device=dev)
+        out.append(_SHARD_OWNERS[key])
+    return out
+
+
+def sharded_ba_step(devices, gm: G.GaussianMap, w2cs: torch.Tensor,
+                    gt_tiled: torch.Tensor, cam_proj: Camera,
+                    opts: RenderOptions, mcfg, lcfg: LossConfig,
+                    weights=None, owners=None):
+    """One keyframe-parallel BA step: keyframe k (``w2cs`` [n, 4, 4],
+    ``gt_tiled`` [n, T, 4, P]) renders on ``devices[k]``, the map
+    gradients are reduced to a weighted mean, and one Adam step updates
+    the map on its own device. ``weights`` ([n] host numbers, 1 each by
+    default; 0 masks a padded slot) lets a partly filled group contribute
+    an unbiased mean.
+
+    The counterpart of the JAX package's one jit over its shard_map: each
+    shard is a captured program of its owner on ``devices[k]`` (the map's
+    parameters, its render, its gradients and diagnostics), the reduction
+    and the Adam step one program of the map's owner. ``owners``: n shard
+    owners and the map's owner last (``Backend.ba_owners``); by default
+    ``default_owners`` and the map device's default owner, which hands
+    out copies. A shard on the map's card reads the map where it lies
+    when it lies in an owner's buffers (a map stepped in place), and the
+    reduction reads the gradients of such shards where they lie; for a
+    shard on another card the map and the results cross as stream-ordered
+    copies between the graphs (PyTorch's copies between cards make each
+    card's stream wait on the other's), so the host never waits.
+
+    Returns (map, loss, diag): diag holds the binning diagnostics of the
+    live shards, OR / max reduced, and ``losses``, each shard's loss."""
+    n = len(devices)
+    w = tuple(1.0 for _ in range(n)) if weights is None else tuple(
+        float(x) for x in weights)
+    capture = capturable(opts)
+    if owners is None:
+        owners = default_owners(devices) + [None]
+    shards = []
+    for k in range(n):
+        dev = torch.device(devices[k])
+        with _on(dev):
+            shards.append(programs.call(
+                owners[k], "ba_shard", _shard_body,
+                dict(params=gm.params, active=gm.active, w2cs=w2cs,
+                     gts=gt_tiled, cam_proj=cam_proj),
+                dict(k=k, dev=dev, opts=opts, lcfg=lcfg),
+                outs=("loss", "grads", "diag"), capture=capture,
+                capacity=gm.capacity, borrow=("params", "active")))
+    return programs.call(
+        owners[n], "ba_reduce", _reduce_body, dict(gm=gm, shards=shards),
+        dict(weights=w, mcfg=mcfg), outs=("gm", "loss", "diag"),
+        capture=capture, borrow=("shards",))

@@ -35,6 +35,7 @@ from ..ops.preprocess import PreSummary, pack_pair_attrs, preprocess_t
 from ..ops.raster import RenderSettings, render_pairs
 from ..ops.se3 import (pose_matrix, quat_multiply, quat_multiply_rows,
                        quat_normalize, rotmat_to_quat)
+from ..slam import programs
 
 
 class RenderOptions(NamedTuple):
@@ -251,12 +252,30 @@ def render_full(params: Params, active, cam: Camera, opts: RenderOptions,
     return _method_mask(out, opts), bins
 
 
-def render_view(gm: GaussianMap, cam: Camera, opts: RenderOptions):
-    """Detached render at a fixed pose (Renderer_view); launches K3 (the
-    plain compositor under the reference backend)."""
-    with torch.no_grad():
-        out, _ = render_full(gm.params, gm.active, cam, opts)
+def capturable(opts: RenderOptions) -> bool:
+    """Whether a step under ``opts`` can be captured as a graph: not under
+    the reference render backend, whose plain compositor sizes its walk
+    by reading the device (ops/composite_ref.py)."""
+    return opts.backend != "reference"
+
+
+@torch.no_grad()
+def _render_view(gm: GaussianMap, cam: Camera, *, opts: RenderOptions):
+    out, _ = render_full(gm.params, gm.active, cam, opts)
     return out
+
+
+def render_view(gm: GaussianMap, cam: Camera, opts: RenderOptions,
+                owner=None):
+    """Detached render at a fixed pose (Renderer_view); launches K3 (the
+    plain compositor under the reference backend). One captured program
+    of ``owner`` (slam/programs.py; the default owner of the map's device
+    when None), as the JAX package jits it; a map that lies in an owner's
+    buffers (a stepped map) is read where it lies. The result is valid
+    until the owner's next render_view."""
+    return programs.call(owner, "render_view", _render_view,
+                         dict(gm=gm, cam=cam), dict(opts=opts), outs="view",
+                         capture=capturable(opts), borrow=("gm",))
 
 
 class PairCache(NamedTuple):

@@ -204,6 +204,7 @@ class Backend:
         # the captured steps and the map's buffers they step in place
         # (slam/programs.py), apart from the frontend's
         self.programs = programs.Owner("backend")
+        self._ba_owners = None
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -464,13 +465,26 @@ class Backend:
             wts.append(1.0 if k < len(entries) else 0.0)
         gm, loss, diag = sharded_ba_step(
             self.devices, self.map, torch.stack(w2cs), torch.stack(gts),
-            s.cam, s.opts, s.mcfg, s.lcfg, weights=wts)
+            s.cam, s.opts, s.mcfg, s.lcfg, weights=wts,
+            owners=self.ba_owners(self.devices))
         self.map = gm
         self.ba_group_calls += 1
         self._note_diag(diag)
         for lm, _ in entries:
             lm.mapping_times += 1
         return {"loss": loss, **diag}
+
+    def ba_owners(self, devices) -> list:
+        """The sharded BA step's owners (parallel.sharded_ba_step): one per
+        shard on its device, kept for the Backend's lifetime (distinct
+        also for slots of one card), and the Backend's own, which steps
+        the map in place."""
+        key = tuple(torch.device(d) for d in devices)
+        if self._ba_owners is None or self._ba_owners[0] != key:
+            self._ba_owners = (key, [
+                programs.Owner(f"backend-shard{k}", device=d)
+                for k, d in enumerate(key)])
+        return self._ba_owners[1] + [self.programs]
 
     def tracking(self, lm_idx: int, tcfg=None):
         s = self.sys
@@ -523,7 +537,8 @@ class Backend:
             self.tracking(lm_idx, tcfg=self.sys.track_front)
 
     def prune(self):
-        self.map = prune_gaussians(self.map, self.sys.dcfg)
+        self.map = prune_gaussians(self.map, self.sys.dcfg,
+                                   owner=self.programs)
         self._fit_capacity()
 
     # ------------------------------------------------------------------

@@ -18,6 +18,7 @@ from ..ops.geometry import (depth_scale_init, normals_from_points,
                             points_from_depth, valid_depth_mask)
 from ..ops.se3 import invert_se3, transform_points
 from ..render import RenderOptions
+from . import programs
 from .loss import LossConfig, normalized_depth
 
 
@@ -41,14 +42,27 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return (v[n // 2 - 1] + v[n // 2]) / 2
 
 
-@torch.no_grad()
 def add_new_gaussians(gm: G.GaussianMap, w2c: torch.Tensor,
                       gt_color: torch.Tensor, gt_depth: torch.Tensor,
                       out_view: torch.Tensor, cam_proj: Camera,
                       opts: RenderOptions, dcfg: DensifyConfig,
-                      lcfg: LossConfig) -> G.GaussianMap:
+                      lcfg: LossConfig, owner=None) -> G.GaussianMap:
     """Densify.add_new_gaussians, splatam method; ``out_view`` is the
-    detached render [T, OUT_C, P] at ``w2c``."""
+    detached render [T, OUT_C, P] at ``w2c``. One captured program of
+    ``owner`` (slam/programs.py; the default owner when None); the map is
+    written back into the owner's buffers, and a view that lies in an
+    owner's buffers (a render program's result) is read where it lies."""
+    return programs.call(
+        owner, "add_new_gaussians", _add_new_gaussians,
+        dict(gm=gm, w2c=w2c, gt_color=gt_color, gt_depth=gt_depth,
+             out_view=out_view, cam_proj=cam_proj),
+        dict(opts=opts, dcfg=dcfg, lcfg=lcfg), outs="gm",
+        borrow=("out_view",))
+
+
+@torch.no_grad()
+def _add_new_gaussians(gm, w2c, gt_color, gt_depth, out_view, cam_proj, *,
+                       opts, dcfg, lcfg):
     h, w = cam_proj.height, cam_proj.width
     img = tiles_to_image(
         torch.stack([normalized_depth(out_view, lcfg), out_view[:, 4]], dim=1),
@@ -89,9 +103,40 @@ def add_new_gaussians(gm: G.GaussianMap, w2c: torch.Tensor,
     return gm
 
 
+def prune_gaussians(gm: G.GaussianMap, dcfg: DensifyConfig,
+                    owner=None) -> G.GaussianMap:
+    """Densify.prune_gaussians: hard prune by opacity and mean-scale. One
+    captured program of ``owner`` (the default owner when None); the map
+    is written back into the owner's buffers."""
+    return programs.call(owner, "prune_gaussians", _prune_gaussians,
+                         dict(gm=gm), dict(dcfg=dcfg), outs="gm")
+
+
+def add_and_prune(gm: G.GaussianMap, w2c: torch.Tensor,
+                  gt_color: torch.Tensor, gt_depth: torch.Tensor,
+                  out_view: torch.Tensor, cam_proj: Camera,
+                  opts: RenderOptions, dcfg: DensifyConfig, lcfg: LossConfig,
+                  owner=None) -> G.GaussianMap:
+    """``add_new_gaussians`` then ``prune_gaussians`` (the reference
+    prunes inside its densification too, Densify.py:41) as one captured
+    program of ``owner``: the two JAX jits a keyframe runs back to back."""
+    return programs.call(
+        owner, "add_and_prune", _add_and_prune,
+        dict(gm=gm, w2c=w2c, gt_color=gt_color, gt_depth=gt_depth,
+             out_view=out_view, cam_proj=cam_proj),
+        dict(opts=opts, dcfg=dcfg, lcfg=lcfg), outs="gm",
+        borrow=("out_view",))
+
+
+def _add_and_prune(gm, w2c, gt_color, gt_depth, out_view, cam_proj, *, opts,
+                   dcfg, lcfg):
+    gm = _add_new_gaussians(gm, w2c, gt_color, gt_depth, out_view, cam_proj,
+                            opts=opts, dcfg=dcfg, lcfg=lcfg)
+    return _prune_gaussians(gm, dcfg=dcfg)
+
+
 @torch.no_grad()
-def prune_gaussians(gm: G.GaussianMap, dcfg: DensifyConfig) -> G.GaussianMap:
-    """Densify.prune_gaussians: hard prune by opacity and mean-scale."""
+def _prune_gaussians(gm, *, dcfg):
     opac = torch.sigmoid(gm.params.opacity_logit[:, 0])
     mean_scale = torch.exp(gm.params.log_scales).mean(dim=-1)
     mask = (

@@ -25,15 +25,15 @@ from ..models import gaussians as G
 from ..models.frame import Frame, init_exposure
 from ..models.submap import LocalMap
 from ..ops.composite_ref import frame_to_tiles
-from ..render import bin_full, render_view
+from ..render import render_view
 from ..utils.config import SystemConfig
 from ..utils.fence import probe_fence
 from ..utils.stage import DEPTH_U16_SCALE
-from .densify import add_new_gaussians, prune_gaussians
+from .densify import add_and_prune, prune_gaussians
 from .init_map import initialize_map
 from . import programs
-from .steps import (ComposedW2C, DiagFold, bin_tracking, mapping_loop,
-                    mapping_step, tracking_loop)
+from .steps import (ComposedW2C, DiagFold, bin_mapping, bin_tracking,
+                    mapping_loop, mapping_step, tracking_loop)
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -207,7 +207,8 @@ class Frontend:
         cap = self._capacity_for(frame.gt_color.shape[0]
                                  * frame.gt_color.shape[1])
         self.map = initialize_map(cap, frame.gt_color, frame.gt_depth,
-                                  frame.get_w2c, self.sys.cam)
+                                  frame.get_w2c, self.sys.cam,
+                                  owner=self.programs)
         self.n_active_host = int(self.map.n_active)
         self.mapping()
 
@@ -371,8 +372,8 @@ class Frontend:
             f_w2c = frame.get_w2c
             bins = None
             if group > 1:
-                bins = bin_full(self.map.params, self.map.active,
-                                s.cam.replace_w2c(f_w2c), s.opts)
+                bins = bin_mapping(self.map, f_w2c, s.cam, s.opts,
+                                   owner=self.programs)
             for _ in range(group):
                 exp = (frame.exposure if frame.exposure is not None
                        else exp_dummy)
@@ -408,13 +409,14 @@ class Frontend:
         s = self.sys
         w2c = frame.get_w2c.detach()
         if render_out is None:
-            render_out = render_view(self.map, s.cam.replace_w2c(w2c), s.opts)
-        self.map = add_new_gaussians(
-            self.map, w2c, frame.gt_color, frame.gt_depth, render_out,
-            s.cam, s.opts, s.dcfg, s.lcfg)
+            render_out = render_view(self.map, s.cam.replace_w2c(w2c), s.opts,
+                                     owner=self.programs)
         # the reference prunes inside add_new_gaussians too
-        # (Densify.py:41), besides the post-mapping prune in process_frame
-        self.map = prune_gaussians(self.map, s.dcfg)
+        # (Densify.py:41), besides the post-mapping prune in process_frame:
+        # one program for both
+        self.map = add_and_prune(
+            self.map, w2c, frame.gt_color, frame.gt_depth, render_out,
+            s.cam, s.opts, s.dcfg, s.lcfg, owner=self.programs)
         self._fit_capacity()
 
     # ------------------------------------------------------------------
@@ -518,7 +520,8 @@ class Frontend:
                 n_low_val = float(n_low) - pad
             else:
                 w2c = cur.get_w2c.detach()
-                out = render_view(self.map, s.cam.replace_w2c(w2c), s.opts)
+                out = render_view(self.map, s.cam.replace_w2c(w2c), s.opts,
+                                  owner=self.programs)
                 alpha = out[:, 4]
                 # padded pixels never accumulate alpha; subtract them
                 n_low_val = float(torch.sum(alpha < 0.5)) - (alpha.numel() - hw)
@@ -530,7 +533,8 @@ class Frontend:
                 mark("densify")
                 self.mapping()
                 mark("kf_mapping")
-                self.map = prune_gaussians(self.map, s.dcfg)
+                self.map = prune_gaussians(self.map, s.dcfg,
+                                           owner=self.programs)
                 self._fit_capacity()
                 mark("prune")
                 self.t_map_frame[0] += time.perf_counter() - map_t0

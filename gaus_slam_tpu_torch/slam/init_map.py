@@ -9,14 +9,27 @@ from ..ops.camera import Camera
 from ..ops.geometry import (depth_scale_init, normals_from_points,
                             points_from_depth, valid_depth_mask)
 from ..ops.se3 import invert_se3, transform_points
+from . import programs
+
+
+def initialize_map(capacity: int, gt_color: torch.Tensor,
+                   gt_depth: torch.Tensor, w2c: torch.Tensor,
+                   cam_proj: Camera, owner=None) -> G.GaussianMap:
+    """Unproject every valid pixel of the frame into a surfel; the map
+    lives on ``gt_depth``'s device. One captured program of ``owner``
+    (slam/programs.py; the default owner when None) keyed by
+    ``capacity``, as the JAX package jits it with the capacity static;
+    the map lands in the buffers of the argument ``gm`` of the owner's
+    other programs, where its first mapping step reads it."""
+    return programs.call(
+        owner, "initialize_map", _initialize_map,
+        dict(gt_color=gt_color, gt_depth=gt_depth, w2c=w2c,
+             cam_proj=cam_proj),
+        dict(capacity=capacity), outs=".gm", capacity=capacity)
 
 
 @torch.no_grad()
-def initialize_map(capacity: int, gt_color: torch.Tensor,
-                   gt_depth: torch.Tensor, w2c: torch.Tensor,
-                   cam_proj: Camera) -> G.GaussianMap:
-    """Unproject every valid pixel of the frame into a surfel; the map
-    lives on ``gt_depth``'s device."""
+def _initialize_map(gt_color, gt_depth, w2c, cam_proj, *, capacity):
     cam = cam_proj.replace_w2c(w2c)
     pts_cam = points_from_depth(gt_depth, cam)
     c2w = invert_se3(w2c)

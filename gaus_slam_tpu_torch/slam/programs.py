@@ -11,9 +11,13 @@ capacity bucket and the pair cache's rows; besides, the owner.
 
 An ``Owner`` (the frontend, the backend, or the default owner of a
 device for any other caller) holds its programs, the static buffers
-they read and write, and on a card a capture stream; the owners of one
-name share a graph memory pool. The frontend and the backend run on
-streams of their own at the same time and never share a pool.
+they read and write, and on a card a capture stream. The programs that
+replay on a device's default stream share one graph memory pool, and
+those that replay on another stream (a backend's own) another: every
+result is copied into an owner's buffers, so a graph's temporaries are
+free again once it has run, and the graphs of one stream run one at a
+time. The frontend and a backend on a stream of its own run at the same
+time and never share a pool.
 
 A call binds each tensor argument to the owner's buffer of the same
 name, shape and layout (strides, storage offset, and which arguments
@@ -46,7 +50,14 @@ On the CPU the same static-buffer body is built once per key and then
 called with no arguments, so a host value that a capture would bake is
 baked there too. When the map's capacity changes, the owner's programs
 and buffers are dropped (freed once the owner's queued work is done). ``eager()`` runs every step as a plain call, the port's
-``jax.disable_jit``.
+``jax.disable_jit``. A program called inside another program's body
+runs inline, as a jitted function called under ``jax.jit`` is traced
+into the caller's program.
+
+One more way of binding: an argument named in ``borrow`` whose tensors
+lie in a buffer of some owner (another program's results, a map stepped
+in place) is read where it lies, its address part of the key, so that
+a program reading the results of another copies nothing.
 """
 from __future__ import annotations
 
@@ -65,8 +76,10 @@ GRAPH_LAUNCHES: collections.Counter = collections.Counter()
 CAPTURES: collections.Counter = collections.Counter()
 
 _EAGER = [0]
+_INSIDE = [0]         # program bodies running: a nested call runs inline
 _DEFAULT: dict = {}
-_POOLS: dict = {}     # (device, owner name) -> _pool(...)
+_POOLS: dict = {}     # (device, on the default stream) -> _pool(...)
+_OWNERS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 @contextlib.contextmanager
@@ -81,6 +94,13 @@ def eager():
 
 def is_eager() -> bool:
     return _EAGER[0] > 0
+
+
+def _owned(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies in a buffer of some owner (a graph may write it
+    without a version bump)."""
+    ptr = t.untyped_storage().data_ptr()
+    return any(ptr in o._storages for o in _OWNERS)
 
 
 # ---------------------------------------------------------------------------
@@ -168,15 +188,18 @@ class _Program:
 
 class Owner:
     """The programs, static buffers and (on a card) capture stream of one
-    caller, and the graph pool of every owner of its name on its device:
-    the temporaries of one graph are free again when the next is
-    captured, so the graphs of the owners of one name (one Frontend after
-    another; never two at once) share their memory. ``alias=False`` (the
-    default owner) hands out copies of every result."""
+    caller (its graphs go into the pool of the stream it calls them on:
+    ``_pool``). ``alias=False`` (the
+    default owner) hands out copies of every result. ``device``: where
+    the programs run, when not where their arguments lie (a shard of the
+    sharded BA step on another card: its arguments are copied there)."""
 
-    def __init__(self, name: str, alias: bool = True):
+    def __init__(self, name: str, alias: bool = True, device=None):
         self.name, self.alias = name, alias
         self.device = None
+        self.fixed = device is not None
+        if self.fixed:
+            self._check_device(torch.device(device))
         self.programs: dict = {}
         self.buffers: dict = {}
         self._source: dict = {}      # id(buffer) -> (weakref, version)
@@ -185,6 +208,7 @@ class Owner:
         self.stream = None
         self._retired: list = []
         self.resets = 0
+        _OWNERS.add(self)
 
     # -- buffers -------------------------------------------------------
     def _check_device(self, dev: torch.device):
@@ -236,23 +260,39 @@ class Owner:
             sig.append(key)
         return bufs, tuple(sig)
 
-    def bind(self, leaves: list) -> tuple:
+    def bind(self, leaves: list, borrow: tuple = ()) -> tuple:
         """``mirror``'s buffers holding the leaves' values: each copied in
         unless its buffer already holds it (the same storage, or the same
         tensor at the same version as the last copy). A graph's replay
         writes its buffers without a version bump, so a tensor in a storage
-        of the owner's is copied every time."""
-        bufs, sig = self.mirror(leaves)
-        for buf, (_, t) in zip(bufs, leaves):
+        of an owner's is copied every time. A leaf under an argument named
+        in ``borrow`` that lies in an owner's buffer on this device is not
+        copied: the program reads it where it lies (its address, shape,
+        strides and offset join the layout signature)."""
+        kept, lent = [], {}
+        for i, (path, t) in enumerate(leaves):
+            if (borrow and path.split(".")[1] in borrow
+                    and t.device == self.device and _owned(t)):
+                lent[i] = t
+            else:
+                kept.append((path, t))
+        bufs, sig = self.mirror(kept)
+        for buf, (_, t) in zip(bufs, kept):
             if buf.data_ptr() == t.data_ptr():
                 continue
             src = self._source.get(id(buf))
             if (src is not None and src[0]() is t and src[1] == t._version
-                    and t.untyped_storage().data_ptr() not in self._storages):
+                    and not _owned(t)):
                 continue
             buf.copy_(t.detach())
             self._source[id(buf)] = (weakref.ref(t), t._version)
-        return bufs, sig
+        if not lent:
+            return bufs, sig
+        it = iter(bufs)
+        out = [lent[i] if i in lent else next(it) for i in range(len(leaves))]
+        sig += tuple(("lent", leaves[i][0], t.data_ptr(), tuple(t.shape),
+                      tuple(t.stride()), t.dtype) for i, t in lent.items())
+        return out, sig
 
     def ring(self, n: int, device) -> "FlagRing":
         """The tracking loop's ring of n (live, iterations) slots, kept
@@ -297,13 +337,13 @@ class Owner:
             return prog, out
         if self.stream is None:
             self.stream = torch.cuda.Stream(device=self.device)
-        pool = _POOLS.get((self.device, self.name))
+        cur = torch.cuda.current_stream(self.device)
+        where = (self.device, cur == torch.cuda.default_stream(self.device))
+        pool = _POOLS.get(where)
         if pool is None:
-            pool = _POOLS[(self.device, self.name)] = _pool(self.device,
-                                                            self.stream)
+            pool = _POOLS[where] = _pool(self.device, self.stream)
         # the warm-up: the call's real work, on the caller's stream
         out = body()
-        cur = torch.cuda.current_stream(self.device)
         s = self.stream
         s.wait_stream(cur)
         before = collections.Counter(_cuda.LAUNCHES)
@@ -360,10 +400,11 @@ _CAPTURING: set = set()
 
 def _pool(device, stream) -> tuple:
     """(a graph pool handle, a one-kernel graph captured into it, that
-    graph's tensor), the capture on ``stream``. A pool
-    goes with the last graph captured into it, and its handle may not be
-    captured into again (PyTorch 2.11 asserts): the keeper graph, kept as
-    long as the process runs, holds it for the owners of one name."""
+    graph's tensor), the capture on ``stream``: the pool of the programs
+    that replay on a device's default stream, or of those that replay on
+    another. A pool goes with the last graph captured into it, and its
+    handle may not be captured into again (PyTorch 2.11 asserts): the
+    keeper graph, kept as long as the process runs, holds it."""
     t = torch.zeros(1, device=device)
     keeper = torch.cuda.CUDAGraph()
     handle = torch.cuda.graph_pool_handle()
@@ -380,7 +421,7 @@ def _describe(key) -> str:
     shapes of its first tensors."""
     name, _, layout, static = key
     shapes = ", ".join(f"{d[0][0]}{list(d[0][1])}" for d in
-                       (g[1] for g in layout[:4]))
+                       (g[1] for g in layout[:4] if g[0] == "mirror"))
     return (f"{name}[{', '.join(f'{k}={v!r:.60}' for k, v in static)}; "
             f"{shapes}, ...]")
 
@@ -433,7 +474,8 @@ def resolve(owner: Owner | None, device) -> Owner:
 
 
 def call(owner: Owner | None, name: str, fn, args: dict, static: dict,
-         outs, copies: tuple = (), capture: bool = True):
+         outs, copies: tuple = (), capture: bool = True,
+         capacity: int | None = None, borrow: tuple = ()):
     """``fn(**args, **static)`` as the owner's program for its key.
 
     ``args``: the traced arguments (tensors, and trees of them; python
@@ -446,16 +488,31 @@ def call(owner: Owner | None, name: str, fn, args: dict, static: dict,
     out as copies (state the caller keeps per frame or submap).
     ``capture=False`` keeps a body that reads the device (the reference
     render backend's plain compositor) out of a graph: on a card its
-    static-buffer body runs as on the CPU."""
-    if is_eager():
+    static-buffer body runs as on the CPU. ``capacity``: the map capacity
+    the program is made for, where no argument is named "gm" (a change
+    drops the owner's programs, as a new map's does). ``borrow``: the
+    arguments read where they lie when they lie in an owner's buffer
+    (``Owner.bind``)."""
+    if is_eager() or _INSIDE[0]:
         return fn(**args, **static)
     leaves: list = []
     spec = _flatten(args, "", leaves)
     own = resolve(owner, leaves[0][1].device)
-    own._check_device(leaves[0][1].device)
-    if "gm" in args:
-        own.set_capacity(args["gm"].capacity)
-    bufs, layout = own.bind(leaves)
+    if not own.fixed:
+        own._check_device(leaves[0][1].device)
+    with (torch.cuda.device(own.device) if own.device.type == "cuda"
+          else contextlib.nullcontext()):
+        return _call(own, name, fn, args, static, outs, copies, capture,
+                     capacity, borrow, spec, leaves)
+
+
+def _call(own, name, fn, args, static, outs, copies, capture, capacity,
+          borrow, spec, leaves):
+    if capacity is None and "gm" in args:
+        capacity = args["gm"].capacity
+    if capacity is not None:
+        own.set_capacity(capacity)
+    bufs, layout = own.bind(leaves, borrow)
     key = (name, spec, layout, tuple(sorted(static.items())))
     prog = own.programs.get(key)
     if prog is None:
@@ -488,7 +545,11 @@ def _make_body(own: Owner, name, fn, args, static, outs):
     names = outs if multi else (outs,)
 
     def body():
-        res = fn(**args, **static)
+        _INSIDE[0] += 1
+        try:
+            res = fn(**args, **static)
+        finally:
+            _INSIDE[0] -= 1
         parts = res if multi else (res,)
         if len(parts) != len(names):
             raise ValueError(f"programs: {name} returned {len(parts)} "

@@ -31,7 +31,7 @@ from ..ops.camera import Camera
 from ..ops.consts import cached, constant
 from ..ops.se3 import invert_se3, pose_matrix, pose_params_from_matrix
 from ..render import (PairCache, RenderOptions, bin_for_tracking, bin_full,
-                      phase_budget, render_full, render_tracking,
+                      capturable, phase_budget, render_full, render_tracking,
                       track_coarse_budget)
 from . import programs
 from .loss import LossConfig, mapping_loss, tracking_loss
@@ -59,11 +59,6 @@ class TrackConfig(NamedTuple):
         return ()
 
 
-def _capturable(opts: RenderOptions) -> bool:
-    """Whether a step under ``opts`` can be captured as a graph: not under
-    the reference render backend, whose plain compositor sizes its walk
-    by reading the device (ops/composite_ref.py)."""
-    return opts.backend != "reference"
 
 
 def _coarse_tile_ids(grid, stride: int, device) -> torch.Tensor:
@@ -192,7 +187,9 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
     Each iteration is one captured program of ``owner`` (one per level and
     ring slot; slam/programs.py), the tail after them another. The JAX
     package runs the whole while_loop as one program; here the host
-    queues the iterations.
+    queues the iterations (one program for the whole loop needs CUDA
+    graph conditional nodes, which the card's PyTorch build does not
+    bind: ROADMAP).
 
     The early exit (``converged_th`` > 0) is decided on the device, as
     the JAX while_loop's carry does: each queued iteration computes its
@@ -239,7 +236,7 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
                      cam_proj=cam_proj),
                 dict(opts=opts, tcfg=tcfg, lcfg=lcfg, stride=stride,
                      pair_hi=pair_hi, ring=ring, slot=slot),
-                outs=("pose", "carry"), capture=_capturable(opts))
+                outs=("pose", "carry"), capture=capturable(opts))
             if early:
                 ring.queued(slot)
             state["k"] = k + 1
@@ -262,7 +259,7 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
         dict(cache=cache, pose=pose, prev_pose=prev_pose if predict else None,
              cam_proj=cam_proj),
         dict(opts=opts, want_view=want_view, predict=predict,
-             use_vel=use_vel), outs="aux", capture=_capturable(opts))
+             use_vel=use_vel), outs="aux", capture=capturable(opts))
     # the loop's state lives in the owner's buffers: hand out copies
     pose = PoseState(*(t.detach().clone() for t in pose))
     aux.update(iters=(carry.iters.clone() if early else
@@ -294,7 +291,29 @@ def bin_tracking(gm: G.GaussianMap, w2c, cam_proj: Camera,
         owner, "bin_for_tracking", _bin_tracking,
         dict(gm=gm, w2c=w2c, cam_proj=cam_proj),
         dict(opts=opts, coarse_strides=tuple(coarse_strides)),
-        outs="." + into, capture=_capturable(opts))
+        outs="." + into, capture=capturable(opts))
+
+
+def _bin_mapping(gm, w2c, cam_proj, *, opts):
+    """``bin_mapping``'s body: the Binning's one python field (its d_max,
+    ``num_tiles_touched``) left out of the results."""
+    bins = bin_full(gm.params, gm.active, cam_proj.replace_w2c(_as_w2c(w2c)),
+                    opts)
+    return bins._replace(num_tiles_touched=None)
+
+
+def bin_mapping(gm: G.GaussianMap, w2c, cam_proj: Camera,
+                opts: RenderOptions, owner=None):
+    """``render.bin_full`` at ``w2c`` (the mapping binning a group of
+    per-step mapping iterations shares; the JAX frontend's
+    ``_bin_full_jit``) as a captured program of ``owner``. Its Binning
+    lands in the buffers of the mapping programs' argument ``bins``, where
+    the next ``mapping_step`` reads it."""
+    bins = programs.call(owner, "bin_mapping", _bin_mapping,
+                         dict(gm=gm, w2c=w2c, cam_proj=cam_proj),
+                         dict(opts=opts), outs=".bins",
+                         capture=capturable(opts))
+    return bins._replace(num_tiles_touched=opts.max_tiles_per_gaussian)
 
 
 def pack_diag(aux) -> torch.Tensor:
@@ -467,7 +486,7 @@ def mapping_step(gm: G.GaussianMap, w2c, gt_tiled: torch.Tensor,
         dict(exp_sched=exp_sched, opts=opts, mcfg=mcfg, lcfg=lcfg,
              coarse_stride=coarse_stride),
         outs=("gm", "exposure", "aux"), copies=("exposure",),
-        capture=_capturable(opts))
+        capture=capturable(opts))
 
 
 def _coarse_map_phases_host(grid, stride: int):
@@ -561,7 +580,7 @@ def mapping_loop(gm: G.GaussianMap, w2cs, gts, cam_proj: Camera,
         dict(gm=gm, w2cs=w2cs, gts=gts, cam_proj=cam_proj, phase0=phase0),
         dict(opts=opts, mcfg=mcfg, lcfg=lcfg, rebin_every=rebin_every,
              coarse_stride=coarse_stride), outs=("gm", "aux"),
-        capture=_capturable(opts))
+        capture=capturable(opts))
 
 
 def _backend_tracking_step(gm, pose, frame_w2c, gt_tiled, cam_proj,
@@ -612,7 +631,7 @@ def backend_tracking_step(gm: G.GaussianMap, pose: PoseState,
         dict(gm=gm, pose=pose, frame_w2c=frame_w2c, gt_tiled=gt_tiled,
              cam_proj=cam_proj, exposure=exposure, frame_exp=frame_exp),
         dict(opts=opts, tcfg=tcfg, lcfg=lcfg), outs=("pose", "aux"),
-        copies=("pose",), capture=_capturable(opts))
+        copies=("pose",), capture=capturable(opts))
 
 
 def _ba_step(gm, pose, frame_w2c, gt_tiled, exposure, do_exposure, cam_proj,
@@ -641,4 +660,4 @@ def ba_step(gm, pose, frame_w2c, gt_tiled, exposure, cam_proj, opts, mcfg,
              cam_proj=cam_proj, frame_exp=frame_exp),
         dict(opts=opts, mcfg=mcfg, lcfg=lcfg, exp_sched=exp_sched),
         outs=("gm", "pose", "exposure", "aux"), copies=("pose", "exposure"),
-        capture=_capturable(opts))
+        capture=capturable(opts))

@@ -27,7 +27,8 @@ overflow test) are part of it.
 
 Env: PROBE_H, PROBE_W, PROBE_REPS (680, 1200, 4). On the card the stages
 run the hand-written kernels; ``--device cpu`` runs their plain versions.
-Prints ``[probe]`` lines, the peak device memory, and a closing JSON line
+Prints ``[probe]`` lines, the peak device memory and the graph pools'
+MiB (the captured steps' memory), and a closing JSON line
 with the JAX tool's keys (``demand``; per budget ``bin``, ``map1``,
 ``map4``, ``map4c``, ``trk``, ``trkc``) beside the map and bin numbers.
 """
@@ -224,8 +225,12 @@ def main(argv=None, n_target: int = N_TARGET) -> dict:
         results.setdefault("bins", {})[tag] = stats
 
     if dev.type == "cuda":
+        from .frame_split import pool_mib
+
         results["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
-        print(f"[probe] peak device memory {results['peak_mib']:.1f} MiB "
+        results["pool_mib"] = pool_mib()
+        print(f"[probe] peak device memory {results['peak_mib']:.1f} MiB, "
+              f"graph pools {results['pool_mib']:.1f} MiB "
               f"({torch.cuda.get_device_name(dev)})", flush=True)
     print(json.dumps(results), flush=True)
     return results

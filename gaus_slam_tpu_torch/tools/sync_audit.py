@@ -15,7 +15,8 @@ which a Backend then merges):
     mapping    slam.steps.mapping_step of the Frontend (binning included)
     backend    Backend.process() on a task queue that starts with four
                mapping tasks of one class: one fused x4 mapping_loop
-    sharded    parallel.sharded_ba_step over four slots of one card
+    sharded    parallel.sharded_ba_step over four slots of one card, with
+               the Backend's owners (its map stepped in place)
 
 Each step runs once unwatched first (the kernels build, the constant
 caches fill), then once watched. "warn" prints every flagged call with
@@ -128,9 +129,11 @@ def step_fns(st: dict) -> dict:
     bs = be.sys
 
     def sharded():
+        # the Backend's own programs: the map stepped in place
         with be.stream_context():
-            sharded_ba_step(devs, be.map, w2cs, gts, bs.cam, bs.opts,
-                            bs.mcfg, bs.lcfg)
+            be.map, _, _ = sharded_ba_step(devs, be.map, w2cs, gts, bs.cam,
+                                           bs.opts, bs.mcfg, bs.lcfg,
+                                           owners=be.ba_owners(devs))
 
     return dict(tracking=tracking, mapping=mapping, backend=backend,
                 sharded=sharded), out
@@ -206,16 +209,22 @@ HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 KERNEL_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+# copies and fills issued outside a graph
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy2DAsync",
+              "cudaMemcpyPeerAsync")
 
 
 def count_launches(events) -> dict:
     """Launches in a profiler window's ``key_averages()``: kernels launched
-    outside a graph and graph launches (host calls), and the kernels the
-    card ran, inside graphs or not."""
-    out = {"kernels": 0, "graphs": 0, "device_kernels": 0}
+    outside a graph, copies and fills issued outside a graph and graph
+    launches (host calls), and the kernels the card ran, inside graphs or
+    not."""
+    out = {"kernels": 0, "copies": 0, "graphs": 0, "device_kernels": 0}
     for ev in events:
         if ev.key in KERNEL_CALLS:
             out["kernels"] += ev.count
+        elif ev.key in COPY_CALLS:
+            out["copies"] += ev.count
         elif ev.key in GRAPH_CALLS:
             out["graphs"] += ev.count
         elif ("CUDA" in str(getattr(ev, "device_type", ""))
@@ -281,7 +290,8 @@ def profile_steps(st: dict, steps=STEPS) -> dict:
 def time_sharded(st: dict, devs: list, reps: int = 5) -> float:
     """Median wall ms of one sharded_ba_step of the backend's map over
     ``devs`` (the state's four keyframes cycled over them), between
-    synchronizes of every card, after one unmeasured step."""
+    synchronizes of every card, after one unmeasured step; the Backend's
+    owners for ``devs``, its map stepped in place."""
     import time
 
     import numpy as np
@@ -300,12 +310,14 @@ def time_sharded(st: dict, devs: list, reps: int = 5) -> float:
         for i in cards:
             torch.cuda.synchronize(i)
 
+    owners = be.ba_owners(devs)
     ms = []
     for r in range(reps + 1):
         fence()
         t0 = time.perf_counter()
-        sharded_ba_step(devs, be.map, w2cs, gts, bs.cam, bs.opts, bs.mcfg,
-                        bs.lcfg)
+        be.map, _, _ = sharded_ba_step(devs, be.map, w2cs, gts, bs.cam,
+                                       bs.opts, bs.mcfg, bs.lcfg,
+                                       owners=owners)
         fence()
         if r:
             ms.append(1e3 * (time.perf_counter() - t0))
@@ -357,6 +369,7 @@ def main(argv=None) -> dict:
                   f"device busy {w['busy']:.3f} ms, idle share "
                   f"{1 - w['busy'] / w['wall']:.3f}, launches: graphs "
                   f"{n['graphs']}, kernels outside a graph {n['kernels']}, "
+                  f"copies and fills outside a graph {n['copies']}, "
                   f"kernels on the card {n['device_kernels']}; host waits "
                   f"{w['wait_ms']:.3f} ms; by call (ms, count) "
                   f"{w['waits']}; busiest: " + "; ".join(

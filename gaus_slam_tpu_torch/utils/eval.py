@@ -1,9 +1,10 @@
 """Final evaluation pass (port of gaus_slam_tpu/utils/eval.py; reference
 utils/eval.py:254-485).
 
-Per frame: render at the estimated pose (render_view, K3 on the card),
-PSNR on valid-depth pixels, MS-SSIM, LPIPS (NaN without local weights),
-depth RMSE / L1; trajectory ATE-RMSE after Umeyama alignment. Writes
+Per frame, one captured program (``_eval_frame``): render at the
+estimated pose (render_view, K3 on the card), PSNR on valid-depth
+pixels, MS-SSIM, depth RMSE / L1; then LPIPS on the program's image (NaN
+without local weights). Trajectory ATE-RMSE after Umeyama alignment. Writes
 result.json and the per-frame .txt dumps with the JAX package's keys.
 Under ``eval.eval_mesh`` the renders are TSDF-fused into a mesh and
 scored (F-score, precision, recall) by utils/eval_mesh.py, which writes
@@ -19,17 +20,31 @@ import torch
 
 from ..models import gaussians as G
 from ..ops.composite_ref import tiles_to_image
-from ..render import render_view
+from ..render import capturable, render_view
+from ..slam import programs
 from ..slam.loss import normalized_depth
 from ..utils.config import SystemConfig
 from .image_metrics import lpips, lpips_available, ms_ssim, psnr
 from .trajectory import ate_rmse
 
 
+def _eval_frame(gm, w2c, gt_color, gt_depth, cam_proj, opts, lcfg,
+                owner=None):
+    """One frame's render and metrics, as one [4] device vector (PSNR,
+    MS-SSIM, depth RMSE, depth L1: the caller's copy), and the clamped
+    [H, W, 3] render (valid until the owner's next call). One captured
+    program of ``owner`` (slam/programs.py), as the JAX package jits it:
+    the render (K3), the image, PSNR, MS-SSIM and the depth metrics."""
+    return programs.call(
+        owner, "eval_frame", _eval_frame_body,
+        dict(gm=gm, w2c=w2c, gt_color=gt_color, gt_depth=gt_depth,
+             cam_proj=cam_proj), dict(opts=opts, lcfg=lcfg),
+        outs=("vals", "rgb"), copies=("vals",), capture=capturable(opts),
+        borrow=("gm",))
+
+
 @torch.no_grad()
-def _eval_frame(gm, w2c, gt_color, gt_depth, cam_proj, opts, lcfg):
-    """One frame's render and metrics, as device scalars, and the
-    clamped [H, W, 3] render."""
+def _eval_frame_body(gm, w2c, gt_color, gt_depth, cam_proj, *, opts, lcfg):
     out = render_view(gm, cam_proj.replace_w2c(w2c), opts)
     img = tiles_to_image(
         torch.cat([out[:, 0:3], normalized_depth(out, lcfg)[:, None]], dim=1),
@@ -38,9 +53,10 @@ def _eval_frame(gm, w2c, gt_color, gt_depth, cam_proj, opts, lcfg):
     valid = gt_depth > 0
     diff = torch.where(valid, img[3] - gt_depth, torch.zeros_like(gt_depth))
     nv = torch.clamp(torch.sum(valid), min=1)
-    return (psnr(rgb, gt_color, mask=valid), ms_ssim(rgb, gt_color),
-            torch.sqrt(torch.sum(diff**2) / nv), torch.sum(torch.abs(diff)) / nv,
-            rgb)
+    return torch.stack([
+        psnr(rgb, gt_color, mask=valid), ms_ssim(rgb, gt_color),
+        torch.sqrt(torch.sum(diff**2) / nv),
+        torch.sum(torch.abs(diff)) / nv]), rgb
 
 
 def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
@@ -57,6 +73,8 @@ def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
     ate = ate_rmse(w2cs, gt_w2cs)
     want_img = bool(save_renders) or lpips_available()
     vals, lpipss = [], []
+    # the frame's program and its buffers, for this call
+    owner = programs.Owner("eval")
     n = min(len(w2cs), len(dataset))
     for i in range(0, n, stride):
         color, depth, _, _ = dataset[i]
@@ -65,12 +83,12 @@ def eval_final(config: dict, gm: G.GaussianMap, w2cs, gt_w2cs, dataset,
         if gt_depth.ndim == 3:
             gt_depth = gt_depth[..., 0]
         gt_color = torch.as_tensor(gt_np, device=device)
-        *scalars, rgb = _eval_frame(
+        v, rgb = _eval_frame(
             gm, torch.as_tensor(np.asarray(w2cs[i]), dtype=torch.float32,
                                 device=device),
             gt_color, torch.as_tensor(gt_depth, device=device), cam, opts,
-            lcfg)
-        vals.append(torch.stack(scalars))
+            lcfg, owner=owner)
+        vals.append(v)
         if want_img:
             lpipss.append(lpips(rgb, gt_color))
             if save_renders:

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.consts import cached, constant
+
 
 def psnr(img: torch.Tensor, ref: torch.Tensor, mask=None) -> torch.Tensor:
     """PSNR over (optionally masked) pixels; images [..., 3] in 0..1."""
@@ -30,10 +32,15 @@ def psnr(img: torch.Tensor, ref: torch.Tensor, mask=None) -> torch.Tensor:
 
 
 def _gaussian_window(device, size=11, sigma=1.5) -> torch.Tensor:
-    x = np.arange(size) - size // 2
-    g = np.exp(-(x**2) / (2 * sigma**2))
-    g /= g.sum()
-    return torch.as_tensor(np.outer(g, g), dtype=torch.float32, device=device)
+    """The [size, size] float32 window, made once per device (a captured
+    program reads it: ops/consts.py)."""
+    def make():
+        x = np.arange(size) - size // 2
+        g = np.exp(-(x**2) / (2 * sigma**2))
+        g /= g.sum()
+        return np.outer(g, g).astype(np.float32)
+
+    return cached(("ssim_window", size, sigma), make, device)
 
 
 def _filter2d(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
@@ -79,8 +86,7 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     while levels > 1 and min(x.shape[0], x.shape[1]) < 11 * 2 ** (levels - 1):
         levels -= 1
     win = _gaussian_window(x.device)
-    weights = torch.tensor(MS_WEIGHTS[:levels], dtype=torch.float32,
-                           device=x.device)
+    weights = constant(MS_WEIGHTS[:levels], torch.float32, x.device)
     weights = weights / torch.sum(weights)
     vals = []
     for lvl in range(levels):

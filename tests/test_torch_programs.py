@@ -28,10 +28,10 @@ import torch
 
 from gaus_slam_tpu_torch.slam import programs
 from test_torch_frontend import _assert_map_close
-from test_torch_programs_cuda import (CHAINS, LRS, N, TRACK_ITERS,
-                                      TRACK_LR, TRACK_TH, TRACKS,
-                                      assert_bit_equal, both, port_scene,
-                                      targets, track, track_run)
+from test_torch_programs_cuda import (CHAINS, LRS, N, PROGRAMS_AT_MOST,
+                                      TRACK_ITERS, TRACK_LR, TRACK_TH,
+                                      TRACKS, assert_bit_equal, both,
+                                      port_scene, targets, track, track_run)
 from test_torch_steps import _tiny_scene
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,7 +65,7 @@ def test_program_equals_eager(scene, name):
     # one program per key (an argument's layout is part of it), reused by
     # every later call: the chain again adds none and gives the same bits
     n = len(own.programs)
-    assert 1 <= n <= N
+    assert 1 <= n <= PROGRAMS_AT_MOST.get(name, N)
     assert_bit_equal(programs._clone(CHAINS[name](scene, own)), want)
     assert len(own.programs) == n
 
@@ -109,6 +109,10 @@ JAX_CALLS = {"mapping_step exposure on": 1, "mapping_step exposure off": 1,
 # one JAX compile (~25 s on the CPU) serves both of these; the other
 # chains' (~30 s each) run in the slow test
 FAST = ("mapping_step exposure on", "mapping_step exposure off")
+# the keyframe, submap and eval programs against their JAX jits (no
+# gradient: quick compiles), each chain of N calls; the sharded step's
+# programs are held to the JAX shard_map in tests/test_torch_parallel.py
+KEYFRAME = ("initialize_map", "render_view", "add_and_prune", "eval_frame")
 
 
 def _jax_inputs(jax_scene):
@@ -189,6 +193,94 @@ def jax_runs_slow(jax_scene):
     out["ba_step"] = JS.ba_step(jgm, pose0, w2cs[0], gts[0], j_exp(), jcam,
                                 jo, j["mcfg"], j["lexp"], j["exp_sched"])
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_keyframe_runs(jax_scene):
+    """The JAX package's jitted initialize_map, render_view,
+    add_new_gaussians + prune_gaussians and _eval_frame on the chains'
+    inputs (reference backend)."""
+    import jax.numpy as jnp
+
+    from gaus_slam_tpu.models import gaussians as JG
+    from gaus_slam_tpu.render import render_view as j_view
+    from gaus_slam_tpu.slam import densify as JD
+    from gaus_slam_tpu.slam.init_map import initialize_map as j_init
+    from gaus_slam_tpu.slam.loss import LossConfig as JLoss
+    from gaus_slam_tpu.utils.eval import _eval_frame as j_eval
+
+    from test_torch_programs_cuda import GROW_CAP, PRUNE
+
+    j = _jax_inputs(jax_scene)
+    jcam, jgm, jo = j["jcam"], j["jgm"], j["jo"]
+    frames = [(jnp.asarray(c), jnp.asarray(d))
+              for c, d in jax_scene["frames"]]
+    w2cs = j["w2cs"]
+    out = {"initialize_map": [j_init(GROW_CAP, *frames[k % 3], w2cs[k % 3],
+                                     jcam) for k in range(N)],
+           "render_view": [j_view(jgm, jcam.replace_w2c(w2cs[k % 3]), jo)
+                           for k in range(N)],
+           "eval_frame": [j_eval(jgm, w2cs[k % 3], *frames[k % 3], jcam, jo,
+                                 JLoss(), want_img=True) for k in range(N)]}
+    # one keyframe (a second one's view parts by the walls' orientation
+    # flips: _assert_grown_close); the grown map's view is the first one
+    # (its inactive rows draw nothing), which spares a compile
+    dcfg = JD.DensifyConfig(**PRUNE)
+    out["add_and_prune"] = (JD.prune_gaussians(JD.add_new_gaussians(
+        JG.resize_map(jgm, GROW_CAP), w2cs[0], *frames[0],
+        out["render_view"][0], jcam, jo, dcfg, JLoss()), dcfg),
+        out["render_view"][:1])
+    return out
+
+
+def _assert_view_close(tv, jv):
+    jv = np.asarray(jv)
+    for c in range(jv.shape[1]):
+        scale = max(float(np.abs(jv[:, c]).max()), 1.0)
+        np.testing.assert_allclose(tv[:, c].numpy(), jv[:, c], rtol=0,
+                                   atol=1e-4 * scale, err_msg=f"channel {c}")
+
+
+def _assert_grown_close(tgm, jgm):
+    """A map made by unprojection: the same rows, their fields within
+    test_torch_slice.py's densify tolerances (the orientation there is
+    checked apart: a wall's normal flips to the identity fallback by
+    rounding)."""
+    n = int(np.asarray(jgm.n_active))
+    assert int(tgm.n_active) == n
+    np.testing.assert_array_equal(tgm.active.numpy(), np.asarray(jgm.active))
+    for f in ("xyz", "log_scales", "opacity_logit", "rgb"):
+        np.testing.assert_allclose(getattr(tgm.params, f).numpy()[:n],
+                                   np.asarray(getattr(jgm.params, f))[:n],
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
+
+
+@pytest.mark.parametrize("name", KEYFRAME)
+def test_keyframe_program_matches_jax(scene, jax_keyframe_runs, name):
+    got = CHAINS[name](scene, programs.Owner("jax"),
+                       1 if name == "add_and_prune" else N)
+    want = jax_keyframe_runs[name]
+    if name == "initialize_map":
+        for t, j in zip(got, want):
+            _assert_grown_close(t, j)
+    elif name == "render_view":
+        for t, j in zip(got, want):
+            _assert_view_close(t, j)
+    elif name == "add_and_prune":
+        for t, j in zip(got[1], want[1]):
+            _assert_view_close(t, j)
+        _assert_grown_close(got[0], want[0])
+        # the prune dropped rows and kept some
+        assert 0 < int(got[0].n_active) < int(scene["gm"].n_active)
+    else:
+        for (vals, rgb), (p, ssim, rmse, l1, jrgb) in zip(got, want):
+            np.testing.assert_allclose(float(vals[0]), float(p), rtol=0,
+                                       atol=1e-3)
+            np.testing.assert_allclose(vals[1:].numpy(),
+                                       [float(ssim), float(rmse), float(l1)],
+                                       rtol=0, atol=1e-5)
+            np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), rtol=0,
+                                       atol=1e-4)
 
 
 def _assert_pose_close(tp, jp):
@@ -355,3 +447,24 @@ def test_program_rejects_baked_python_values(scene):
                       {"x": torch.zeros(2)}, {}, outs="aux")
 
 
+
+
+def test_sharded_step_reads_results_where_they_lie(scene):
+    """Chained sharded steps with the Backend's kind of owners: from the
+    second step on every shard reads the map where the reduction wrote it
+    and the reduction reads every shard's results where they lie (no copy
+    either way, on one device), one program per shard and map address."""
+    own = programs.Owner("ba")
+    CHAINS["sharded_ba_step"](scene, own, 3)
+
+    def lent(prog):
+        return {e[1] for e in prog.key[2] if e[0] == "lent"}
+
+    reduce_keys = [lent(p) for p in own.programs.values()]
+    assert reduce_keys and all(
+        {f".shards.{k}.1.xyz" for k in range(4)} <= k for k in reduce_keys)
+    for shard in own.shards:
+        keys = [lent(p) for p in shard.programs.values()]
+        # the scene's map, copied in; then the reduction's, read in place
+        assert len(keys) == 2 and keys[0] == set()
+        assert {".params.xyz", ".active"} <= keys[1]

@@ -50,6 +50,9 @@ def port_scene(sc, device):
     r0, r1, t0, t1 = TRACK_LR
     return dict(
         cam=cam, opts=opts, gts=gts,
+        colors=[torch.tensor(c.astype(np.float32)).to(device)
+                for c, _ in sc["frames"]],
+        depths=[torch.tensor(d).to(device) for _, d in sc["frames"]],
         w2cs=torch.tensor(np.stack(sc["w2cs"])).to(device),
         gm=convert.gaussian_map_from_numpy(sc["gm"], device=device),
         pose=init_pose(sc["w2cs"][1], device=device),
@@ -165,6 +168,124 @@ def _ba(sc, own, n=N):
     return gm, pose, exp, programs._clone(aux)
 
 
+# the keyframe and submap programs: a map with room to grow, a prune
+# that drops the rows of mean scale past 0.15 (about half of the tiny
+# scene's frame-0 map)
+GROW_CAP = 2048
+PRUNE = dict(scale_max=0.15)
+
+
+def _dcfg():
+    from gaus_slam_tpu_torch.slam.densify import DensifyConfig
+
+    return DensifyConfig(**PRUNE)
+
+
+def _views(sc, own, n=N):
+    from gaus_slam_tpu_torch.render import render_view
+
+    return [programs._clone(render_view(
+        sc["gm"], sc["cam"].replace_w2c(sc["w2cs"][k % 3]), sc["opts"],
+        owner=own)) for k in range(n)]
+
+
+def _densify(sc, own, n=N):
+    """The frontend's keyframe densification: render_view, then
+    add_and_prune on that view, chained."""
+    from gaus_slam_tpu_torch.models import gaussians as G
+    from gaus_slam_tpu_torch.render import render_view
+    from gaus_slam_tpu_torch.slam.densify import add_and_prune
+
+    gm, views = G.resize_map(sc["gm"], GROW_CAP), []
+    for k in range(n):
+        w2c = sc["w2cs"][k % 3]
+        view = render_view(gm, sc["cam"].replace_w2c(w2c), sc["opts"],
+                           owner=own)
+        views.append(programs._clone(view))
+        gm = add_and_prune(gm, w2c, sc["colors"][k % 3], sc["depths"][k % 3],
+                           view, sc["cam"], sc["opts"], _dcfg(), sc["lcfg"],
+                           owner=own)
+    return gm, views
+
+
+def _prunes(sc, own, n=N):
+    """prune_gaussians after a mapping step, chained."""
+    from gaus_slam_tpu_torch.models.frame import init_exposure
+    from gaus_slam_tpu_torch.slam.densify import prune_gaussians
+    from gaus_slam_tpu_torch.slam.steps import mapping_step
+
+    gm, exp = sc["gm"], init_exposure(sc["gts"].device)
+    counts = []
+    for k in range(n):
+        gm, exp, _ = mapping_step(gm, sc["w2cs"][k % 2], sc["gts"][k % 2],
+                                  exp, False, sc["exp_sched"], sc["cam"],
+                                  sc["opts"], sc["mcfg"], sc["lcfg"],
+                                  owner=own)
+        gm = prune_gaussians(gm, _dcfg(), owner=own)
+        counts.append(gm.n_active.clone())
+    return gm, counts
+
+
+def _inits(sc, own, n=N):
+    from gaus_slam_tpu_torch.slam.init_map import initialize_map
+
+    return [programs._clone(initialize_map(
+        GROW_CAP, sc["colors"][k % 3], sc["depths"][k % 3],
+        sc["w2cs"][k % 3], sc["cam"], owner=own)) for k in range(n)]
+
+
+def _binned_steps(sc, own, n=N):
+    """The frontend's per-step mapping group: bin_mapping, then
+    mapping_step on that binning, chained."""
+    from gaus_slam_tpu_torch.models.frame import init_exposure
+    from gaus_slam_tpu_torch.slam.steps import bin_mapping, mapping_step
+
+    gm, exp, out = sc["gm"], init_exposure(sc["gts"].device), []
+    for k in range(n):
+        w2c, gt = sc["w2cs"][k % 2], sc["gts"][k % 2]
+        bins = bin_mapping(gm, w2c, sc["cam"], sc["opts"], owner=own)
+        gm, exp, aux = mapping_step(gm, w2c, gt, exp, False, sc["exp_sched"],
+                                    sc["cam"], sc["opts"], sc["mcfg"],
+                                    sc["lcfg"], bins=bins, owner=own)
+        out.append(programs._clone(aux))
+    return gm, out
+
+
+def _evals(sc, own, n=N):
+    from gaus_slam_tpu_torch.utils.eval import _eval_frame
+
+    out = []
+    for k in range(n):
+        vals, rgb = _eval_frame(sc["gm"], sc["w2cs"][k % 3],
+                                sc["colors"][k % 3], sc["depths"][k % 3],
+                                sc["cam"], sc["opts"], sc["lcfg"], owner=own)
+        out.append((vals, rgb.clone()))
+    return out
+
+
+def _sharded(sc, own, weights, n=N):
+    """sharded_ba_step over four slots of the scene's device, chained: the
+    shard owners beside ``own``, the map's."""
+    from gaus_slam_tpu_torch.parallel import sharded_ba_step
+
+    devs = [sc["gts"].device] * 4
+    owners = None
+    if own is not None:
+        # the shard owners live as long as the map's (a Backend's do)
+        if not hasattr(own, "shards"):
+            own.shards = [programs.Owner(f"{own.name}-shard{k}", device=d)
+                          for k, d in enumerate(devs)]
+        owners = own.shards + [own]
+    idx = [0, 1, 2, 0]
+    gm, out = sc["gm"], []
+    for _ in range(n):
+        gm, loss, diag = sharded_ba_step(
+            devs, gm, sc["w2cs"][idx], sc["gts"][idx], sc["cam"], sc["opts"],
+            sc["mcfg"], sc["lcfg"], weights=weights, owners=owners)
+        out.append(programs._clone((loss, diag)))
+    return gm, out
+
+
 CHAINS = {
     "mapping_step exposure on": lambda sc, own, n=N: _map_steps(sc, own,
                                                                  True, n),
@@ -174,7 +295,21 @@ CHAINS = {
     "mapping_loop coarse 3": lambda sc, own, n=N: _map_loops(sc, own, 3, n),
     "backend_tracking_step": _back_track,
     "ba_step": _ba,
+    "render_view": _views,
+    "add_and_prune": _densify,
+    "prune_gaussians": _prunes,
+    "initialize_map": _inits,
+    "bin_mapping": _binned_steps,
+    "eval_frame": _evals,
+    "sharded_ba_step": lambda sc, own, n=N: _sharded(sc, own, None, n),
+    "sharded_ba_step [1, 1, 1, 0]": lambda sc, own, n=N: _sharded(
+        sc, own, (1, 1, 1, 0), n),
 }
+# programs a chain's owner may hold: a step's own, plus one per layout
+# or address its inputs come in (the first map from the scene, the later
+# ones from the owner's buffers) and per program of a two-program chain
+PROGRAMS_AT_MOST = {"add_and_prune": 2 * N, "prune_gaussians": 2 * N,
+                    "bin_mapping": 2 * N}
 TRACKS = [(lag, view) for lag in (0, 1, 2) for view in (False, True)]
 
 
