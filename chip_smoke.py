@@ -53,8 +53,7 @@ line):
    Backend.process() running a fused x4 mapping batch and a captured
    sharded_ba_step over four slots of the card, at 340x600, each under
    torch.cuda.set_sync_debug_mode("error"); any flagged call fails. The
-   tracking loop's lagged early-exit read waits on a CUDA event (not a
-   flagged call): its waits and masked iterations are printed.
+   tracking loop is one loop program: its host waits must be 0.
 5. The port's driver (scripts/gaus.py::rgbd_slam, backend "pallas") at
    the test scale, 48x64 over 12 frames: it must write the result,
    timing and scene artifacts and clear the bounds
@@ -74,6 +73,11 @@ line):
    task by kind (a device sync after each), merges, capacity-bucket
    flips, ms per eval_final frame and the peak device memory. ATE and
    first-submap PSNR must print as PARENT_DRIVER's (the earlier code's).
+   Launches are counted inside each Frontend.tracking too (the loop
+   programs' device tallies folded in just before and just after): K1
+   and K2 must launch there exactly once per iteration that ran, the
+   frames' summed device iteration counts (no iteration queued past a
+   stop).
 7. K6, the bf16 probe: its entry point (python -m
    gaus_slam_tpu_torch.tools.bf16_probe) once, then each of its six
    (chain, dtype) cases against the plain version at the probe's
@@ -243,15 +247,39 @@ line):
    backend mapping step, a backend tracking step, the sharded BA step on
    four slots with the Backend's owners (at most 5 graph launches and
    SHARDED_OUTSIDE_LIMIT operations outside a graph), an eval frame, a
-   keyframe's view and add_and_prune, and a submap init; then the
-   frontend's GAUS_PROFILE marks over 12 frames by kind of frame
+   keyframe's view and add_and_prune, and a submap init; the tracking
+   loop by CUDA events in turns: the loop program and the lagged graphs,
+   each of the Frontend's owner (captured before those rows) and of an
+   owner of its own (captured after them), and a loop program of a third
+   owner profiled once, as the Frontend's was in its row; no capture
+   meanwhile; the device ms before each loop program's launch; then
+   the frontend's GAUS_PROFILE marks over 12 frames by kind of frame
    (tools/frame_split.py), the graph launches and captures by program
    and the graph pools' MiB. Phases 3, 4b, 6, 10a, 11b and 12a ran with
    the steps captured before it (4b audits the replays, the sharded
-   step's included).
+   step's included). The tracking loop, one loop program, must be 1
+   graph launch, no kernel outside a graph and no host wait.
+   13c. The tracking loop as one loop program (programs.while_loop:
+   CUDA graph conditional WHILE nodes, csrc/graph_loop.cu): a Frontend's
+   frame at 340x600 tracked in tests/test_torch_while_loop.py's four
+   schedules (a stop inside the coarse level, inside the full-resolution
+   level, no early exit, the view and the prediction after a stop inside
+   the full-resolution level), the launched
+   program bit-equal to its first call (one eager iteration, the warm-up,
+   then the graph), to the lagged loop and to programs.eager(), with 0
+   host waits; the node types of the captured iteration and tail graphs
+   (all of the kinds a WHILE body takes); while_cond against
+   while_cond_plain (the host loop under programs.eager(), on the card)
+   in counter loops over COUNTER_GRID (kmax 0, a stop before the entry,
+   two levels), early exit on and off, each launched
+   program's while_cond launches (folded from the device tally) equal
+   to its levels plus its iterations; the device us per WHILE iteration
+   of a counter (the kernels line's while_cond ms) and the plain
+   version's.
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
-of their own, with their launches in 11b at 340x600), the card line, and
+of their own, with their launches in 11b at 340x600; while_cond, the
+tracking loop's condition, from 13c), the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
@@ -429,6 +457,11 @@ KERNELS = {
         "K3-bf16", "gaus_slam_tpu_torch/csrc/raster_forward.cu",
         "gaus_slam_tpu/ops/pallas_forward.py:110"),
 }
+# the tracking loop's condition: no Pallas kernel; it replaces the JAX
+# tracking_loop's while_loop cond (cond_until), which XLA runs on the
+# device between iterations
+KERNELS["while_cond"] = ("L1", "gaus_slam_tpu_torch/csrc/graph_loop.cu",
+                         "gaus_slam_tpu/slam/steps.py:129")
 STASH_PATH = ("raster_forward_stash", "raster_backward_stash",
               "raster_forward", "monotone_row_gather")
 BF16_PATH = ("raster_forward_stash_bf16", "raster_backward_stash_bf16",
@@ -1151,7 +1184,7 @@ def drive_frontend(label, cfg, ds, backend, n_frames, dev, strict=True):
     to_backend = queue.Queue()
     lms, recs, noop_pass = [], [], []
     sync(dev)
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     fe = Frontend(cfg, to_backend, backend=backend, device=dev)
     for t in range(n_frames):
         color, depth, _, c2w = ds[t]
@@ -1207,7 +1240,7 @@ def drive_frontend(label, cfg, ds, backend, n_frames, dev, strict=True):
     while not to_backend.empty():
         lms.append(to_backend.get())
     sync(dev)
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     check(not all(noop_pass), f"{label}: the tracking check passes a "
           f"tracker that never moves its pose")
     for lm in lms:
@@ -1266,7 +1299,7 @@ def phase_reference(ds, dev):
         "reference", cfg, ds, "reference", N_FRAMES_REF, dev, strict=False)
     check(launches.get("raster_backward", 0) > 0,
           "K5 never launched in phase 3b")
-    for name in STASH_PATH:
+    for name in STASH_PATH + ("while_cond",):
         check(launches.get(name, 0) == 0,
               f"{name} launched under the reference backend")
     ctl_cfg, _ = load_config()
@@ -1360,9 +1393,9 @@ def phase_no_sync(dev, card):
     mapping batch and a sharded_ba_step over four slots of this card,
     each run once, then once under torch.cuda.set_sync_debug_mode
     ("error"): a stream synchronize, a blocking copy or a read of a
-    device value inside fails the phase. The tracking loop's lagged
-    early-exit read waits on a CUDA event, which is not a flagged call;
-    its waits and masked iterations are printed."""
+    device value inside fails the phase. The tracking loop is one loop
+    program (its early exit decided on the card): its host waits must
+    be 0."""
     from gaus_slam_tpu_torch.tools import sync_audit
 
     st = sync_audit.build_state(H, W, dev)
@@ -1370,10 +1403,11 @@ def phase_no_sync(dev, card):
     sync_audit.report(res)
     iters = int(aux["iters"])
     print(f"[no_sync] {card}: tracking_loop (converged_th "
-          f"{st['fe'].sys.track_front.converged_th}): {iters} live "
-          f"iterations, {aux['queued'] - iters} masked, {aux['host_waits']} "
-          f"lagged event waits; flagged calls per step "
-          f"{ {k: len(v) for k, v in res.items()} }")
+          f"{st['fe'].sys.track_front.converged_th}), one loop program: "
+          f"{iters} iterations, {aux['host_waits']} host waits; flagged "
+          f"calls per step { {k: len(v) for k, v in res.items()} }")
+    check(aux["host_waits"] == 0, f"phase 4b: the tracking loop waited "
+          f"{aux['host_waits']} times on the host")
     for name, found in res.items():
         if found:
             check(False, f"phase 4b: {name} made the host wait: {found[0]}")
@@ -1408,7 +1442,10 @@ class DriverProbe:
         self.last_frame_in = False
         self.inside = {"backend": collections.Counter(),
                        "eval": collections.Counter(),
-                       "mesh": collections.Counter()}
+                       "mesh": collections.Counter(),
+                       "tracking": collections.Counter()}
+        # the frames' summed device iteration counts (Frontend.last_track)
+        self.track_iters = 0
         # wall ms of the checkpoint writes / restores, LPIPS calls, TSDF
         # integrations (one per fused view) and extractions, and whole
         # fuse_render_mesh calls
@@ -1421,14 +1458,21 @@ class DriverProbe:
         # keyframe tests: (frame, low-alpha pixels, threshold hw * tau_k)
         self.kf_tests = []
 
-    def _counted(self, where, fn, *a, **kw):
+    def _counted(self, where, fn, *a, fold=False, **kw):
+        """``fn`` with the launches inside it counted apart; ``fold``: the
+        loop programs' device tallies folded in before and after (a device
+        sync each; never in a window whose work stays queued)."""
         from gaus_slam_tpu_torch.ops import _cuda
 
+        if fold:
+            _cuda.fold_launches()
         saved = dict(_cuda.LAUNCHES)
         _cuda.LAUNCHES.clear()
         try:
             return fn(*a, **kw)
         finally:
+            if fold:
+                _cuda.fold_launches()
             inside = dict(_cuda.LAUNCHES)
             self.inside[where].update(inside)
             _cuda.LAUNCHES.clear()
@@ -1475,7 +1519,13 @@ class DriverProbe:
             setattr(owner, name, timed)
 
         def tracking(fe, frame_, **kw):
-            r = track(fe, frame_, **kw)
+            # counted apart in the synchronous driver only: the folds'
+            # device syncs would hold the pipelined driver's frontend
+            # behind the backend's queued work
+            r = (probe._counted("tracking", track, fe, frame_, fold=True,
+                                **kw) if probe.sync_tasks
+                 else track(fe, frame_, **kw))
+            probe.track_iters += fe.last_track["iters"]
             if r[2] is not None:
                 s = fe.sys
                 hw = s.cam.height * s.cam.width
@@ -1576,14 +1626,14 @@ def run_driver(label, env, dev, edit=None, resume_from=None,
         edit(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     t0 = time.perf_counter()
     with DriverProbe(sync_tasks=not pipelined) as probe:
         result = rgbd_slam(cfg, backend="pallas", device=dev,
                            resume_from=resume_from)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     print(f"[{label}] result {json.dumps(result)}")
     print(f"[{label}] kernels {json.dumps(launches)}; inside the backend "
           f"{json.dumps(dict(probe.inside['backend']))}; inside eval_final "
@@ -1677,6 +1727,20 @@ def phase_driver_full(dev, label="driver_340x600", edit=None, suffix="",
     print(f"[{label}] eval_final {probe.eval_s:.2f} s, "
           f"{1e3 * probe.eval_s / n_frames:.1f} ms per frame; peak device "
           f"memory {peak:.2f} GiB; whole run {secs:.1f} s")
+    # every tracking iteration that ran launched K1 and K2 once, and no
+    # other did (no iteration queued past the stop)
+    k1, k2 = (probe.inside["tracking"].get(n + suffix, 0)
+              for n in ("raster_forward_stash", "raster_backward_stash"))
+    print(f"[{label}] the frontend's tracking loops launched K1 {k1} and "
+          f"K2 {k2} times; the frames' summed device iteration counts "
+          f"{probe.track_iters}; K1 / K2 over the whole run "
+          f"{launches.get('raster_forward_stash' + suffix, 0)} / "
+          f"{launches.get('raster_backward_stash' + suffix, 0)}")
+    check(k1 == k2 == probe.track_iters > 0,
+          f"{label}: the tracking loops launched K1 {k1} and K2 {k2} times "
+          f"for {probe.track_iters} iterations")
+    check(probe.inside["tracking"].get("while_cond", 0) > 0,
+          f"{label}: while_cond never launched in the tracking loops")
     check(len(probe.merges) == 3, f"{label} merged {len(probe.merges)} "
           f"submaps, not 3")
     later = [m for m in probe.merges if not m["first"]]
@@ -1927,11 +1991,11 @@ def phase_disk(dev, card):
               f"result.json {want}")
         vis_mesh = collections.Counter()
         from gaus_slam_tpu_torch.ops import _cuda
-        _cuda.LAUNCHES.clear()
+        _cuda.clear_launches()
         written = vis_final.main([scene, "--device", kind, "--num_views",
                                   "4", "--mesh"])
         torch.cuda.synchronize()
-        vis_mesh.update(_cuda.LAUNCHES)
+        vis_mesh.update(_cuda.fold_launches())
         check(len(written) == 5 and all(os.path.exists(p) for p in written),
               f"phase 8: scripts/vis_final.py wrote {written}")
         check(vis_mesh.get("raster_forward", 0) > 0,
@@ -2100,10 +2164,10 @@ def phase_3dgs_kernels(ds, sys_cfg, capacity, dev, card, sa_numbers):
                 size=(bins.pair_gauss.shape[0], 24)).astype(np.float32),
                 device=dev)
             n = gm.capacity
-            _cuda.LAUNCHES.clear()
+            _cuda.clear_launches()
             g4 = bins.slab_scatter_grads(d_pairs, n, backend="pallas")
             torch.cuda.synchronize()
-            k4_launched = _cuda.LAUNCHES.get("monotone_row_gather", 0)
+            k4_launched = _cuda.fold_launches().get("monotone_row_gather", 0)
             gp = bins.slab_scatter_grads(d_pairs, n, backend="reference")
             same4 = bool(torch.equal(g4, gp))
             print(f"[3dgs kernels] K4 in the 3DGS mapping reduction "
@@ -2216,7 +2280,7 @@ def phase_splatam(dev, card):
 
     G.resize_map = counted_resize
     torch.cuda.synchronize()
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     t0 = time.perf_counter()
     try:
         result = splatam.rgbd_slam(cfg, backend="pallas", device=dev)
@@ -2224,7 +2288,7 @@ def phase_splatam(dev, card):
         G.resize_map = resize
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     with open(os.path.join(out, "time.json")) as f:
         times = json.load(f)
     n_track = int(cfg["frontend"]["num_tracking_iters"])
@@ -2569,7 +2633,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
                if profile else {})
     prof, win, overlap, turn = None, None, {}, 0
     torch.cuda.synchronize()
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     _cuda.check = counted_check
     programs.Owner._replay = counted_replay
     t0 = time.perf_counter()
@@ -2625,7 +2689,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
         programs.Owner._replay = real_replay
     del filled
     secs = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     return backend_state_arrays(be), be, launches, streams, overlap, secs
 
 
@@ -2977,14 +3041,14 @@ def phase_sharded_ba(cfg, ds, lms, capacity, dev, card):
     c = copy.deepcopy(cfg)
     c["backend"]["random_process"] = False
     torch.cuda.synchronize()
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     be = Backend(c, device=dev, devices=devs)
     t0 = time.perf_counter()
     for lm in copy.deepcopy(lms[:2]):
         be.process_localmap(lm, multi_process=False)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     finite = all(bool(torch.isfinite(t).all()) for t in be.map.params)
     print(f"[sharded_ba] {card}: Backend with a BA group of {be.ba_group}: "
           f"two merges "
@@ -3151,10 +3215,10 @@ def phase_bf16_probe(dev):
     from gaus_slam_tpu_torch.tools import bf16_probe as tool
 
     torch.cuda.synchronize()
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     check(tool.main([]) == 0, "the bf16 probe's entry point failed")
     torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     check(launches.get("bf16_probe", 0) > 0, "K6 never launched by its "
           "entry point")
     base = torch.as_tensor(np.random.default_rng(7).uniform(
@@ -3754,11 +3818,11 @@ def phase_backend_probe(card):
     for k in ("PROBE_H", "PROBE_W", "PROBE_REPS"):
         check(k not in os.environ, f"phase 12a: {k} is set; the probe runs "
               f"at its defaults")
-    _cuda.LAUNCHES.clear()
+    _cuda.clear_launches()
     t0 = time.perf_counter()
     res = backend_probe.main([])
     secs = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    launches = dict(_cuda.fold_launches())
     stages = ("bin", "map1", "map4", "map4c", "trk", "trkc")
     print(f"[backend_probe] {card}: 680x1200, capacity {res['capacity']}, "
           f"active {res['n_active']}; ms per call (wall between fences):")
@@ -4146,6 +4210,7 @@ def phase_programs(cfg, ds, dev, card):
     programs_sharded(be, dev, card)
 
     # 13b: launches and idle share per step, on the captured programs
+    from gaus_slam_tpu_torch.ops.graph_loop import LoopGraph
     from gaus_slam_tpu_torch.parallel import sharded_ba_step
     from gaus_slam_tpu_torch.render import bin_for_tracking, render_view
     from gaus_slam_tpu_torch.slam.densify import add_and_prune
@@ -4172,9 +4237,9 @@ def phase_programs(cfg, ds, dev, card):
     sel = [fe.local_frames[i % len(fe.local_frames)] for i in range(
         fe.num_mapping_iters // fe.rebin_every)]
 
-    def track():
+    def track(lag=None, owner=fe.programs):
         tracking_loop(cache, pose, gt, s.cam, s.opts, tc, s.lcfg,
-                      compact_coarse=bool(strides), owner=fe.programs)
+                      compact_coarse=bool(strides), owner=owner, lag=lag)
 
     def fmap():
         mapping_loop(fe.map, [ComposedW2C(None, f.pose.quat, f.pose.trans)
@@ -4232,6 +4297,10 @@ def phase_programs(cfg, ds, dev, card):
     eval_owner = programs.Owner("13b-eval")
     init_owner = programs.Owner("13b-init")
     ins = eval_inputs(frame, ds, dev)
+    # the Frontend's tracking programs, the loop program and the lagged
+    # graphs, captured before the rows below capture theirs
+    track()
+    track(lag=1)
     rows = {}
     for label, fn, per in (
             (f"tracking loop, {tc.num_iters} iterations", track,
@@ -4258,6 +4327,77 @@ def phase_programs(cfg, ds, dev, card):
                  f"iteration)" if per > 1 else "")
               + f"; wall {w['wall']:.3f} ms, device busy {w['busy']:.3f} ms, "
               f"idle share {idle}; host waits {w['wait_ms']:.3f} ms")
+    # the loop program against the lagged per-iteration graphs, in turns:
+    # device ms from CUDA events around a call (torch.profiler does not
+    # trace every run of a WHILE body), host wall ms around a call and its
+    # synchronize; each of the Frontend's owner, captured before the rows
+    # above, and of an owner of its own, captured after them
+    late = {k: programs.Owner(f"13b-{k}")
+            for k in ("loop", "loop profiled", "lagged")}
+    variants = {
+        "loop program, captured before": track,
+        "lagged graphs, captured before": lambda: track(lag=1),
+        "loop program, captured after": lambda: track(owner=late["loop"]),
+        "loop program, captured after, profiled once": lambda: track(
+            owner=late["loop profiled"]),
+        "lagged graphs, captured after": lambda: track(
+            lag=1, owner=late["lagged"])}
+    for fn in variants.values():
+        fn()
+    # under torch.profiler once, as the Frontend's loop program was in
+    # its row
+    step_window(variants["loop program, captured after, profiled once"])
+    captures = sum(programs.CAPTURES.values())
+    per = {k: [] for k in variants}
+    # an event just before a loop program's launch: the device ms before
+    # it (the arguments bound, the device waiting on the host) apart
+    marks = []
+    launch = LoopGraph.launch
+
+    def marked(self):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        launch(self)
+
+    LoopGraph.launch = marked
+    try:
+        for label in list(variants) + list(variants)[::-1]:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                marks.clear()
+                t0 = time.perf_counter()
+                e0.record()
+                variants[label]()
+                e1.record()
+                torch.cuda.synchronize()
+                per[label].append((e0.elapsed_time(e1),
+                                   1e3 * (time.perf_counter() - t0),
+                                   e0.elapsed_time(marks[0]) if marks
+                                   else None))
+    finally:
+        LoopGraph.launch = launch
+    captures = sum(programs.CAPTURES.values()) - captures
+    print(f"[programs] {card}: tracking loop, {tc.num_iters} iterations, "
+          f"in turns (6 calls each; {captures} captures meanwhile): "
+          + "; ".join(f"{k} device mean {np.mean([a for a, _, _ in v]):.3f} "
+                      f"(min {np.min([a for a, _, _ in v]):.3f}, max "
+                      f"{np.max([a for a, _, _ in v]):.3f}) ms, host wall "
+                      f"{np.mean([b for _, b, _ in v]):.3f} ms"
+                      + (f", before the launch "
+                         f"{np.mean([c for *_, c in v]):.3f} ms"
+                         if v[0][2] is not None else "")
+                      for k, v in per.items()))
+    check(captures == 0, f"phase 13: {captures} captures while the "
+          f"tracking loops were timed")
+    w = rows[f"tracking loop, {tc.num_iters} iterations"]
+    n = w["launches"]
+    check(n["graphs"] == 1 and n["kernels"] == 0 and w["wait_ms"] == 0
+          and "cudaEventSynchronize" not in w["waits"],
+          f"phase 13: the tracking loop issued {n['graphs']} graph launches "
+          f"and {n['kernels']} kernels outside a graph, host waits "
+          f"{w['wait_ms']} ms {w['waits']}")
     n = rows["backend fused x4 mapping batch"]["launches"]
     check(n["graphs"] >= 1 and n["graphs"] + n["kernels"] <= X4_LAUNCH_LIMIT,
           f"phase 13: the fused x4 batch issued {n['graphs']} graph launches "
@@ -4275,6 +4415,193 @@ def phase_programs(cfg, ds, dev, card):
           f"{json.dumps(dict(programs.CAPTURES))}; graph pools "
           f"{pool_bytes() / 2**20:.1f} MiB")
     return rows
+
+
+# 13c: the counter loops that hold while_cond against while_cond_plain:
+# (kmax of each level, stop), live false from the start where stop is 0
+COUNTER_GRID = [((0,), 3), ((5,), 0), ((5,), 3), ((5,), 9), ((1,), 1),
+                ((30,), 12), ((4, 10), 6), ((4, 10), 2), ((4, 10), 15),
+                ((0, 0), 4), ((3, 3), 9)]
+COUNTER_TIMED = (1000, 2000)   # iterations of the timed counter loops
+
+
+def loop_cases(tc):
+    """13c: tests/test_torch_while_loop.py's four schedules on the config's
+    tracking config ``tc``: (TrackConfig, view and prediction on). The
+    thresholds place the stop: any step under 1 cm converges at once
+    (inside a coarse level of n - 1), 2 mm after a coarse level of 2 (the
+    stop in the full-resolution level, with and without the view and the
+    prediction)."""
+    n, stride = tc.num_iters, tc.levels()[0][1]
+    fine = tc._replace(coarse_levels=((2, stride),), converged_th=2e-3)
+    return {"stop in coarse": (tc._replace(coarse_levels=((n - 1, stride),),
+                                           converged_th=1e-2), False),
+            "stop in fine": (fine, False),
+            "no early exit": (tc._replace(converged_th=-1.0), False),
+            "view and predict": (fine, True)}
+
+
+def counter_loop(kmaxs, stop, early, own, dev, read=True):
+    """programs.while_loop over a counter on the card: a level per kmax,
+    the body one more and live while under ``stop``, the tail doubling
+    the count. Returns (count, live, tail), read on the host (``read``)."""
+    import torch
+
+    from gaus_slam_tpu_torch.slam import programs
+
+    def body(n, live, stop):
+        n = n + 1
+        return n, live & (n < stop)
+
+    args = {"n": torch.zeros((), dtype=torch.int32, device=dev),
+            "live": torch.full((), stop > 0, dtype=torch.bool, device=dev),
+            "stop": torch.full((), stop, dtype=torch.int32, device=dev)}
+    done, tail = programs.while_loop(
+        own, "counter", body, [({}, k, early) for k in kmaxs], args,
+        carry=("n", "live"), cond=lambda a: (a["n"], a["live"]),
+        body_args=("n", "live", "stop"), tail=lambda n: {"twice": 2 * n},
+        tail_args=("n",))
+    if read:
+        return int(done["n"]), bool(done["live"]), int(tail["twice"])
+
+
+def phase_loop_program(cfg, ds, dev, card):
+    """Phase 13c: the tracking loop as one loop program (WHILE nodes).
+    Returns the kernels line's numbers of while_cond."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops.graph_loop import (BODY_TYPES, node_types,
+                                                    while_cond_plain)
+    from gaus_slam_tpu_torch.render import bin_for_tracking
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
+    from gaus_slam_tpu_torch.slam.steps import tracking_loop
+
+    # what the loop program is built on, on this machine
+    drv = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    api = {k: hasattr(torch._C._CUDAGraph, k) for k in (
+        "raw_cuda_graph", "instantiate", "begin_capture_to_if_node")}
+    print(f"[loop] {card}: PyTorch {torch.__version__} (CUDA "
+          f"{torch.version.cuda}), driver {drv}; torch._C._CUDAGraph "
+          f"{api}; CUDAGraph(keep_graph=True) captures each level's "
+          f"iteration and the tail, csrc/graph_loop.cu (nvcc's static "
+          f"cudart, no -rdc: cudaGraphSetConditional links without it) "
+          f"assembles them; graph pools {pool_bytes() / 2**20:.1f} MiB")
+    # a Frontend's frame: the one program against the lagged loop and
+    # eager(), its first call (the warm-up iteration, then the graph) and
+    # its launch
+    fe = Frontend(cfg, queue.Queue(), device=dev)
+    for t in range(5):
+        color, depth, _, c2w = ds[t]
+        fe.process_frame(t, np.asarray(color, np.float32) / np.float32(255),
+                         np.asarray(depth), c2w)
+    s = fe.sys
+    frame = fe.local_frames[-1]
+    gt, pose = fe._tile_gt(frame), frame.pose
+    strides = fe._track_strides()
+    cache = bin_for_tracking(fe.map, s.cam.replace_w2c(pose.w2c), s.opts,
+                             coarse_strides=strides)
+    own = programs.Owner("13c")
+    for case, (tc, view) in loop_cases(s.track_front).items():
+        def run(lag=None, owner=None):
+            p, aux = tracking_loop(cache, pose, gt, s.cam, s.opts, tc, s.lcfg,
+                                   want_view=view,
+                                   prev_pose=pose if view else None,
+                                   predict=view, compact_coarse=bool(strides),
+                                   lag=lag, owner=owner)
+            waits = aux.pop("host_waits"), aux.pop("queued")
+            return _leaves(programs._clone((p, aux))), waits
+        first, w1 = run(owner=own)
+        launched, w2 = run(owner=own)
+        lagged, _ = run(lag=1, owner=programs.Owner("13c-lag"))
+        with programs.eager():
+            eager, _ = run()
+        for label, ref in (("its first call (one eager iteration, then "
+                            "the graph)", first),
+                           ("the lagged loop", lagged), ("eager()", eager)):
+            check([p for p, _ in ref] == [p for p, _ in launched]
+                  and all(torch.equal(a, b) for (_, a), (_, b)
+                          in zip(ref, launched)),
+                  f"phase 13c: {case}: the loop program differs from "
+                  f"{label}")
+        check(w1 == w2 == (0, 0), f"phase 13c: {case}: host waits {w1} {w2}")
+        aux = dict(launched)
+        iters = int(aux[".1.iters"])
+        coarse, n = tc.levels()[0][0], tc.num_iters
+        ok = {"stop in coarse": iters < coarse,
+              "no early exit": iters == n}.get(case, coarse < iters < n)
+        print(f"[loop] {card}: {case} ({tc.levels()}, converged_th "
+              f"{tc.converged_th}): {iters} iterations; the launched program "
+              f"equals its first call, the lagged loop and eager() bit for "
+              f"bit")
+        check(ok, f"phase 13c: {case} stopped after {iters} iterations")
+    loops = [p for p in own.programs.values() if p.name == "tracking_loop"]
+    check(loops and all(p.loop is not None for p in loops),
+          "phase 13c: no loop graph was assembled")
+    for p in loops[:1] + [q for q in fe.programs.programs.values()
+                          if q.name == "tracking_loop"][:1]:
+        for i, g in enumerate(p.graphs):
+            types = node_types(g.raw_cuda_graph())
+            counts = {k: types.count(k) for k in sorted(set(types))}
+            print(f"[loop] {card}: {p.key[0]} graph {i} "
+                  f"({'level ' + str(i) if i < len(p.bodies) else 'tail'}): "
+                  f"{len(types)} nodes {counts}")
+            check(set(types) <= BODY_TYPES, f"phase 13c: a captured graph "
+                  f"holds nodes a WHILE body refuses: {counts}")
+
+    # while_cond against while_cond_plain: counter loops, each launch
+    # against the host loop over while_cond_plain on the card (eager()) and
+    # a python loop; a launch's while_cond launches: its levels' entries
+    # and its iterations
+    cases = 0
+    for kmaxs, stop in COUNTER_GRID:
+        for early in (True, False):
+            n, live = 0, stop > 0
+            for k in kmaxs:
+                while n < k and (live or not early):
+                    n += 1
+                    live = live and n < stop
+            want = (n, live, 2 * n)
+            with programs.eager():
+                plain = counter_loop(kmaxs, stop, early, None, dev)
+            c_own = programs.Owner("13c-counter")
+            first = counter_loop(kmaxs, stop, early, c_own, dev)
+            _cuda.clear_launches()
+            got = counter_loop(kmaxs, stop, early, c_own, dev)
+            conds = _cuda.fold_launches().get("while_cond", 0)
+            check(got == first == plain == want
+                  and conds == len(kmaxs) + n,
+                  f"phase 13c: the counter loop {kmaxs}, stop {stop}, early "
+                  f"{early}: launched {got} (first call {first}), host loop "
+                  f"over while_cond_plain {plain}, python {want}; "
+                  f"while_cond launched {conds} times")
+            cases += 1
+    # its time: the slope of a counter loop's device ms over iterations
+    # (while_cond with the WHILE node's relaunch of a 2-kernel body), and
+    # the plain version's
+    ms = {}
+    for k in COUNTER_TIMED:
+        t_own = programs.Owner("13c-timed")
+        counter_loop((k,), k + 1, True, t_own, dev)
+        ms[k] = time_ms(lambda: counter_loop((k,), k + 1, True, t_own, dev,
+                                             read=False), 5)
+    per_iter = (ms[COUNTER_TIMED[1]] - ms[COUNTER_TIMED[0]]) / (
+        COUNTER_TIMED[1] - COUNTER_TIMED[0])
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    lv = torch.ones((), dtype=torch.bool, device=dev)
+    plain_ms = time_ms(lambda: while_cond_plain(it, lv, 30, True), 100)
+    bound = 5 / HBM_BYTES_PER_S * 1e3     # reads 4 + 1 bytes
+    print(f"[loop] {card}: while_cond equals while_cond_plain in "
+          f"{cases} counter loops (kmax 0, a stop before the entry, two "
+          f"levels); a WHILE iteration of a counter {per_iter * 1e3:.3f} us "
+          f"({COUNTER_TIMED} iterations: {ms[COUNTER_TIMED[0]]:.3f} / "
+          f"{ms[COUNTER_TIMED[1]]:.3f} ms a launch), while_cond_plain "
+          f"{plain_ms * 1e3:.3f} us, bound {bound * 1e6:.3f} ns (bytes)")
+    return dict(max_abs_err=0.0, ms=per_iter, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
 def keyframe_split(cfg, dev, card):
@@ -4358,6 +4685,7 @@ def main() -> int:
         ab_launches = phase_quality_ab(card)
         spread_launches = phase_test_spread(dev, card)
         phase_programs(cfg, ds, dev, card)
+        numbers["while_cond"] = phase_loop_program(cfg, ds, dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4373,10 +4701,11 @@ def main() -> int:
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase
-        # 6) for K1-K4, the reference backend (3b) for K5, K6's entry (7)
+        # 6) for K1-K4 and while_cond, the reference backend (3b) for K5,
+        # K6's entry (7)
         # the bf16 instantiations: the driver with the bf16 compute dtype
         # at full width (11b)
-        main_path = ("6" if name in STASH_PATH else
+        main_path = ("6" if name in STASH_PATH + ("while_cond",) else
                      "11b 340x600" if name in BF16_PATH else
                      "3b" if name == "raster_backward" else "7")
         kernels.append({"name": name, "id": kid, "route": "cuda",

@@ -10,10 +10,14 @@ stream; each C function returns ``cudaGetLastError()`` and the wrapper
 raises if it is not 0.
 
 ``LAUNCHES`` counts kernel launches by name: a wrapper adds one where it
-launches its kernel, and nowhere else. With ``GAUS_LAUNCH_LOG`` set to a
-file path, a process appends its counts to that file as one JSON line
-when it exits, so a tool that runs the drivers in child processes
-(tools/quality_ab.py, tools/test_spread.py) can sum their launches.
+launches its kernel, and nowhere else. A loop program's iterations run
+as many times as the card decides (slam/programs.py): their launches are
+tallied on the card and folded into ``LAUNCHES`` where the counts are
+read, by ``fold_launches`` (``clear_launches`` folds, then zeroes), never
+on a step's path. With ``GAUS_LAUNCH_LOG`` set to a file path, a process
+appends its counts to that file as one JSON line when it exits, so a
+tool that runs the drivers in child processes (tools/quality_ab.py,
+tools/test_spread.py) can sum their launches.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
-SOURCES = ("raster_forward", "raster_backward", "gather", "bf16_probe")
+SOURCES = ("raster_forward", "raster_backward", "gather", "bf16_probe",
+           "graph_loop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the backward's forward recompute must
@@ -43,12 +48,28 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_LOG_ENV = "GAUS_LAUNCH_LOG"
+# device tallies of launches: objects whose fold() adds to LAUNCHES what
+# ran since their last fold and returns False once nothing can run again;
+# settle(), which never waits, True once that is so and all is folded
+TALLIES: list = []
+
+
+def fold_launches() -> collections.Counter:
+    """``LAUNCHES`` with every device tally folded in (reads the card)."""
+    TALLIES[:] = [t for t in TALLIES if t.fold()]
+    return LAUNCHES
+
+
+def clear_launches() -> None:
+    """Every count to 0, the tallies' launches until now included."""
+    fold_launches()
+    LAUNCHES.clear()
 
 
 def _log_launches(path: str) -> None:
     with open(path, "a") as f:
         f.write(json.dumps({"pid": os.getpid(),
-                            "launches": dict(LAUNCHES)}) + "\n")
+                            "launches": dict(fold_launches())}) + "\n")
 
 
 if os.environ.get(LAUNCH_LOG_ENV):

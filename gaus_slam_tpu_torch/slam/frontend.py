@@ -36,24 +36,31 @@ from .steps import (ComposedW2C, DiagFold, bin_mapping, bin_tracking,
                     mapping_loop, mapping_step, tracking_loop)
 
 
-def _to_device(x, device) -> torch.Tensor:
+def _dequant(x):
+    """uint8 colour * f32(1/255), uint16 depth * f32(1/DEPTH_U16_SCALE) (a
+    float32 tensor times a python scalar computes in float32): the JAX
+    frontend's ``_dequant_u8`` / ``_dequant_u16``."""
+    scale = 1 / 255 if x.dtype == torch.uint8 else 1 / DEPTH_U16_SCALE
+    return x.to(torch.float32) * scale
+
+
+def _to_device(x, device, owner=None) -> torch.Tensor:
     """A frame array (numpy or torch) on ``device``, dequantized as the
-    JAX frontend does: uint8 colour * f32(1/255), uint16 depth *
-    f32(1/DEPTH_U16_SCALE) (a float32 tensor times a python scalar
-    computes in float32); anything else as float32. A camera-dtype frame
-    moves first and widens on the device, so the copy carries 1 or 2
-    bytes a value."""
+    JAX frontend does (``_dequant``); anything else as float32. A
+    camera-dtype frame moves first and widens on the device, so the copy
+    carries 1 or 2 bytes a value; the widen-and-multiply is a program of
+    ``owner`` (slam/programs.py; the host-to-card copy stays outside it)
+    whose result is the caller's own."""
     if not isinstance(x, torch.Tensor):
         a = np.asarray(x)
         if a.dtype not in (np.uint8, np.uint16):
             return torch.as_tensor(a, dtype=torch.float32, device=device)
         x = torch.from_numpy(a)
     x = x.detach().to(device)
-    if x.dtype == torch.uint8:
-        return x.to(torch.float32) * (1 / 255)
-    if x.dtype == torch.uint16:
-        return x.to(torch.float32) * (1 / DEPTH_U16_SCALE)
-    return x.to(torch.float32)
+    if x.dtype not in (torch.uint8, torch.uint16):
+        return x.to(torch.float32)
+    return programs.call(owner, "dequant", _dequant, dict(x=x), {},
+                         outs="frame", copies=("frame",))
 
 
 def _readback(fetch: dict) -> dict:
@@ -427,8 +434,8 @@ class Frontend:
         float meters OR uint16 at stage.DEPTH_U16_SCALE counts/m (numpy or
         torch); gt_pose: c2w [4, 4].
         """
-        gt_color = _to_device(gt_color, self.device)
-        gt_depth = _to_device(gt_depth, self.device)
+        gt_color = _to_device(gt_color, self.device, self.programs)
+        gt_depth = _to_device(gt_depth, self.device, self.programs)
         s = self.sys
         prof = os.environ.get("GAUS_PROFILE")
         _marks = []

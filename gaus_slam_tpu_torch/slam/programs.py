@@ -58,6 +58,15 @@ One more way of binding: an argument named in ``borrow`` whose tensors
 lie in a buffer of some owner (another program's results, a map stepped
 in place) is read where it lies, its address part of the key, so that
 a program reading the results of another copies nothing.
+
+``while_loop`` is the port's ``lax.while_loop``: levels of iterations,
+each run while a device condition holds, and a tail, as one program.
+Each iteration writes its carry back into the buffers it read, so one
+captured iteration graph replayed is the loop's carry; on a card the
+levels become CUDA graph conditional WHILE nodes (ops/graph_loop.py) and
+one launch runs them all, the card deciding when each level stops. The
+iterations' kernel launches are tallied on the card and folded into
+``ops._cuda.LAUNCHES`` where the counts are read (``_cuda.fold_launches``).
 """
 from __future__ import annotations
 
@@ -70,6 +79,7 @@ import torch
 
 from ..ops import _cuda
 from ..ops.camera import Camera
+from ..ops.graph_loop import LoopGraph, while_cond_plain
 
 # replays by program name, and captures, since the process started
 GRAPH_LAUNCHES: collections.Counter = collections.Counter()
@@ -329,12 +339,14 @@ class Owner:
                          if r[0] is not None and not r[0].query()]
 
     # -- running -------------------------------------------------------
-    def _build(self, name, key, body, capture: bool) -> tuple:
-        prog = _Program(name, key, body)
-        if self.device.type != "cuda" or not capture:
-            out = body()
-            prog.out = out
-            return prog, out
+    def _capture(self, fns, keep_graph: bool = False) -> list:
+        """Each of ``fns`` (run before, on the caller's stream: the
+        warm-up) captured on the owner's capture stream into the pool of
+        the graphs replayed on the caller's stream. Returns [(graph, the
+        fn's result, the kernel launches its capture recorded)], those
+        launches taken back out of ``LAUNCHES``: a capture launches
+        nothing, its counts belong to the replays. ``keep_graph``: keep
+        each raw graph (``CUDAGraph.raw_cuda_graph``), not instantiated."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(device=self.device)
         cur = torch.cuda.current_stream(self.device)
@@ -342,43 +354,53 @@ class Owner:
         pool = _POOLS.get(where)
         if pool is None:
             pool = _POOLS[where] = _pool(self.device, self.stream)
-        # the warm-up: the call's real work, on the caller's stream
-        out = body()
         s = self.stream
         s.wait_stream(cur)
-        before = collections.Counter(_cuda.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
         # a graph that Python's collector destroys during a capture (an
         # owner of a dropped Frontend, say) invalidates it: no collection
         # while capturing
         gc_was = gc.isenabled()
         gc.disable()
+        out = []
         try:
-            with torch.cuda.device(self.device), torch.cuda.stream(s):
-                graph.capture_begin(pool=pool[0],
-                                    capture_error_mode="thread_local")
-                _CAPTURING.add(id(self))
-                try:
-                    prog.out = body()
-                finally:
-                    _CAPTURING.discard(id(self))
-                    graph.capture_end()
-        except Exception as e:
-            raise RuntimeError(f"programs: capture of {_describe(key)} failed "
-                               f"(owner {self.name}): {e}") from e
+            for fn in fns:
+                before = collections.Counter(_cuda.LAUNCHES)
+                graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+                with torch.cuda.device(self.device), torch.cuda.stream(s):
+                    graph.capture_begin(pool=pool[0],
+                                        capture_error_mode="thread_local")
+                    _CAPTURING.add(id(self))
+                    try:
+                        res = fn()
+                    finally:
+                        _CAPTURING.discard(id(self))
+                        graph.capture_end()
+                counts = collections.Counter(_cuda.LAUNCHES)
+                counts.subtract(before)
+                counts = +counts
+                for k, v in counts.items():
+                    _cuda.LAUNCHES[k] -= v
+                    if _cuda.LAUNCHES[k] == 0:
+                        del _cuda.LAUNCHES[k]
+                out.append((graph, res, counts))
         finally:
             if gc_was:
                 gc.enable()
             cur.wait_stream(s)
-        # the capture launched nothing: its counts belong to the replays
-        counts = collections.Counter(_cuda.LAUNCHES)
-        counts.subtract(before)
-        prog.launches = +counts
-        for k, v in prog.launches.items():
-            _cuda.LAUNCHES[k] -= v
-            if _cuda.LAUNCHES[k] == 0:
-                del _cuda.LAUNCHES[k]
-        prog.graph = graph
+        return out
+
+    def _build(self, name, key, body, capture: bool) -> tuple:
+        prog = _Program(name, key, body)
+        # the warm-up: the call's real work, on the caller's stream
+        out = body()
+        if self.device.type != "cuda" or not capture:
+            prog.out = out
+            return prog, out
+        try:
+            [(prog.graph, prog.out, prog.launches)] = self._capture([body])
+        except Exception as e:
+            raise RuntimeError(f"programs: capture of {_describe(key)} failed "
+                               f"(owner {self.name}): {e}") from e
         CAPTURES[name] += 1
         return prog, out
 
@@ -390,6 +412,49 @@ class Owner:
         except Exception as e:
             raise RuntimeError(f"programs: replay of {_describe(prog.key)} "
                                f"failed (owner {self.name}): {e}") from e
+        _cuda.LAUNCHES.update(prog.launches)
+        GRAPH_LAUNCHES[prog.name] += 1
+        return prog.out
+
+    def _build_loop(self, prog: "_Loop") -> tuple:
+        """A loop program's first call. On the CPU the host loop over its
+        bodies (every call). On a card the warm-up that capture needs is
+        the loop's first iteration, run eagerly on the caller's stream
+        (its results are the loop's), and the tail once (``warm``); then
+        each level's iteration and the tail are captured (``_capture``),
+        assembled into one graph of WHILE nodes and instantiated, and its
+        launch runs the rest of the loop from the carry the warm-up left.
+        The other levels are captured without an iteration of their own:
+        they differ from the first only in the tiles they render."""
+        if self.device.type != "cuda":
+            return prog.host_loop(check=True)
+        prog.warm()
+        fns = prog.bodies + ([prog.tail] if prog.tail else [])
+        try:
+            caps = self._capture(fns, keep_graph=True)
+            prog.graphs = [graph for graph, _, _ in caps]
+            if prog.tail:
+                prog.out = (prog.out[0], caps[-1][1])
+            for body in prog.bodies:
+                prog.check_carry(body)
+            prog.assemble([counts for _, _, counts in caps])
+        except Exception as e:
+            raise RuntimeError(f"programs: the loop program "
+                               f"{_describe(prog.key)} failed to capture or "
+                               f"assemble (owner {self.name}): {e}") from e
+        CAPTURES[prog.name] += 1
+        return self._run_loop(prog)
+
+    def _run_loop(self, prog: "_Loop"):
+        if prog.loop is None:
+            return prog.host_loop()
+        try:
+            prog.tally.stream = torch.cuda.current_stream(self.device)
+            prog.loop.launch()
+        except Exception as e:
+            raise RuntimeError(f"programs: launch of the loop program "
+                               f"{_describe(prog.key)} failed (owner "
+                               f"{self.name}): {e}") from e
         _cuda.LAUNCHES.update(prog.launches)
         GRAPH_LAUNCHES[prog.name] += 1
         return prog.out
@@ -576,3 +641,225 @@ def _make_body(own: Owner, name, fn, args, static, outs):
 
     body.written = []
     return body
+
+
+# ---------------------------------------------------------------------------
+# while_loop: levels of iterations and a tail as one program
+
+
+class _Loop(_Program):
+    """A loop program: the static-buffer body of each level's iteration,
+    the tail's, the (iterations, live) buffers the condition reads, and on
+    a card the PyTorch graphs captured from them (kept: their pool blocks
+    are the addresses the loop graph runs on), the assembled loop graph
+    and its device tally of iterations per level. ``launches`` are the
+    tail's, which runs once a launch."""
+
+    def __init__(self, name, key, bodies, tail, levels, cond, carry):
+        super().__init__(name, key, None)
+        self.bodies, self.tail, self.levels = bodies, tail, levels
+        self.cond = cond
+        self.carry = carry           # data_ptrs of the carry's buffers
+        # (the carry's buffers, the tail's results) after a call
+        self.graphs: list = []
+        self.loop = None
+        self.tally = None
+
+    @property
+    def written(self) -> list:
+        return [b for f in self.bodies + ([self.tail] if self.tail else [])
+                for b in f.written]
+
+    def check_carry(self, body):
+        """After a run or capture of ``body``: it wrote its results back
+        into the buffers it read (the loop's carry)."""
+        if {b.data_ptr() for b in body.written} != self.carry:
+            raise RuntimeError(
+                f"programs: {_describe(self.key)}: an iteration's results "
+                f"are not laid out as its carry arguments, so they cannot "
+                f"be its carry")
+
+    def host_loop(self, check: bool = False):
+        """Each level's body while ``while_cond_plain`` holds, then the
+        tail. ``check``: each body's first run is checked by
+        ``check_carry``."""
+        unchecked = set(range(len(self.bodies)) if check else ())
+
+        def step(l):
+            self.bodies[l]()
+            if l in unchecked:
+                unchecked.discard(l)
+                self.check_carry(self.bodies[l])
+
+        _host_while(lambda: self.cond, self.levels, step)
+        self.out = (self.out[0], self.tail() if self.tail else None)
+        return self.out
+
+    def warm(self):
+        """The loop's first iteration, if its condition holds (a host
+        read), eagerly, checked by ``check_carry``; then the tail, whose
+        results the loop's own tail overwrites (a capture makes no
+        buffer)."""
+        iters, live = self.cond
+        for body, (kmax, early) in zip(self.bodies, self.levels):
+            if bool(while_cond_plain(iters, live, kmax, early)):
+                body()
+                self.check_carry(body)
+                break
+        if self.tail:
+            self.tail()
+
+    def assemble(self, counts: list):
+        """The captured graphs as one loop graph, instantiated; ``counts``
+        the launches each capture recorded (the levels', then the tail's)."""
+        dev = self.cond[0].device
+        self.tally = _Tally(self, [c + collections.Counter(while_cond=1)
+                                   for c in counts[:len(self.bodies)]], dev)
+        self.launches = counts[-1] if self.tail else collections.Counter()
+        loop = LoopGraph(dev)
+        for l, (kmax, early) in enumerate(self.levels):
+            loop.add_level(self.graphs[l].raw_cuda_graph(), *self.cond, kmax,
+                           early, self.tally.t[l:l + 1])
+        if self.tail:
+            loop.add_child(self.graphs[-1].raw_cuda_graph())
+        loop.instantiate()
+        self.loop = loop
+        # the tallies of retired programs leave once folded
+        _cuda.TALLIES[:] = [t for t in _cuda.TALLIES if not t.settle()]
+        _cuda.TALLIES.append(self.tally)
+
+
+class _Tally:
+    """A loop program's iterations per level, counted on the card; ``fold``
+    adds the launches of those run since the last fold to ``LAUNCHES``.
+    Once the program is gone, ``settle`` copies its last counts to the
+    host behind its last launch and then folds them, never waiting."""
+
+    def __init__(self, prog: _Loop, per_level: list, device):
+        self.t = torch.zeros(len(per_level), dtype=torch.int64, device=device)
+        self.seen = [0] * len(per_level)
+        self.per_level = per_level
+        self.prog = weakref.ref(prog)
+        self.stream = None       # of the last launch
+        self.last = None         # (pinned counts, their copy's event)
+
+    def _add(self, now: list):
+        for counts, a, b in zip(self.per_level, now, self.seen):
+            if a != b:
+                for k, v in counts.items():
+                    _cuda.LAUNCHES[k] += v * (a - b)
+        self.seen = now
+
+    def fold(self) -> bool:
+        """Waits for the last launch. False once the program is gone."""
+        alive = self.prog() is not None
+        if self.last is not None:
+            self.last[1].synchronize()
+            self._add(self.last[0].tolist())
+            return alive
+        if self.stream is not None:
+            self.stream.synchronize()
+        self._add(self.t.tolist())
+        return alive
+
+    def settle(self) -> bool:
+        """True once the program is gone and every launch of it folded;
+        else, once it is gone, the copy of its counts is queued."""
+        if self.prog() is not None:
+            return False
+        if self.stream is None:
+            return True
+        if self.last is None:
+            host = torch.empty(self.t.shape, dtype=self.t.dtype,
+                               pin_memory=True)
+            ev = torch.cuda.Event()
+            with torch.cuda.stream(self.stream):
+                host.copy_(self.t, non_blocking=True)
+                ev.record()
+            self.last = (host, ev)
+            return False
+        if not self.last[1].query():
+            return False
+        self._add(self.last[0].tolist())
+        return True
+
+
+def _host_while(cond, levels, step):
+    """The levels on the host: ``step(l)`` runs an iteration of level l
+    while ``while_cond_plain(*cond(), kmax, early)`` holds."""
+    for l, (kmax, early) in enumerate(levels):
+        while bool(while_cond_plain(*cond(), kmax, early)):
+            step(l)
+
+
+def while_loop(owner: Owner | None, name: str, body, levels, args: dict,
+               carry: tuple, cond, body_args: tuple, tail=None,
+               tail_args: tuple = (), tail_static: dict | None = None):
+    """The JAX ``lax.while_loop``s of one jitted function, in sequence,
+    and what follows them, as one program of ``owner``.
+
+    ``levels``: ((static, kmax, early), ...): the level runs
+    ``body(**args[body_args], **static)`` while ``while_cond_plain(iters,
+    live, kmax, early)`` holds, tested before each iteration, where
+    ``cond(args)`` gives the (iters, live) tensors of the carry. ``body``
+    returns the new values of the arguments named in ``carry``, laid out
+    as they are (they are written back into the same buffers). Then
+    ``tail(**args[tail_args], **tail_static)``, whose result is handed out
+    as a ``call``'s would be. Returns ({carry name: its value after the
+    loop (the owner's buffers)}, the tail's result).
+
+    Keyed and bound as ``call``; on a card the first call of a key runs
+    the host loop (the warm-up), then captures each level's iteration and
+    the tail and assembles them into one graph of CUDA graph conditional
+    WHILE nodes (ops/graph_loop.py); later calls make one launch. A failure
+    to capture, assemble or launch raises an error naming the key. On the
+    CPU every call runs the host loop over the same static-buffer bodies.
+    Under ``eager()`` (or inside a program's body) the host loop runs on
+    plain calls."""
+    tail_static = tail_static or {}
+    if is_eager() or _INSIDE[0]:
+        a = dict(args)
+        _host_while(lambda: cond(a), [lv[1:] for lv in levels],
+                    lambda l: a.update(zip(carry, body(
+                        **{k: a[k] for k in body_args}, **levels[l][0]))))
+        out = (tail(**{k: a[k] for k in tail_args}, **tail_static)
+               if tail else None)
+        return {k: a[k] for k in carry}, out
+    leaves: list = []
+    spec = _flatten(args, "", leaves)
+    own = resolve(owner, leaves[0][1].device)
+    if not own.fixed:
+        own._check_device(leaves[0][1].device)
+    static = (("levels", tuple((tuple(sorted(st.items())), kmax, early)
+                               for st, kmax, early in levels)),
+              ("tail", tuple(sorted(tail_static.items()))))
+    with (torch.cuda.device(own.device) if own.device.type == "cuda"
+          else contextlib.nullcontext()):
+        bufs, layout = own.bind(leaves)
+        key = (name, spec, layout, static)
+        prog = own.programs.get(key)
+        if prog is None:
+            a = _unflatten(spec, iter(bufs))
+            sub = {k: a[k] for k in body_args}
+            bodies = [_make_body(own, name, body, sub, st, carry)
+                      for st, _, _ in levels]
+            tail_b = (_make_body(own, f"{name}.tail", tail,
+                                 {k: a[k] for k in tail_args}, tail_static,
+                                 "aux") if tail else None)
+            lv: list = []
+            _flatten({k: a[k] for k in carry}, "", lv)
+            ptrs = {t.data_ptr() for _, t in lv}
+            prog = _Loop(name, key, bodies, tail_b,
+                         [(kmax, early) for _, kmax, early in levels],
+                         cond(a), ptrs)
+            prog.out = ({k: a[k] for k in carry}, None)
+            out = own._build_loop(prog)
+            own.programs[key] = prog
+        else:
+            out = own._run_loop(prog)
+        for buf in prog.written:
+            own._source.pop(id(buf), None)
+    done, res = out
+    if not own.alias:
+        return _clone(done), (_clone(res) if tail else None)
+    return _fresh(done), (_fresh(res) if tail else None)

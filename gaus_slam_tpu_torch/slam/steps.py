@@ -5,15 +5,16 @@ a whole mapping schedule (``lax.scan``) into single XLA programs, and
 jits a mapping step and a backend tracking step. Here each of those
 steps is a program of ``slam/programs.py`` (a CUDA graph captured once
 per key and replayed): ``mapping_step``, ``ba_step``,
-``backend_tracking_step`` and a whole ``mapping_loop`` are one program
-each; ``tracking_loop`` is one program per iteration (per level and
-ring slot) and one for its tail, queued by the host. Every per-step
-value is a device value, as JAX traces it: the Adam step counters and
-the tables they index, the exposure flag, the coarse phase. Where the
-JAX program tests a device scalar (the convergence counter of the
-tracking early exit), the port keeps it on the device too: every queued
-iteration is masked by a device flag, and the host learns of the stop a
-few iterations late through a pinned copy (``_LaggedFlag``), never by
+``backend_tracking_step``, a whole ``mapping_loop`` and a whole
+``tracking_loop`` are one program each; the tracking loop's while_loops
+are CUDA graph conditional WHILE nodes, so the card decides when each
+level stops, as the JAX program's cond does. Every per-step value is a
+device value, as JAX traces it: the Adam step counters and the tables
+they index, the exposure flag, the coarse phase, the tracking loop's
+convergence counter. The uncapturable reference backend keeps a loop
+that the host queues an iteration at a time: every queued iteration is
+masked by a device flag, and the host learns of the stop a few
+iterations late through a pinned copy (``_LaggedFlag``), never by
 reading the device.
 """
 from __future__ import annotations
@@ -107,11 +108,13 @@ def _level_tile_ids(grid, stride: int, device) -> torch.Tensor:
 
 
 def _track_iter(cache, gt, pose, carry, cam_proj, *, opts, tcfg, lcfg,
-                stride, pair_hi, ring, slot):
+                stride, pair_hi, masked, ring=None, slot=0):
     """One tracking iteration (the JAX loop's body) on the level of
-    checkerboard ``stride`` (1: every tile). With the early exit on
-    (``ring`` given) the step applies only while ``carry.live`` holds and
-    the iteration's flags go into ring slot ``slot``."""
+    checkerboard ``stride`` (1: every tile). ``masked``: the step applies
+    only while ``carry.live`` holds, and the carry counts the convergence
+    and the live iterations (the JAX body and cond on the device); then
+    with a ``ring`` the iteration's flags go into its slot ``slot``.
+    Unmasked (no early exit) it counts the iterations alone."""
     tile_ids = (_level_tile_ids(opts.grid, stride, gt.device) if stride > 1
                 else None)
     gt_sub = gt if tile_ids is None else gt[tile_ids.long()]
@@ -124,9 +127,10 @@ def _track_iter(cache, gt, pose, carry, cam_proj, *, opts, tcfg, lcfg,
     pose = pose._replace(quat=quat.detach(), trans=trans.detach())
     new_pose = pose_adam_step(pose, g_q, g_t, tcfg.rot_sched,
                               tcfg.trans_sched, tcfg.betas)
-    if ring is None:
+    if not masked:
         return new_pose, carry._replace(loss=loss_k.detach(),
-                                        depth_l1=aux["depth_l1"].detach())
+                                        depth_l1=aux["depth_l1"].detach(),
+                                        iters=carry.iters + 1)
     # the JAX body and cond on the device: the step (and the step count)
     # applies only while live; the test in float64, as a host float
     # compares the float32 norm with the threshold
@@ -141,7 +145,8 @@ def _track_iter(cache, gt, pose, carry, cam_proj, *, opts, tcfg, lcfg,
         near, carry.conv + 1, torch.zeros_like(carry.conv)), carry.conv)
     iters = carry.iters + live.to(torch.int32)
     live = live & (conv <= 3)
-    ring.push(slot, torch.stack([live.to(torch.int32), iters]))
+    if ring is not None:
+        ring.push(slot, torch.stack([live.to(torch.int32), iters]))
     return new_pose, _Carry(loss, depth_l1, conv, live, iters)
 
 
@@ -170,53 +175,100 @@ def _track_tail(cache, pose, prev_pose, cam_proj, *, opts, want_view,
     return aux
 
 
+def _levels(cache: PairCache, opts: RenderOptions, tcfg: TrackConfig,
+            compact_coarse: bool) -> list:
+    """The loop's levels, coarse to fine: (kmax, checkerboard stride,
+    pair_hi); a level runs while fewer than kmax iterations ran."""
+    out, consumed = [], 0
+    # the reference backend renders all tiles only: no coarse phase
+    for it_l, s_l in (tcfg.levels() if opts.backend != "reference" else ()):
+        n_l = min(it_l, tcfg.num_iters - consumed)
+        if n_l <= 0 or s_l <= 1:
+            continue
+        consumed += n_l
+        out.append((consumed, s_l,
+                    track_coarse_budget(cache.raw_t.shape[1], s_l)
+                    if compact_coarse else None))
+    return out + [(tcfg.num_iters, 1, None)]
+
+
+def _carry0(dev) -> _Carry:
+    f32, i32 = torch.float32, torch.int32
+    return _Carry(constant(0.0, f32, dev), constant(0.0, f32, dev),
+                  constant(0, i32, dev), constant(True, torch.bool, dev),
+                  constant(0, i32, dev))
+
+
 def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
                   cam_proj: Camera, opts: RenderOptions, tcfg: TrackConfig,
                   lcfg: LossConfig, want_view: bool = False,
                   prev_pose: PoseState | None = None, predict: bool = False,
                   use_vel: bool = True, compact_coarse: bool = False,
-                  lag: int = 1, owner=None):
+                  lag: int | None = None, owner=None):
     """Full tracking optimization for one frame.
 
     ``want_view=True`` also renders the final pose (detached, all tiles,
     same pair cache: K3) and counts its low-alpha pixels (the keyframe
     test). ``predict=True`` also emits the constant-velocity pose init of
     the next frame. Returns (pose, aux); ``aux["iters"]`` is the device
-    count of iterations run, as in the JAX loop.
+    count of iterations run, as in the JAX loop. The returned pose and
+    aux are the caller's own (copies of the loop's state), except the
+    tail's results, which the owner's next loop rewrites.
 
-    Each iteration is one captured program of ``owner`` (one per level and
-    ring slot; slam/programs.py), the tail after them another. The JAX
-    package runs the whole while_loop as one program; here the host
-    queues the iterations (one program for the whole loop needs CUDA
-    graph conditional nodes, which the card's PyTorch build does not
-    bind: ROADMAP).
+    Where the steps can be captured (``render.capturable``), the whole
+    loop is one program of ``owner`` (``programs.while_loop``): one launch
+    runs every iteration of every level and the tail, and the card
+    decides when each level stops, as the JAX while_loop's cond does
+    (``_track_iter`` with ``masked``, with the early exit on: its
+    early-exit math). Under ``programs.eager()`` the same loop runs as
+    while_loop's host loop on plain calls. aux["host_waits"] and
+    aux["queued"] are 0 on both.
 
-    The early exit (``converged_th`` > 0) is decided on the device, as
-    the JAX while_loop's carry does: each queued iteration computes its
-    Adam step and applies it (pose and its step count, moments, loss,
-    depth_l1) only while the device flag ``live`` holds; ``live`` falls
-    once the convergence counter passes 3. The host stops queuing when it
-    sees the fall, ``lag`` iterations late: before it queues iteration j
-    it waits on the flags copied after iteration j - 1 - lag (lag 0 waits
-    for the iteration before). The masked iterations leave every value
-    where the stop left it, so the result does not depend on ``lag``.
-    When the loop ends without a seen stop, the host waits once, at the
-    end, for the newest flags. aux["host_waits"] counts the waits,
-    aux["queued"] the queued iterations. The returned pose and aux are
-    the caller's own (copies of the loop's state), except the tail's
-    results, which the owner's next loop rewrites."""
+    Otherwise (the reference backend; a caller that passes ``lag``) the
+    host queues the iterations, each one program
+    (per level and ring slot), the tail another. The early exit
+    (``converged_th`` > 0) is decided on the device all the same: each
+    queued iteration computes its Adam step and applies it (pose and its
+    step count, moments, loss, depth_l1) only while the device flag
+    ``live`` holds; ``live`` falls once the convergence counter passes 3.
+    The host stops queuing when it sees the fall, ``lag`` (default 1)
+    iterations late: before it queues iteration j it waits on the flags
+    copied after iteration j - 1 - lag (lag 0 waits for the iteration
+    before). The masked iterations leave every value where the stop left
+    it, so the result does not depend on ``lag``. When the loop ends
+    without a seen stop, the host waits once, at the end, for the newest
+    flags. aux["host_waits"] counts the waits, aux["queued"] the queued
+    iterations."""
     dev = gt_tiled.device
     early = tcfg.converged_th > 0
+    levels = _levels(cache, opts, tcfg, compact_coarse)
+    if lag is None and (capturable(opts) or programs.is_eager()):
+        static = dict(opts=opts, tcfg=tcfg, lcfg=lcfg, masked=early)
+        done, aux = programs.while_loop(
+            owner, "tracking_loop", _track_iter,
+            [(dict(static, stride=s_l, pair_hi=hi), kmax, early)
+             for kmax, s_l, hi in levels],
+            dict(cache=cache, gt=gt_tiled, pose=pose0, carry=_carry0(dev),
+                 cam_proj=cam_proj, prev_pose=prev_pose if predict else None),
+            carry=("pose", "carry"),
+            cond=lambda a: (a["carry"].iters, a["carry"].live),
+            body_args=("cache", "gt", "pose", "carry", "cam_proj"),
+            tail=_track_tail, tail_args=("cache", "pose", "prev_pose",
+                                         "cam_proj"),
+            tail_static=dict(opts=opts, want_view=want_view, predict=predict,
+                             use_vel=use_vel))
+        pose, carry = done["pose"], done["carry"]
+        aux.update(iters=carry.iters.clone(), loss=carry.loss.clone(),
+                   depth_l1=carry.depth_l1.clone(), host_waits=0, queued=0)
+        return PoseState(*(t.detach().clone() for t in pose)), aux
+    lag = 1 if lag is None else lag
     own = None if programs.is_eager() else programs.resolve(owner, dev)
     ring = None
     if early:
         ring = (own.ring(lag + 1, dev) if own is not None else
                 programs.FlagRing(lag + 1, dev))
     flags = _LaggedFlag(ring) if early else None
-    f32, i32 = torch.float32, torch.int32
-    carry = _Carry(constant(0.0, f32, dev), constant(0.0, f32, dev),
-                   constant(0, i32, dev), constant(True, torch.bool, dev),
-                   constant(0, i32, dev))
+    carry = _carry0(dev)
     pose = pose0
     state = {"k": 0, "seen": None}  # queued; (live, iters) of a seen stop
 
@@ -235,24 +287,14 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
                 dict(cache=cache, gt=gt_tiled, pose=pose, carry=carry,
                      cam_proj=cam_proj),
                 dict(opts=opts, tcfg=tcfg, lcfg=lcfg, stride=stride,
-                     pair_hi=pair_hi, ring=ring, slot=slot),
+                     pair_hi=pair_hi, masked=early, ring=ring, slot=slot),
                 outs=("pose", "carry"), capture=capturable(opts))
             if early:
                 ring.queued(slot)
             state["k"] = k + 1
 
-    consumed = 0
-    # the reference backend renders all tiles only: no coarse phase
-    levels = tcfg.levels() if opts.backend != "reference" else ()
-    for it_l, s_l in levels:
-        n_l = min(it_l, tcfg.num_iters - consumed)
-        if n_l <= 0 or s_l <= 1:
-            continue
-        pair_hi = (track_coarse_budget(cache.raw_t.shape[1], s_l)
-                   if compact_coarse else None)
-        run(consumed + n_l, s_l, pair_hi)
-        consumed += n_l
-    run(tcfg.num_iters, 1, None)
+    for kmax, s_l, pair_hi in levels:
+        run(kmax, s_l, pair_hi)
 
     aux = programs.call(
         own, "tracking_tail", _track_tail,
@@ -262,9 +304,8 @@ def tracking_loop(cache: PairCache, pose0: PoseState, gt_tiled: torch.Tensor,
              use_vel=use_vel), outs="aux", capture=capturable(opts))
     # the loop's state lives in the owner's buffers: hand out copies
     pose = PoseState(*(t.detach().clone() for t in pose))
-    aux.update(iters=(carry.iters.clone() if early else
-                      torch.full((), state["k"], dtype=i32, device=dev)),
-               loss=carry.loss.clone(), depth_l1=carry.depth_l1.clone())
+    aux.update(iters=carry.iters.clone(), loss=carry.loss.clone(),
+               depth_l1=carry.depth_l1.clone())
     if early and state["seen"] is None and state["k"] > 0:
         # everything is queued: the one wait for the newest flags
         flags.read(state["k"] - 1)

@@ -21,12 +21,15 @@ which a Backend then merges):
 Each step runs once unwatched first (the kernels build, the constant
 caches fill), then once watched. "warn" prints every flagged call with
 the port's frames of its stack, grouped by site; "error" stops a step at
-its first flagged call. The explicit event wait of tracking_loop's lagged
-convergence read is not a flagged call (an event synchronize), and is
-counted by the loop itself (aux "host_waits"). ``--profile`` then times
-each step once more under torch.profiler (``profile_window``): wall and
-device busy ms, the idle share, and the host's ms in the CUDA calls that
-wait for the card.
+its first flagged call. The tracking loop is one loop program there (its
+early exit decided on the card: aux "host_waits" 0); the lagged loop's
+event wait (the reference backend's) would not be a flagged call (an
+event synchronize) and is counted by that loop itself. ``--profile`` then
+times each step once more under torch.profiler (``profile_window``): wall
+and device busy ms, the idle share, and the host's ms in the CUDA calls
+that wait for the card. The profiler does not trace every run of a CUDA
+graph WHILE node's body: the loop program's device busy ms and idle
+share there undercount (chip_smoke phase 13b times it with CUDA events).
 """
 from __future__ import annotations
 

@@ -18,9 +18,11 @@
   reads a card would wait on (``Tensor.__bool__`` / ``__float__`` /
   ``__int__`` / ``item`` / ``tolist`` / ``cpu`` / ``numpy``, and
   ``torch.tensor`` / ``torch.as_tensor`` given a device) raise when the
-  caller is one of the step's modules. Exempt: the tracking loop's one
-  lagged read (``_LaggedFlag.read``), and the constant caches' first
-  fill, warmed up before the check. The same check raises on a copy of
+  caller is one of the step's modules. Exempt: the lagged tracking
+  loop's one lagged read (``_LaggedFlag.read``), and the constant caches'
+  first fill, warmed up before the check. The one-program tracking loop
+  tests its condition in slam/programs.py (on the CPU the host loop over
+  ``while_cond_plain``; on a card ``while_cond`` inside the graph). The same check raises on a copy of
   the earlier ``slab_scatter_grads``, so it does see a read.
 """
 import contextlib
@@ -563,11 +565,11 @@ def _steps(sc):
     # a budget cut below demand: the binning overflows
     tight = opts._replace(pair_cap=256)
 
-    def tracking():
+    def tracking(lag=None):
         cache = bin_for_tracking(gm, cam.replace_w2c(sc["pose"].w2c), opts,
                                  coarse_strides=(3,))
         return tracking_loop(cache, sc["pose"], gts[0], cam, opts, tcfg, lcfg,
-                             compact_coarse=True, want_view=True)
+                             compact_coarse=True, want_view=True, lag=lag)
 
     return {
         "mapping_step": lambda: mapping_step(gm, w2cs[0], gts[0], exp0, False,
@@ -585,12 +587,13 @@ def _steps(sc):
             [torch.device("cpu")] * 2, gm, w2cs, gts, cam, opts, mcfg, lcfg,
             weights=[1, 0]),
         "tracking_loop": tracking,
+        "tracking_loop lagged": lambda: tracking(lag=1),
     }
 
 
 STEP_NAMES = ("mapping_step", "mapping_step overflow", "mapping_loop x4",
               "mapping_loop x4 coarse 3", "backend_tracking_step",
-              "sharded_ba_step", "tracking_loop")
+              "sharded_ba_step", "tracking_loop", "tracking_loop lagged")
 
 
 @pytest.mark.parametrize("name", STEP_NAMES)
@@ -601,8 +604,13 @@ def test_step_makes_no_host_read(step_scene, name):
         got = fn()
     if name == "mapping_step overflow":
         assert bool(got[2]["overflow"])
-    if name == "tracking_loop":
+    if name.startswith("tracking_loop"):
         assert got[0].step == want[0].step
+    if name == "tracking_loop":
+        # one program: the condition is tested where the loop runs (on a
+        # card by while_cond inside the graph)
+        assert got[1]["host_waits"] == 0
+    if name == "tracking_loop lagged":
         assert 0 < got[1]["host_waits"] <= got[1]["queued"]
 
 

@@ -380,3 +380,86 @@ def test_cuda_graphs_equal_eager(cuda_scene, name):
     n0 = sum(programs.GRAPH_LAUNCHES.values())
     assert_bit_equal(programs._clone(run(own)), want)
     assert sum(programs.GRAPH_LAUNCHES.values()) > n0
+
+
+def loop_run(sc, lag, view, owner=None):
+    """The tracking loop with a stride-2 coarse level (the cache binned
+    phase-major for it, the compact slice on), at ``lag`` (None: the one
+    loop program)."""
+    from gaus_slam_tpu_torch.render import bin_for_tracking
+    from gaus_slam_tpu_torch.slam.steps import tracking_loop
+
+    cam, opts = sc["cam"], sc["opts"]
+    tcfg = sc["tcfg"]._replace(coarse_levels=((3, 2),))
+    cache = bin_for_tracking(sc["gm"], cam.replace_w2c(sc["pose"].w2c), opts,
+                             coarse_strides=(2,))
+    pose, aux = tracking_loop(cache, sc["pose"], sc["gts"][1], cam, opts,
+                              tcfg, sc["lcfg"], want_view=view,
+                              prev_pose=sc["pose"] if view else None,
+                              predict=view, compact_coarse=True, lag=lag,
+                              owner=owner)
+    aux.pop("host_waits")
+    aux.pop("queued")
+    return programs._clone((pose, aux))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True])
+def test_cuda_loop_program_equals_eager_and_lagged(cuda_scene, view):
+    """The one loop program (WHILE nodes) against the same loop under
+    programs.eager() and through the lagged per-iteration programs: bit
+    for bit; its second call is one launch with the same bits, and the
+    folded launch counts hold K1 and K2 once per iteration that ran."""
+    from gaus_slam_tpu_torch.ops import _cuda
+
+    with programs.eager():
+        want = loop_run(cuda_scene, None, view)
+    assert_bit_equal(loop_run(cuda_scene, 1, view, programs.Owner("lag")),
+                     want)
+    own = programs.Owner("loop")
+    assert_bit_equal(loop_run(cuda_scene, None, view, own), want)
+    loops = [p for p in own.programs.values() if p.name == "tracking_loop"]
+    assert len(loops) == 1 and loops[0].loop is not None
+    n0 = programs.GRAPH_LAUNCHES["tracking_loop"]
+    _cuda.clear_launches()
+    got = loop_run(cuda_scene, None, view, own)
+    assert_bit_equal(got, want)
+    assert programs.GRAPH_LAUNCHES["tracking_loop"] == n0 + 1
+    assert len(own.programs) == 1
+    counts = _cuda.fold_launches()
+    iters = int(got[1]["iters"])
+    assert 0 < iters < cuda_scene["tcfg"].num_iters
+    assert counts["raster_forward_stash"] == iters
+    assert counts["raster_backward_stash"] == iters
+    assert counts["raster_forward"] == (1 if view else 0)
+    assert counts["while_cond"] == 2 + iters
+
+
+@pytest.mark.cuda
+def test_cuda_retired_loop_tally_is_folded_and_dropped(cuda_scene):
+    """A capacity change retires an owner's loop program: once it is gone,
+    the next loop program's assembly queues the copy of its device tally,
+    a later one folds it and drops it from ``_cuda.TALLIES``, and every
+    iteration that ran stays counted."""
+    import gc
+
+    from gaus_slam_tpu_torch.ops import _cuda
+
+    _cuda.clear_launches()
+    own = programs.Owner("retire")
+    own.set_capacity(1)
+    first = loop_run(cuda_scene, None, False, own)
+    loop_run(cuda_scene, None, False, own)
+    [tally] = [p.tally for p in own.programs.values()]
+    own.set_capacity(2)
+    torch.cuda.synchronize()
+    own.set_capacity(3)
+    gc.collect()
+    assert tally.prog() is None and tally in _cuda.TALLIES
+    loop_run(cuda_scene, None, False, own)
+    torch.cuda.synchronize()
+    view = loop_run(cuda_scene, None, True, own)
+    assert tally not in _cuda.TALLIES
+    counts = _cuda.fold_launches()
+    iters = int(first[1]["iters"])
+    assert counts["raster_forward_stash"] == 3 * iters + int(view[1]["iters"])
