@@ -18,10 +18,11 @@ line):
    re-forward stash bit-equal to K1's stash and its gradient to K2's, K4
    (the row-layout gather the reduction calls) bit for bit against its
    plain version and torch.index_select, also on a binning whose pair
-   budget is cut below demand (it overflows: the reduction's run path,
-   K4 included, runs there too and torch.where drops it), where the
-   selected reduction must be the slab one bit for bit (the run one
-   without overflow). Prints errors, tolerances, ms per call (CUDA events
+   budget is cut below demand (it overflows: called eagerly, as here, the
+   reduction runs its run path too, K4 included, and torch.where drops
+   it; inside a captured step an IF node runs the slab path alone, 13d),
+   where the selected reduction must be the slab one bit for bit (the run
+   one without overflow). Prints errors, tolerances, ms per call (CUDA events
    after warm-up; K4, a short kernel, inside a CUDA graph) and K2's and
    K4's registers, spills and shared memory.
 3. The port's Frontend (backend "pallas": K1-K4) over 24 frames, submaps
@@ -276,11 +277,32 @@ line):
    to its levels plus its iterations; the device us per WHILE iteration
    of a counter (the kernels line's while_cond ms) and the plain
    version's.
+   13d. The gradient reduction's lax.cond as a CUDA graph IF node
+   (graph_loop.cond, csrc/graph_loop.cu): a frontend mapping_step, a
+   backend fused x4 batch (mapping_loop over 4 frames), a ba_step and the
+   sharded BA step over four slots, each twice chained, on the 340x600
+   map of a Frontend's first frames, under the config's pair budget and
+   under one cut to half the demand (every step overflows): captured
+   against programs.eager(), bit for bit; each program that reduces pair
+   gradients holds one conditional node per reduction; on replays the
+   device tallies show one branch per node run, the slab branch on every
+   overflowing replay and the run branch on every other, if_cond's
+   launches equal the nodes run, and K4 launches once per run branch
+   (never on an overflowing replay). if_cond against if_cond_plain in
+   small programs on both flag values and with the flag flipped between
+   replays. By CUDA events at the mapping step's shapes: the slab and run
+   reductions alone, torch.where over both (the eager path, every step's
+   before), the reduction's IF node program on each binning; the
+   captured mapping step with the IF node and with the reduction forced
+   to torch.where over both (the parent's program), in turns, with and
+   without overflow; if_cond's ms per node (a program of IF_NODES nodes
+   less the same branches launched plain) and the plain version's.
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
 of their own, with their launches in 11b at 340x600; while_cond, the
-tracking loop's condition, from 13c), the card line, and
-{"ok": true, "device": {...}} as the last line.
+tracking loop's condition, from 13c; if_cond, the reduction's, from
+13d), the card line, and {"ok": true, "device": {...}} as the last
+line.
 """
 from __future__ import annotations
 
@@ -462,6 +484,11 @@ KERNELS = {
 # device between iterations
 KERNELS["while_cond"] = ("L1", "gaus_slam_tpu_torch/csrc/graph_loop.cu",
                          "gaus_slam_tpu/slam/steps.py:129")
+# the gradient reduction's branch: no Pallas kernel; it replaces the JAX
+# slab_scatter_grads' lax.cond on the overflow flag, which XLA runs on the
+# device (only the taken branch)
+KERNELS["if_cond"] = ("L2", "gaus_slam_tpu_torch/csrc/graph_loop.cu",
+                      "gaus_slam_tpu/ops/binning.py:120")
 STASH_PATH = ("raster_forward_stash", "raster_backward_stash",
               "raster_forward", "monotone_row_gather")
 BF16_PATH = ("raster_forward_stash_bf16", "raster_backward_stash_bf16",
@@ -1539,7 +1566,10 @@ class DriverProbe:
             first = be.cur_lmid < 0
             frames = [f.time_idx for f in lm.frames]
             n0, donors = be.n_active_host, lm.n_active_host
-            probe._counted("backend", merge, be, lm, multi_process)
+            # the synchronous driver folds the device tallies around a
+            # merge (its IF nodes' branches, K4 among them)
+            probe._counted("backend", merge, be, lm, multi_process,
+                           fold=probe.sync_tasks)
             # the host mirror: exact after the drain's prune
             probe.merges.append(dict(lmid=lm.lmid, first=first,
                                      frames=[frames[0], frames[-1]],
@@ -1739,6 +1769,11 @@ def phase_driver_full(dev, label="driver_340x600", edit=None, suffix="",
     check(k1 == k2 == probe.track_iters > 0,
           f"{label}: the tracking loops launched K1 {k1} and K2 {k2} times "
           f"for {probe.track_iters} iterations")
+    print(f"[{label}] K4 launches over the whole run "
+          f"{launches.get('monotone_row_gather', 0)} (PR 15: 240, K4 in "
+          f"every captured reduction; now once per run branch taken), "
+          f"inside the backend {probe.inside['backend'].get('monotone_row_gather', 0)}; "
+          f"if_cond {launches.get('if_cond', 0)}")
     check(probe.inside["tracking"].get("while_cond", 0) > 0,
           f"{label}: while_cond never launched in the tracking loops")
     check(len(probe.merges) == 3, f"{label} merged {len(probe.merges)} "
@@ -4604,6 +4639,324 @@ def phase_loop_program(cfg, ds, dev, card):
                 bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
+# ---------------------------------------------------------------------------
+# phase 13d: the gradient reduction's lax.cond as an IF node
+
+
+IF_NODES = 256   # 13d: IF nodes in the program that times if_cond
+
+
+def cond_cases(fe, dev):
+    """13d: the programs that reduce pair gradients, on ``fe``'s map and
+    last frames: {name: run(owners, opts) -> the cloned results of two
+    chained calls}; ``owners`` a list (the sharded step's shard owners
+    and its map owner; one owner for the others, None under eager())."""
+    import torch
+
+    from gaus_slam_tpu_torch.models.frame import init_exposure, init_pose
+    from gaus_slam_tpu_torch.parallel import sharded_ba_step
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.slam.steps import (ComposedW2C, ba_step,
+                                                mapping_loop, mapping_step)
+
+    s = fe.sys
+    frames = [fe.local_frames[i % len(fe.local_frames)] for i in range(4)]
+    gts = [fe._tile_gt(f) for f in frames]
+    w2cs = [f.pose.w2c.detach().clone() for f in frames]
+    gm0 = programs._clone(fe.map)
+    devs = [torch.device(dev)] * BA_GROUP
+
+    def one(owners):
+        return None if owners is None else owners[0]
+
+    def fmap(owners, opts):
+        gm, exp, out = gm0, init_exposure(dev), []
+        for k in range(2):
+            f = frames[k]
+            gm, exp, aux = mapping_step(
+                gm, ComposedW2C(None, f.pose.quat, f.pose.trans), gts[k],
+                exp, False, s.exp_sched_front, s.cam, opts, s.mcfg, s.lcfg,
+                owner=one(owners))
+            out.append(programs._clone((gm, exp, aux)))
+        return out
+
+    def x4(owners, opts):
+        gm, out = gm0, []
+        for _ in range(2):
+            gm, aux = mapping_loop(gm, w2cs, gts, s.cam, opts, s.mcfg,
+                                   s.lcfg, rebin_every=1, coarse_stride=1,
+                                   owner=one(owners))
+            out.append(programs._clone((gm, aux)))
+        return out
+
+    def ba(owners, opts):
+        gm, pose, exp = gm0, init_pose(np.eye(4, dtype=np.float32),
+                                       device=dev), init_exposure(dev)
+        out = []
+        for k in range(2):
+            gm, pose, exp, aux = ba_step(
+                gm, pose, w2cs[k], gts[k], exp, s.cam, opts, s.mcfg, s.lcfg,
+                s.exp_sched_back, owner=one(owners))
+            out.append(programs._clone((gm, pose, exp, aux)))
+        return out
+
+    def sharded(owners, opts):
+        gm, out = gm0, []
+        for _ in range(2):
+            gm, loss, diag = sharded_ba_step(
+                devs, gm, torch.stack(w2cs), torch.stack(gts), s.cam, opts,
+                s.mcfg, s.lcfg, owners=owners)
+            out.append(programs._clone((gm, loss, diag)))
+        return out
+
+    return {"frontend mapping_step": (fmap, 1),
+            "backend fused x4 batch": (x4, 1),
+            "ba_step": (ba, 1),
+            f"sharded BA step, {BA_GROUP} slots": (sharded, BA_GROUP + 1)}
+
+
+def cond_tallies(owners):
+    """Every program of ``owners`` that holds IF nodes: [(program, its
+    nodes' (then, else) counts now)]."""
+    return [(p, [t.tolist() for t, _ in p.tally.parts])
+            for own in owners for p in own.programs.values()
+            if p.tally is not None]
+
+
+def flag_program(own, flag, dev):
+    """13d: a program whose one IF node writes 1.0 (the then branch) or
+    2.0 (the else branch) into a [4] result; returns it, copied."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops.graph_loop import cond
+    from gaus_slam_tpu_torch.slam import programs
+
+    def fn(flag, x):
+        return cond(flag, lambda o: torch.add(x, 1.0, out=o),
+                    lambda o: torch.add(x, 2.0, out=o), torch.empty_like(x))
+
+    return programs.call(own, "if_cond", fn, dict(
+        flag=flag, x=torch.zeros(4, device=dev)), {}, "y").clone()
+
+
+def phase_cond_program(cfg, ds, dev, card):
+    """Phase 13d: the gradient reduction's lax.cond as an IF node. Returns
+    the kernels line's numbers of if_cond."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops import binning as B
+    from gaus_slam_tpu_torch.ops.graph_loop import cond, if_cond_plain
+    from gaus_slam_tpu_torch.render import bin_full
+    from gaus_slam_tpu_torch.slam import programs
+    from gaus_slam_tpu_torch.slam.frontend import Frontend
+
+    fe = Frontend(cfg, queue.Queue(), device=dev)
+    for t in range(5):
+        color, depth, _, c2w = ds[t]
+        fe.process_frame(t, np.asarray(color, np.float32) / np.float32(255),
+                         np.asarray(depth), c2w)
+    s = fe.sys
+    frame = fe.local_frames[-1]
+    cam = s.cam.replace_w2c(frame.pose.w2c.detach())
+    with torch.no_grad():
+        bins = bin_full(fe.map.params, fe.map.active, cam, s.opts)
+    demand = int(bins.demand)
+    tight = s.opts._replace(pair_cap=max(128, demand // 2))
+    budgets = {"the config's budget": s.opts,
+               f"a budget of {tight.r_max(0)} pairs under demand {demand}":
+               tight}
+    print(f"[cond] {card}: an IF node with an else body (size 2) on the "
+          f"overflow flag; map capacity {fe.map.capacity}, demand {demand}, "
+          f"r_max {s.opts.r_max(fe.map.capacity)} (overflow "
+          f"{bool(bins.overflow)}) and {tight.r_max(0)}")
+
+    # every program bit-equal to eager(); its IF nodes, branches and K4
+    for i, (name, (run, n_own)) in enumerate(cond_cases(fe, dev).items()):
+        for (budget, opts), ovf in zip(budgets.items(), (False, True)):
+            with programs.eager():
+                want = run(None, opts)
+            flags = [bool((t != 0).all()) if ovf else bool((t != 0).any())
+                     for path, t in _leaves(want)
+                     if path.endswith("overflow")]
+            check(flags and all(f == ovf for f in flags),
+                  f"phase 13d: {name} under {budget}: overflow flags "
+                  f"{flags}, not all {ovf}")
+            tag = f"13d-{i}-{int(ovf)}"
+            owners = ([programs.Owner(f"{tag}-shard{k}", device=dev)
+                       for k in range(n_own - 1)] if n_own > 1 else []) + [
+                programs.Owner(tag)]
+            first = run(owners, opts)
+            a, b = ([t for _, t in _leaves(r)] for r in (first, want))
+            check(len(a) == len(b) and all(torch.equal(x, y)
+                                           for x, y in zip(a, b)),
+                  f"phase 13d: {name} under {budget}: the captured calls "
+                  f"differ from eager()")
+            held = cond_tallies(owners)
+            check(held, f"phase 13d: {name}: no program holds an IF node")
+            for p, _ in held:
+                n_if = p.types.count("conditional")
+                check(n_if == len(p.tally.parts),
+                      f"phase 13d: {name}: {p.name}'s graph holds {n_if} "
+                      f"conditional nodes for {len(p.tally.parts)} "
+                      f"reductions ({p.types.count('kernel')} kernels)")
+            captures = sum(programs.CAPTURES.values())
+            _cuda.clear_launches()
+            again = run(owners, opts)
+            counts = dict(_cuda.fold_launches())
+            check(sum(programs.CAPTURES.values()) == captures,
+                  f"phase 13d: {name}: the second calls captured")
+            a = [t for _, t in _leaves(again)]
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"phase 13d: {name} under {budget}: the replays differ "
+                  f"from eager()")
+            then = other = 0
+            for (p, before), (_, now) in zip(held, cond_tallies(owners)):
+                for (t0, e0), (t1, e1) in zip(before, now):
+                    then, other = then + t1 - t0, other + e1 - e0
+            k4 = counts.get("monotone_row_gather", 0)
+            ifs = counts.get("if_cond", 0)
+            nodes = sum(p.types.count("conditional") for p, _ in held)
+            print(f"[cond] {card}: {name} under {budget}: 2 captured calls "
+                  f"equal eager() bit for bit; {len(held)} programs, "
+                  f"{nodes} conditional nodes; replays: slab branch {then}, "
+                  f"run branch {other}, if_cond {ifs}, K4 {k4}, K1 "
+                  f"{counts.get('raster_forward_stash', 0)}, K2 "
+                  f"{counts.get('raster_backward_stash', 0)}")
+            check(then + other == ifs > 0 and (other == 0 if ovf else
+                                               then == 0),
+                  f"phase 13d: {name} under {budget}: the replays ran the "
+                  f"slab branch {then} and the run branch {other} times "
+                  f"for {ifs} IF nodes")
+            check(k4 == other, f"phase 13d: {name} under {budget}: K4 "
+                  f"launched {k4} times for {other} run branches")
+
+    # if_cond against if_cond_plain: the branch each flag picks, in a
+    # program of its own, and with the flag flipped between replays
+    own = programs.Owner("13d-flag")
+    vals = (True, False, True, False, False, True, True)
+    taken = [0, 0]
+    for i, val in enumerate(vals):
+        flag = torch.tensor(val, device=dev)
+        y = flag_program(own, flag, dev)
+        branch = int(if_cond_plain(flag))
+        check(torch.equal(y, torch.full_like(y, 1.0 + branch)),
+              f"phase 13d: if_cond on {val} wrote {y.tolist()}, "
+              f"if_cond_plain's branch writes {1.0 + branch}")
+        if i:                      # the first call is the warm-up
+            taken[branch] += 1
+    cases = len(vals)
+    [(p, (counts,))] = cond_tallies([own])
+    check(counts == taken and p.types.count("conditional") == 1,
+          f"phase 13d: the flag program's tally {counts} over replays "
+          f"that took {taken}; types {p.types}")
+
+    # the reductions' ms by CUDA events at the mapping step's shapes
+    n, d_max = fe.map.capacity, s.opts.max_tiles_per_gaussian
+    rng = np.random.default_rng(13)
+    red = {}
+    for (budget, opts), ovf in zip(budgets.items(), (False, True)):
+        with torch.no_grad():
+            bb = bin_full(fe.map.params, fe.map.active, cam, opts)
+        r = bb.pair_gauss.shape[0]
+        g = torch.as_tensor(rng.normal(size=(r, 24)).astype(np.float32),
+                            device=dev)
+        g0 = torch.where(bb.pair_ok[:, None], g, torch.zeros((), device=dev))
+        r_own = programs.Owner(f"13d-reduce-{int(ovf)}")
+
+        def node(bb=bb, g=g, r_own=r_own):
+            return programs.call(r_own, "reduce", lambda bins, g: (
+                bins.slab_scatter_grads(g, n, d_max, backend="pallas")),
+                dict(bins=bb, g=g), {}, "grads")
+
+        node()
+        got = node().clone()
+        check(torch.equal(got, bb.slab_scatter_grads(g, n, d_max, "pallas")),
+              f"phase 13d: the reduction's IF node program under {budget} "
+              f"differs from torch.where over both reductions")
+        red[ovf] = {
+            "slab": time_ms(lambda: bb._slab_reduce(g0, n, d_max), 10),
+            "run": time_ms(lambda: bb._run_reduce(g0, n, d_max, "pallas"),
+                           10),
+            "where": time_ms(lambda: bb.slab_scatter_grads(g, n, d_max,
+                                                           "pallas"), 10),
+            "node": time_ms(node, 10)}
+        print(f"[cond] {card}: the reduction under {budget} (R={r}, "
+              f"N={n}, overflow {ovf}), ms by CUDA events: slab "
+              f"{red[ovf]['slab']:.3f}, run {red[ovf]['run']:.3f}, "
+              f"torch.where over both (eager) {red[ovf]['where']:.3f}, the "
+              f"IF node program {red[ovf]['node']:.3f}")
+
+    # the captured mapping step with the IF node and with the reduction
+    # forced to torch.where over both (the parent's program), in turns
+    fmap = cond_cases(fe, dev)["frontend mapping_step"][0]
+
+    def where_cond(pred, then_fn, else_fn, out):
+        return torch.where(pred, then_fn(torch.empty_like(out)),
+                           else_fn(torch.empty_like(out)), out=out)
+
+    steps = {}
+    for (budget, opts), ovf in zip(budgets.items(), (False, True)):
+        owners = {"IF node": [programs.Owner(f"13d-step-if-{int(ovf)}")],
+                  "torch.where": [programs.Owner(f"13d-step-w-{int(ovf)}")]}
+        real = B.cond
+        B.cond = where_cond
+        try:
+            fmap(owners["torch.where"], opts)
+        finally:
+            B.cond = real
+        fmap(owners["IF node"], opts)
+        ms = {k: [] for k in owners}
+        for k in list(owners) + list(owners)[::-1]:
+            ms[k].append(time_ms(lambda: fmap(owners[k], opts), 5) / 2)
+        steps[ovf] = {k: float(np.mean(v)) for k, v in ms.items()}
+        print(f"[cond] {card}: the captured frontend mapping_step under "
+              f"{budget} (overflow {ovf}), device ms a step by CUDA events "
+              f"(two turns each, results cloned): IF node "
+              f"{steps[ovf]['IF node']:.3f} ({ms['IF node']}), torch.where "
+              f"over both {steps[ovf]['torch.where']:.3f} "
+              f"({ms['torch.where']})")
+
+    # if_cond's ms: a program of IF_NODES IF nodes, each branch one
+    # 1-element add, less a program of the same adds launched plain
+    def many(flag, x):
+        ys = []
+        for _ in range(IF_NODES):
+            ys.append(cond(flag, lambda o: torch.add(x, 1.0, out=o),
+                           lambda o: torch.add(x, 2.0, out=o),
+                           torch.empty_like(x)))
+        return torch.stack(ys)
+
+    def plain(flag, x):
+        return torch.stack([torch.add(x, 1.0) for _ in range(IF_NODES)])
+
+    flag = torch.tensor(True, device=dev)
+    x1 = torch.zeros(1, device=dev)
+    own_if, own_plain = programs.Owner("13d-ifs"), programs.Owner(
+        "13d-plain")
+    run_if = lambda: programs.call(own_if, "ifs", many, dict(  # noqa: E731
+        flag=flag, x=x1), {}, "y")
+    run_plain = lambda: programs.call(own_plain, "plain", plain, dict(  # noqa: E731
+        flag=flag, x=x1), {}, "y")
+    run_if()
+    run_plain()
+    t_if = [time_ms(run_if, 20), time_ms(run_plain, 20)]
+    t_if += [time_ms(run_plain, 20), time_ms(run_if, 20)]
+    per_node = ((t_if[0] + t_if[3]) - (t_if[1] + t_if[2])) / 2 / IF_NODES
+    plain_ms = time_ms(lambda: if_cond_plain(flag), 100)
+    bound = 17 / HBM_BYTES_PER_S * 1e3   # the flag, a tally slot in and out
+    print(f"[cond] {card}: if_cond equals if_cond_plain on {cases} calls "
+          f"(both flags, flipped between replays); {IF_NODES} IF nodes "
+          f"{(t_if[0] + t_if[3]) / 2:.3f} ms, the same adds plain "
+          f"{(t_if[1] + t_if[2]) / 2:.3f} ms: {per_node * 1e3:.3f} us per "
+          f"IF node; if_cond_plain {plain_ms * 1e3:.3f} us; bound "
+          f"{bound * 1e6:.3f} ns (bytes)")
+    return dict(max_abs_err=0.0, ms=per_node, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None,
+                reduction_ms={str(k): v for k, v in red.items()},
+                step_ms={str(k): v for k, v in steps.items()})
+
+
 def keyframe_split(cfg, dev, card):
     """13b: the frontend's GAUS_PROFILE marks over N_FRAMES_PROGRAMS frames
     at 340x600 (tools/frame_split.py's frontend run): median ms of each
@@ -4686,6 +5039,7 @@ def main() -> int:
         spread_launches = phase_test_spread(dev, card)
         phase_programs(cfg, ds, dev, card)
         numbers["while_cond"] = phase_loop_program(cfg, ds, dev, card)
+        numbers["if_cond"] = phase_cond_program(cfg, ds, dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4701,11 +5055,13 @@ def main() -> int:
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase
-        # 6) for K1-K4 and while_cond, the reference backend (3b) for K5,
+        # 6) for K1-K4, while_cond and if_cond, the reference backend (3b)
+        # for K5,
         # K6's entry (7)
         # the bf16 instantiations: the driver with the bf16 compute dtype
         # at full width (11b)
-        main_path = ("6" if name in STASH_PATH + ("while_cond",) else
+        main_path = ("6" if name in STASH_PATH + ("while_cond", "if_cond")
+                     else
                      "11b 340x600" if name in BF16_PATH else
                      "3b" if name == "raster_backward" else "7")
         kernels.append({"name": name, "id": kid, "route": "cuda",

@@ -11,7 +11,11 @@ The gradient reduction (``Binning.slab_scatter_grads`` /
 ``phase_reduce``) lands its per-gaussian run totals through the
 ``monotone_row_gather_rows`` kernel (K4, ops/gather.py) on the card under the
 "pallas" / "interpret" render backends, and through the plain gather
-otherwise (the JAX package's routing).
+otherwise (the JAX package's routing). ``slab_scatter_grads`` takes the
+slab or the run reduction on the device overflow flag through
+``graph_loop.cond``, the port's ``lax.cond``: inside a captured step on a
+card an IF node runs the one branch the flag picks; elsewhere both run
+and ``torch.where`` picks one (no host read).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from .camera import Camera
 from .consts import cached
 from .gather import monotone_row_gather_rows, monotone_row_gather_rows_plain
+from .graph_loop import cond
 
 SENTINEL = 0x7FFFFFFF
 
@@ -112,19 +117,25 @@ class Binning(NamedTuple):
         Run path (no budget truncation): sort by gaussian, segmented
         scan, land run totals with one K4 gather. Slab path (overflow):
         every pair's row scattered to its slab slot, then a tree-sum
-        over d. JAX's ``lax.cond`` on the device overflow flag becomes
-        ``torch.where`` over both paths: the host never reads the flag."""
+        over d. JAX's ``lax.cond`` on the device overflow flag is
+        ``graph_loop.cond``: inside a captured step on a card an IF node
+        runs only the taken path; on the CPU, under ``programs.eager()``,
+        in a program's eager warm-up and in an uncaptured step (the
+        reference backend's) both run and ``torch.where`` picks one. The
+        host never reads the flag."""
         d_max = d_max if d_max is not None else self.num_tiles_touched
         # padding pairs carry no gradient: zeroed once for both paths,
-        # written as row-major rows (the backward hands over a transposed
-        # view, and the row scatter and gather below are slow on strided
-        # rows)
+        # before the node, written as row-major rows (the backward hands
+        # over a transposed view, and the row scatter and gather below are
+        # slow on strided rows)
         grads = torch.where(self.pair_ok[:, None], pair_grads,
                             torch.zeros((), device=pair_grads.device),
                             out=pair_grads.new_empty(pair_grads.shape))
-        slab = self._slab_reduce(grads, n, d_max)
-        run = self._run_reduce(grads, n, d_max, backend)
-        return torch.where(self.overflow, slab, run)
+        return cond(self.overflow,
+                    lambda o: self._slab_reduce(grads, n, d_max, out=o),
+                    lambda o: self._run_reduce(grads, n, d_max, backend,
+                                               out=o),
+                    grads.new_empty((n, grads.shape[1])))
 
     def phase_reduce(self, d_pairs_sub: torch.Tensor, phase, n: int,
                      d_max: int, backend: str | None = None) -> torch.Tensor:
@@ -159,22 +170,26 @@ class Binning(NamedTuple):
         keep = (counts_p > 0)[:, None] & exact
         return torch.where(keep, out, torch.zeros((), device=dev))
 
-    def _slab_reduce(self, grads: torch.Tensor, n: int,
-                     d_max: int) -> torch.Tensor:
+    def _slab_reduce(self, grads: torch.Tensor, n: int, d_max: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
         """``grads``: [R, C] pair gradients, zero where not ``pair_ok``.
         ``pair_slab ++ slab_tail`` is a permutation of the slab's slots
         (padded past d_max * n when the budget exceeds the slab), so each
         pair's row lands at its own slot: one scatter with unique
-        indices, zero rows at the tail's slots, then the sum over d."""
+        indices, zero rows at the tail's slots, then the sum over d (into
+        ``out`` when given)."""
         r, c = grads.shape
         size = r + self.slab_tail.shape[0]
         slab = grads.new_zeros((size, c)).index_copy_(
             0, self.pair_slab.long(), grads)
-        return slab[:d_max * n].reshape(d_max, n, c).sum(dim=0)
+        return torch.sum(slab[:d_max * n].reshape(d_max, n, c), dim=0,
+                         out=out)
 
     def _run_reduce(self, grads: torch.Tensor, n: int,
-                    d_max: int, backend: str | None) -> torch.Tensor:
-        """``grads``: [R, C] pair gradients, zero where not ``pair_ok``."""
+                    d_max: int, backend: str | None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """``grads``: [R, C] pair gradients, zero where not ``pair_ok``;
+        the result into ``out`` when given."""
         r, _ = grads.shape
         dev = grads.device
         if self.red_perm is not None and self.red_perm.shape[0]:
@@ -187,9 +202,9 @@ class Binning(NamedTuple):
         acc = _segmented_scan(grads_sorted, keys_sorted, d_max)
         pos = torch.clamp(torch.cumsum(self.counts, 0) - 1, 0,
                           r - 1).to(torch.int32)
-        out = _land(acc, pos, backend)
-        return torch.where((self.counts > 0)[:, None], out,
-                           torch.zeros((), device=dev))
+        landed = _land(acc, pos, backend)
+        return torch.where((self.counts > 0)[:, None], landed,
+                           torch.zeros((), device=dev), out=out)
 
 
 def row(t: torch.Tensor, i) -> torch.Tensor:

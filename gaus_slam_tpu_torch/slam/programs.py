@@ -67,6 +67,17 @@ levels become CUDA graph conditional WHILE nodes (ops/graph_loop.py) and
 one launch runs them all, the card deciding when each level stops. The
 iterations' kernel launches are tallied on the card and folded into
 ``ops._cuda.LAUNCHES`` where the counts are read (``_cuda.fold_launches``).
+
+``ops/graph_loop.py::cond`` is the port's ``lax.cond``: inside an
+owner's capture on a card (``Owner._capture`` sets the capturing stream's
+``CondScope``) it builds an IF node whose branch the card picks, each
+branch's temporaries in a graph pool of the branches' own (one per
+device and stream kind, beside ``_POOLS``); the nodes' branch tallies
+fold into ``LAUNCHES`` as the loop programs' do (a loop program's body
+holds no IF node). Every capture lists its graph's node types
+(``_Program.types``) before instantiating it. On the CPU, under
+``eager()`` and in a key's eager warm-up call ``cond`` runs both
+branches and ``torch.where``s on the flag.
 """
 from __future__ import annotations
 
@@ -79,7 +90,9 @@ import torch
 
 from ..ops import _cuda
 from ..ops.camera import Camera
-from ..ops.graph_loop import LoopGraph, while_cond_plain
+from ..ops import graph_loop
+from ..ops.graph_loop import (CondScope, LoopGraph, node_types,
+                              while_cond_plain)
 
 # replays by program name, and captures, since the process started
 GRAPH_LAUNCHES: collections.Counter = collections.Counter()
@@ -89,6 +102,8 @@ _EAGER = [0]
 _INSIDE = [0]         # program bodies running: a nested call runs inline
 _DEFAULT: dict = {}
 _POOLS: dict = {}     # (device, on the default stream) -> _pool(...)
+# (device, on the default stream) -> the IF nodes' branches' MemPool
+_BRANCH_POOLS: dict = {}
 _OWNERS: "weakref.WeakSet" = weakref.WeakSet()
 
 
@@ -194,6 +209,8 @@ class _Program:
         self.graph = None
         self.out = None
         self.launches: collections.Counter = collections.Counter()
+        self.tally = None   # the IF nodes' branches, counted on the card
+        self.types = None   # the graph's node types, read at its capture
 
 
 class Owner:
@@ -343,10 +360,13 @@ class Owner:
         """Each of ``fns`` (run before, on the caller's stream: the
         warm-up) captured on the owner's capture stream into the pool of
         the graphs replayed on the caller's stream. Returns [(graph, the
-        fn's result, the kernel launches its capture recorded)], those
+        fn's result, the kernel launches its capture recorded, its IF
+        nodes' (tally, branch launches), the graph's node types)], those
         launches taken back out of ``LAUNCHES``: a capture launches
-        nothing, its counts belong to the replays. ``keep_graph``: keep
-        each raw graph (``CUDAGraph.raw_cuda_graph``), not instantiated."""
+        nothing, its counts belong to the replays (a branch's to its
+        node's tally). Each graph's nodes are listed before it is
+        instantiated. ``keep_graph``: keep each raw graph
+        (``CUDAGraph.raw_cuda_graph``), not instantiated."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(device=self.device)
         cur = torch.cuda.current_stream(self.device)
@@ -354,6 +374,10 @@ class Owner:
         pool = _POOLS.get(where)
         if pool is None:
             pool = _POOLS[where] = _pool(self.device, self.stream)
+        branch_pool = _BRANCH_POOLS.get(where)
+        if branch_pool is None:
+            branch_pool = _BRANCH_POOLS[where] = torch.cuda.MemPool()
+        side = graph_loop.body_stream(self.device)
         s = self.stream
         s.wait_stream(cur)
         # a graph that Python's collector destroys during a capture (an
@@ -365,16 +389,24 @@ class Owner:
         try:
             for fn in fns:
                 before = collections.Counter(_cuda.LAUNCHES)
-                graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                scope = CondScope(branch_pool, side)
                 with torch.cuda.device(self.device), torch.cuda.stream(s):
                     graph.capture_begin(pool=pool[0],
                                         capture_error_mode="thread_local")
                     _CAPTURING.add(id(self))
+                    graph_loop.SCOPES[s.cuda_stream] = scope
                     try:
                         res = fn()
                     finally:
+                        del graph_loop.SCOPES[s.cuda_stream]
                         _CAPTURING.discard(id(self))
                         graph.capture_end()
+                    for tally, _ in scope.conds:
+                        tally.zero_()
+                    types = node_types(graph.raw_cuda_graph())
+                    if not keep_graph:
+                        graph.instantiate()
                 counts = collections.Counter(_cuda.LAUNCHES)
                 counts.subtract(before)
                 counts = +counts
@@ -382,7 +414,7 @@ class Owner:
                     _cuda.LAUNCHES[k] -= v
                     if _cuda.LAUNCHES[k] == 0:
                         del _cuda.LAUNCHES[k]
-                out.append((graph, res, counts))
+                out.append((graph, res, counts, scope.conds, types))
         finally:
             if gc_was:
                 gc.enable()
@@ -397,10 +429,14 @@ class Owner:
             prog.out = out
             return prog, out
         try:
-            [(prog.graph, prog.out, prog.launches)] = self._capture([body])
+            [(prog.graph, prog.out, prog.launches, conds,
+              prog.types)] = self._capture([body])
         except Exception as e:
             raise RuntimeError(f"programs: capture of {_describe(key)} failed "
                                f"(owner {self.name}): {e}") from e
+        if conds:
+            prog.tally = _Tally(prog, conds)
+            _track(prog.tally)
         CAPTURES[name] += 1
         return prog, out
 
@@ -408,6 +444,8 @@ class Owner:
         if prog.graph is None:
             return prog.body()
         try:
+            if prog.tally is not None:
+                prog.tally.stream = torch.cuda.current_stream(self.device)
             prog.graph.replay()
         except Exception as e:
             raise RuntimeError(f"programs: replay of {_describe(prog.key)} "
@@ -432,12 +470,14 @@ class Owner:
         fns = prog.bodies + ([prog.tail] if prog.tail else [])
         try:
             caps = self._capture(fns, keep_graph=True)
-            prog.graphs = [graph for graph, _, _ in caps]
+            prog.graphs = [c[0] for c in caps]
             if prog.tail:
                 prog.out = (prog.out[0], caps[-1][1])
             for body in prog.bodies:
                 prog.check_carry(body)
-            prog.assemble([counts for _, _, counts in caps])
+            if any(c[3] for c in caps):
+                raise RuntimeError("an IF node in a loop program's body")
+            prog.assemble([c[2] for c in caps])
         except Exception as e:
             raise RuntimeError(f"programs: the loop program "
                                f"{_describe(prog.key)} failed to capture or "
@@ -713,38 +753,52 @@ class _Loop(_Program):
         """The captured graphs as one loop graph, instantiated; ``counts``
         the launches each capture recorded (the levels', then the tail's)."""
         dev = self.cond[0].device
-        self.tally = _Tally(self, [c + collections.Counter(while_cond=1)
-                                   for c in counts[:len(self.bodies)]], dev)
+        iters = torch.zeros(len(self.bodies), dtype=torch.int64, device=dev)
+        self.tally = _Tally(self, [(iters, [
+            c + collections.Counter(while_cond=1)
+            for c in counts[:len(self.bodies)]])])
         self.launches = counts[-1] if self.tail else collections.Counter()
         loop = LoopGraph(dev)
         for l, (kmax, early) in enumerate(self.levels):
             loop.add_level(self.graphs[l].raw_cuda_graph(), *self.cond, kmax,
-                           early, self.tally.t[l:l + 1])
+                           early, iters[l:l + 1])
         if self.tail:
             loop.add_child(self.graphs[-1].raw_cuda_graph())
         loop.instantiate()
         self.loop = loop
-        # the tallies of retired programs leave once folded
-        _cuda.TALLIES[:] = [t for t in _cuda.TALLIES if not t.settle()]
-        _cuda.TALLIES.append(self.tally)
+        _track(self.tally)
+
+
+def _track(tally: "_Tally"):
+    """``tally`` among ``_cuda.TALLIES``; the tallies of retired programs
+    leave once folded."""
+    _cuda.TALLIES[:] = [t for t in _cuda.TALLIES if not t.settle()]
+    _cuda.TALLIES.append(tally)
 
 
 class _Tally:
-    """A loop program's iterations per level, counted on the card; ``fold``
-    adds the launches of those run since the last fold to ``LAUNCHES``.
-    Once the program is gone, ``settle`` copies its last counts to the
-    host behind its last launch and then folds them, never waiting."""
+    """A program's device-decided runs, counted on the card: a loop
+    program's iterations per level, the branch each of its IF nodes took
+    (``cond``). ``parts``: [(an int64 tensor of k slots, the launches of
+    one run of each slot)]; ``fold`` adds the launches of the runs since
+    the last fold to ``LAUNCHES``. Once the program is gone, ``settle``
+    copies its last counts to the host behind its last launch and then
+    folds them, never waiting."""
 
-    def __init__(self, prog: _Loop, per_level: list, device):
-        self.t = torch.zeros(len(per_level), dtype=torch.int64, device=device)
-        self.seen = [0] * len(per_level)
-        self.per_level = per_level
+    def __init__(self, prog: _Program, parts: list):
+        self.parts = parts
+        self.per_slot = [c for _, counts in parts for c in counts]
+        self.seen = [0] * len(self.per_slot)
         self.prog = weakref.ref(prog)
         self.stream = None       # of the last launch
         self.last = None         # (pinned counts, their copy's event)
 
+    def _counts(self) -> torch.Tensor:
+        ts = [t for t, _ in self.parts]
+        return ts[0] if len(ts) == 1 else torch.cat(ts)
+
     def _add(self, now: list):
-        for counts, a, b in zip(self.per_level, now, self.seen):
+        for counts, a, b in zip(self.per_slot, now, self.seen):
             if a != b:
                 for k, v in counts.items():
                     _cuda.LAUNCHES[k] += v * (a - b)
@@ -757,9 +811,10 @@ class _Tally:
             self.last[1].synchronize()
             self._add(self.last[0].tolist())
             return alive
-        if self.stream is not None:
-            self.stream.synchronize()
-        self._add(self.t.tolist())
+        if self.stream is None:      # never launched: nothing ran
+            return alive
+        self.stream.synchronize()
+        self._add(self._counts().tolist())
         return alive
 
     def settle(self) -> bool:
@@ -770,11 +825,11 @@ class _Tally:
         if self.stream is None:
             return True
         if self.last is None:
-            host = torch.empty(self.t.shape, dtype=self.t.dtype,
+            host = torch.empty(len(self.seen), dtype=torch.int64,
                                pin_memory=True)
             ev = torch.cuda.Event()
             with torch.cuda.stream(self.stream):
-                host.copy_(self.t, non_blocking=True)
+                host.copy_(self._counts(), non_blocking=True)
                 ev.record()
             self.last = (host, ev)
             return False

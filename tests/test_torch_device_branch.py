@@ -1,7 +1,9 @@
 """The port's steps decide on the device, as the JAX package's do.
 
 * ``Binning.slab_scatter_grads`` computes both reductions and selects by
-  the device overflow flag (JAX: ``lax.cond``): equal to the JAX package
+  the device overflow flag (JAX: ``lax.cond``; on a card inside a
+  captured step an IF node runs one, tests/test_torch_cond.py): equal to
+  the JAX package
   (1e-5, as tests/test_torch_reduce.py) and bit-equal to a copy of the
   earlier host-branch code (the sort-based slab, the run path), with and
   without overflow.
