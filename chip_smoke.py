@@ -254,7 +254,7 @@ line):
    owner of its own (captured after them), and a loop program of a third
    owner profiled once, as the Frontend's was in its row; no capture
    meanwhile; the device ms before each loop program's launch; then
-   the frontend's GAUS_PROFILE marks over 12 frames by kind of frame
+   the port's spans over 12 frames by kind of frame, host and card ms
    (tools/frame_split.py), the graph launches and captures by program
    and the graph pools' MiB. Phases 3, 4b, 6, 10a, 11b and 12a ran with
    the steps captured before it (4b audits the replays, the sharded
@@ -4958,29 +4958,25 @@ def phase_cond_program(cfg, ds, dev, card):
 
 
 def keyframe_split(cfg, dev, card):
-    """13b: the frontend's GAUS_PROFILE marks over N_FRAMES_PROGRAMS frames
-    at 340x600 (tools/frame_split.py's frontend run): median ms of each
-    mark by kind of frame."""
+    """13b: the port's spans (utils/trace.py) over N_FRAMES_PROGRAMS frames
+    at 340x600 (tools/frame_split.py's frontend run, under torch.profiler):
+    median host ms and card ms of each span by kind of frame."""
     import copy
-    import io
 
     from gaus_slam_tpu_torch.tools import frame_split as FS
 
-    buf = io.StringIO()
-    os.environ["GAUS_PROFILE"] = "1"
-    try:
-        with contextlib.redirect_stdout(buf):
-            FS.run_frontend(copy.deepcopy(cfg), H, W, N_FRAMES_PROGRAMS, dev)
-    finally:
-        os.environ.pop("GAUS_PROFILE")
-    kinds = FS.summarize(FS.parse_marks(buf.getvalue()))
-    check(kinds["keyframe"]["n"] > 0 and kinds["cut"]["n"] > 0,
-          f"phase 13: no keyframe or no cut among the profiled frames "
+    _, recs = FS.traced(FS.run_frontend, copy.deepcopy(cfg), H, W,
+                        N_FRAMES_PROGRAMS, dev)
+    kinds = FS.summarize(recs)["kinds"]
+    check(kinds.get("keyframe", {}).get("n") and kinds.get("cut", {}).get("n"),
+          f"phase 13: no keyframe or no cut among the traced frames "
           f"({kinds})")
     for kind, row in kinds.items():
-        print(f"[programs] {card}: [prof] {kind} frames ({row['n']}), median "
-              f"ms: " + ", ".join(f"{k} {v:.0f}"
-                                  for k, v in row["median_ms"].items()))
+        print(f"[programs] {card}: {kind} frames ({row['n']}), median host "
+              f"/ card ms: " + ", ".join(
+                  f"{k[k.index('.') + 1:]} {v:.0f} / "
+                  f"{row['device_ms'][k]:.0f}"
+                  for k, v in row["host_ms"].items()))
 
 
 def main() -> int:

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.consts import host_to_device
 from ..ops.se3 import pose_matrix
+from ..utils import trace
 from .descriptor import describe_frames, query_covisible
 from .frame import ExposureState, PoseState, init_exposure, init_pose
 
@@ -60,11 +61,15 @@ class LocalMap:
 
         # descriptor from two representative images BEFORE freeing data
         reps = [frames[0].gt_color, frames[max(len(frames) - 2, 0)].gt_color]
-        lm.map_desc = describe_frames(reps).cpu().numpy()
+        desc = describe_frames(reps)
+        with trace.span("frontend.wait"):
+            lm.map_desc = desc.cpu().numpy()
         posed = [f for f in frames if f.pose is not None]
         if posed:
             w2cs = torch.stack([pose_matrix(f.pose.quat, f.pose.trans)
-                                for f in posed]).cpu().numpy()
+                                for f in posed])
+            with trace.span("frontend.wait"):
+                w2cs = w2cs.cpu().numpy()
             for f, w2c in zip(posed, w2cs):
                 f.est_w2c = w2c
                 f.pose = None

@@ -51,6 +51,7 @@ from ..models.submap import LocalMap, Localmaps
 from ..ops.composite_ref import frame_to_tiles
 from ..ops.consts import host_to_device
 from ..ops.se3 import invert_se3, quat_multiply, rotmat_to_quat
+from ..utils import trace
 from ..utils.config import SystemConfig
 from .densify import prune_gaussians
 from . import programs
@@ -250,17 +251,21 @@ class Backend:
             if self._diag.n >= 256:  # read back at least this often
                 self._check_escalation()
 
+    @trace.spanned("backend.escalation")
     def _check_escalation(self):
+        """The folded diagnostics read back (the span's ``demand``: the
+        pair demand, beside the pair budget ``r_max`` and the capacity
+        ``cap``) and the pair budgets bumped where they clipped."""
         if not self._diag.n:
             return
         # one device-to-host copy for the three folded scalars
-        diag = dict(zip(("overflow", "n_shrunk", "demand"),
-                        self._diag.v.to(torch.int64).tolist()))
+        with trace.span("backend.wait"):
+            diag = dict(zip(("overflow", "n_shrunk", "demand"),
+                            self._diag.v.to(torch.int64).tolist()))
         self._diag = DiagFold()
         cap = self.map.capacity if self.map is not None else 0
-        if os.environ.get("GAUS_DEMAND"):
-            print(f"[prof] backend pair demand={int(diag['demand'])} "
-                  f"r_max={self.sys.opts.r_max(cap)} cap={cap}", flush=True)
+        trace.annotate(demand=int(diag["demand"]),
+                       r_max=self.sys.opts.r_max(cap), cap=cap)
         new = self.sys.maybe_escalate(
             overflow=bool(diag["overflow"]), n_shrunk=int(diag["n_shrunk"]),
             n_active=cap, demand=int(diag["demand"]))
@@ -298,7 +303,8 @@ class Backend:
         gm = self.map
         if needed is None:
             # one device sync; it refreshes the host mirror too
-            needed = int(gm.n_active)
+            with trace.span("backend.wait"):
+                needed = int(gm.n_active)
             self.n_active_host = needed
         n = needed
         cap = G.bucket_capacity(n, self.capacity_quantum,
@@ -544,22 +550,31 @@ class Backend:
     # ------------------------------------------------------------------
     @_on_own_stream
     def process(self):
-        """Drain one task (Backend.process, :174-194)."""
+        """Drain one task (Backend.process, :174-194): a span
+        ``backend.task`` of its ``kind`` and ``submap`` (a fused or sharded
+        batch pops several tasks: one span, ``submap`` the list of
+        them)."""
         q = self.task_queue
         if q:
             cmd = q.popleft()
             if cmd[0] == "prune":
-                self.prune()
+                with trace.span("backend.task", kind="prune", submap=None):
+                    self.prune()
             elif cmd[0] == "tracking":
-                self.tracking(cmd[1])
+                with trace.span("backend.task", kind="tracking",
+                                submap=cmd[1]):
+                    self.tracking(cmd[1])
             elif cmd[0] == "ba":
-                self.ba(cmd[1])
+                with trace.span("backend.task", kind="ba", submap=cmd[1]):
+                    self.ba(cmd[1])
             elif cmd[0] == "mapping":
                 coarse = bool(cmd[2]) if len(cmd) > 2 else False
                 if self.enable_exposure or self.gs_densify:
                     # the fused and sharded batches cannot step per-submap
                     # exposure, nor emit per-step densify statistics
-                    self.mapping(cmd[1])
+                    with trace.span("backend.task", kind="mapping",
+                                    submap=cmd[1]):
+                        self.mapping(cmd[1])
                     return
                 idxs = [cmd[1]]
                 if self.ba_group > 1:
@@ -568,7 +583,9 @@ class Backend:
                     while (len(idxs) < self.ba_group and q
                            and q[0][0] == "mapping"):
                         idxs.append(q.popleft()[1])
-                    self.mapping_group(idxs)
+                    with trace.span("backend.task", kind="mapping_group",
+                                    submap=idxs):
+                        self.mapping_group(idxs)
                     return
                 # fuse up to MAP_BATCH consecutive mapping tasks of the
                 # same class; only full batches run fused
@@ -576,10 +593,14 @@ class Backend:
                        and (bool(q[0][2]) if len(q[0]) > 2 else False) == coarse):
                     idxs.append(q.popleft()[1])
                 if len(idxs) == self.MAP_BATCH:
-                    self.mapping_batch(idxs, coarse=coarse)
+                    with trace.span("backend.task", kind="mapping_batch",
+                                    submap=idxs):
+                        self.mapping_batch(idxs, coarse=coarse)
                 else:
                     for i in idxs:
-                        self.mapping(i)
+                        with trace.span("backend.task", kind="mapping",
+                                        submap=i):
+                            self.mapping(i)
         elif self.enable_random and len(self.local_maps) > 0:
             self._check_escalation()  # idle: fold in the last diagnostics
             # idle refinement is post-prune steady state: coarse class
@@ -587,10 +608,12 @@ class Backend:
                       True))
 
     @_on_own_stream
+    @trace.spanned("backend.process_localmap")
     def process_localmap(self, lm: LocalMap, multi_process: bool = False):
         """Merge one submap (Backend.process_localmap, :196-248)."""
         self.local_maps.add_localmap(lm)
         self.cur_lmid += 1
+        trace.annotate(submap=self.cur_lmid)
         params, active, n_active = lm.map_params
         lm.map_params = None
         # the handoff: the donor snapshot and the kept frames' images and
@@ -603,8 +626,11 @@ class Backend:
                     setattr(f, name, self._adopt(getattr(f, name)))
         # the donor count from the cut's host mirror (reading the device
         # scalar would wait for the whole queue)
-        n_donor = (lm.n_active_host if lm.n_active_host is not None
-                   else int(n_active))
+        if lm.n_active_host is not None:
+            n_donor = lm.n_active_host
+        else:
+            with trace.span("backend.wait"):
+                n_donor = int(n_active)
 
         if self.cur_lmid == 0:
             initial_w2kf = np.eye(4, dtype=np.float32)

@@ -26,8 +26,8 @@ from ..models.frame import Frame, init_exposure
 from ..models.submap import LocalMap
 from ..ops.composite_ref import frame_to_tiles
 from ..render import render_view
+from ..utils import trace
 from ..utils.config import SystemConfig
-from ..utils.fence import probe_fence
 from ..utils.stage import DEPTH_U16_SCALE
 from .densify import add_and_prune, prune_gaussians
 from .init_map import initialize_map
@@ -73,7 +73,8 @@ def _readback(fetch: dict) -> dict:
             return x.numpy().copy() if x.dim() else x.item()
         return x
 
-    return {k: host(v) for k, v in fetch.items()}
+    with trace.span("frontend.wait"):
+        return {k: host(v) for k, v in fetch.items()}
 
 
 def _host_w2c(frame) -> np.ndarray:
@@ -81,7 +82,10 @@ def _host_w2c(frame) -> np.ndarray:
     ``_w2c_host`` from the tracking readback; anything else falls back to
     one device readback."""
     w = getattr(frame, "_w2c_host", None)
-    return w if w is not None else frame.get_w2c.detach().cpu().numpy()
+    if w is not None:
+        return w
+    with trace.span("frontend.wait"):
+        return frame.get_w2c.detach().cpu().numpy()
 
 
 def _w2c_arg(frame):
@@ -193,7 +197,8 @@ class Frontend:
         """Grow (or shrink with hysteresis) the map arrays to a small set
         of capacity buckets."""
         gm = self.map
-        n = int(gm.n_active)
+        with trace.span("frontend.wait"):
+            n = int(gm.n_active)
         self.n_active_host = n
         cap = self._capacity_for(n)
         if cap < gm.capacity and n > 0.35 * gm.capacity:
@@ -207,6 +212,7 @@ class Frontend:
         return frame.gt_tiled
 
     # ------------------------------------------------------------------
+    @trace.spanned("frontend.create_map")
     def create_map(self):
         """Init the local map from the first frame's unprojection + local
         mapping (Frontend.create_map, :63-73)."""
@@ -216,7 +222,8 @@ class Frontend:
         self.map = initialize_map(cap, frame.gt_color, frame.gt_depth,
                                   frame.get_w2c, self.sys.cam,
                                   owner=self.programs)
-        self.n_active_host = int(self.map.n_active)
+        with trace.span("frontend.wait"):
+            self.n_active_host = int(self.map.n_active)
         self.mapping()
 
     def _check_escalation(self, diag: dict):
@@ -237,6 +244,7 @@ class Frontend:
                   f"{new.opts.max_tiles_per_gaussian}")
             self.sys = new
 
+    @trace.spanned(trace.TRACKING)
     def tracking(self, frame: Frame, want_view: bool = False,
                  prev_pose=None, spec_cache=None):
         """Returns (depth_l1, view_render|None, n_low|None). With
@@ -247,7 +255,6 @@ class Frontend:
         tracking at this frame's (identical) init pose. ``prev_pose``
         enables the next frame's speculation (see tracking_loop)."""
         s = self.sys
-        prof = os.environ.get("GAUS_PROFILE")
         t0 = time.perf_counter()
         strides = self._track_strides()
         if spec_cache is not None:
@@ -255,9 +262,6 @@ class Frontend:
         else:
             cache = bin_tracking(self.map, _w2c_arg(frame), s.cam, s.opts,
                                  coarse_strides=strides, owner=self.programs)
-        if prof:
-            probe_fence(cache.raw_t)
-            t_bin = time.perf_counter() - t0
         tcfg = s.track_front
         iters_pre = 0
         diag_pre = None
@@ -320,16 +324,14 @@ class Frontend:
                        np.asarray(host["pred_w2c"]))
                       if predict and self.sys is sys_before else None)
         iters = int(host["iters"])
-        if prof:
-            print(f"[prof] track: bin={t_bin*1000:.0f}ms "
-                  f"loop={(time.perf_counter()-t0-t_bin)*1000:.0f}ms "
-                  f"iters={iters}")
+        trace.annotate(iters=iters)
         dt = time.perf_counter() - t0
         self.t_track_iter[0] += dt
         self.t_track_iter[1] += max(iters, 1)
         self.last_track = {"iters": iters, "loss": host["loss"]}
         return (float(host["depth_l1"]), aux.get("view"), host.get("n_low"))
 
+    @trace.spanned("frontend.mapping")
     def mapping(self, frames=None):
         s = self.sys
         frames = frames or self.local_frames
@@ -359,9 +361,6 @@ class Frontend:
                 {"overflow": aux["overflow"], "n_shrunk": aux["n_shrunk"],
                  "demand": aux["demand"]}))
             dt = time.perf_counter() - t0
-            if os.environ.get("GAUS_PROFILE"):
-                print(f"[prof] frontend mapping x{self.num_mapping_iters} "
-                      f"(fused): {dt*1000:.0f}ms")
             self.t_map_iter[0] += dt
             self.t_map_iter[1] += self.num_mapping_iters
             return
@@ -406,12 +405,10 @@ class Frontend:
         if diags.n:
             self._check_escalation(_readback(diags.folded()))
         dt = time.perf_counter() - t0
-        if os.environ.get("GAUS_PROFILE"):
-            print(f"[prof] frontend mapping x{n_steps}: {dt*1000:.0f}ms "
-                  f"({dt/max(n_steps,1)*1000:.0f}ms/iter)")
         self.t_map_iter[0] += dt
         self.t_map_iter[1] += n_steps
 
+    @trace.spanned("frontend.densify")
     def _densify(self, frame: Frame, render_out=None):
         s = self.sys
         w2c = frame.get_w2c.detach()
@@ -427,37 +424,28 @@ class Frontend:
         self._fit_capacity()
 
     # ------------------------------------------------------------------
+    @trace.spanned(trace.FRAME)
     def process_frame(self, time_idx, gt_color, gt_depth, gt_pose):
         """Main frontend pipeline (Frontend.process_frame, :142-222).
 
         gt_color: [H, W, 3] float 0..1 OR uint8 0..255; gt_depth: [H, W]
         float meters OR uint16 at stage.DEPTH_U16_SCALE counts/m (numpy or
-        torch); gt_pose: c2w [4, 4].
+        torch); gt_pose: c2w [4, 4]. Its span's ``kind`` is the frame's:
+        "init" (the run's first frame), "tracked", "keyframe" or "cut".
         """
-        gt_color = _to_device(gt_color, self.device, self.programs)
-        gt_depth = _to_device(gt_depth, self.device, self.programs)
+        trace.annotate(frame=time_idx, kind="tracked")
+        with trace.span("frontend.h2d"):
+            gt_color = _to_device(gt_color, self.device, self.programs)
+            gt_depth = _to_device(gt_depth, self.device, self.programs)
+            gt_w2c = np.linalg.inv(np.asarray(gt_pose))
+            cur = Frame(time_idx=time_idx, gt_color=gt_color,
+                        gt_depth=gt_depth, gt_w2c=gt_w2c, kfid=self.cur_lmid,
+                        device=self.device)
         s = self.sys
-        prof = os.environ.get("GAUS_PROFILE")
-        _marks = []
-        _last = [time.perf_counter()]
-
-        def mark(label):
-            if prof:
-                if self.map is not None:
-                    probe_fence(self.map.params.xyz)
-                now = time.perf_counter()
-                _marks.append((label, (now - _last[0]) * 1000))
-                _last[0] = now
-
-        gt_w2c = np.linalg.inv(np.asarray(gt_pose))
-        cur = Frame(time_idx=time_idx, gt_color=gt_color, gt_depth=gt_depth,
-                    gt_w2c=gt_w2c, kfid=self.cur_lmid, device=self.device)
         self.local_frames.append(cur)
-        if prof:
-            probe_fence(cur.gt_depth)  # fence the host-to-device copy
-            mark("h2d")
 
         if len(self.local_frames) == 1:
+            trace.annotate(kind="init")
             cur.frame_type = 0  # RKF
             cur.start_optimizer(np.eye(4, dtype=np.float32),
                                 s.lcfg.enable_exposure)
@@ -466,21 +454,22 @@ class Frontend:
 
         frame_t0 = time.perf_counter()
         last = self.local_frames[-2]
-        if not self.vel_pose_init:
-            self.vel = np.eye(4, dtype=np.float32)
-        spec = self._spec
-        self._spec = None
-        spec_ok = spec is not None and spec[0] is self.map
-        if spec_ok:
-            # the previous frame's tracking already produced this frame's
-            # pose init and its binning
-            cur.pose = spec[2]
-            cur._w2c_host = spec[3]
-            if s.lcfg.enable_exposure:
-                cur.exposure = init_exposure(self.device)
-        else:
-            initial_w2c = self.vel @ _host_w2c(last)
-            cur.start_optimizer(initial_w2c, s.lcfg.enable_exposure)
+        with trace.span("frontend.pose_init"):
+            if not self.vel_pose_init:
+                self.vel = np.eye(4, dtype=np.float32)
+            spec = self._spec
+            self._spec = None
+            spec_ok = spec is not None and spec[0] is self.map
+            if spec_ok:
+                # the previous frame's tracking already produced this
+                # frame's pose init and its binning
+                cur.pose = spec[2]
+                cur._w2c_host = spec[3]
+                if s.lcfg.enable_exposure:
+                    cur.exposure = init_exposure(self.device)
+            else:
+                initial_w2c = self.vel @ _host_w2c(last)
+                cur.start_optimizer(initial_w2c, s.lcfg.enable_exposure)
         # the keyframe-coverage view rides along with tracking unless the
         # submap will be cut anyway (the map-size / max-frames cuts are
         # known now, which covers all cuts when retracking is off)
@@ -488,13 +477,11 @@ class Frontend:
             len(self.local_frames) > self.max_frames
             or self.n_active_host > self.tau_l
         )
-        mark("pose_init")
         depth_l1, view_out, n_low = self.tracking(
             cur, want_view=may_need_view and self.fused_kf_view,
             prev_pose=last.pose,
             spec_cache=spec[1] if spec_ok else None)
         self.depth_l1_rec.append(depth_l1)
-        mark("tracking")
 
         tracking_flag = (depth_l1 < self.avg_depth_l1 * 5
                          if self.enable_retracking else True)
@@ -521,54 +508,50 @@ class Frontend:
 
         if not is_refkf:
             hw = s.cam.height * s.cam.width
-            if n_low is not None:
-                out = view_out
-                pad = s.opts.grid.num_tiles * s.opts.grid.pixels_per_tile - hw
-                n_low_val = float(n_low) - pad
-            else:
-                w2c = cur.get_w2c.detach()
-                out = render_view(self.map, s.cam.replace_w2c(w2c), s.opts,
-                                  owner=self.programs)
-                alpha = out[:, 4]
-                # padded pixels never accumulate alpha; subtract them
-                n_low_val = float(torch.sum(alpha < 0.5)) - (alpha.numel() - hw)
-            mark("kf_test")
+            with trace.span("frontend.kf_test"):
+                if n_low is not None:
+                    out = view_out
+                    pad = (s.opts.grid.num_tiles * s.opts.grid.pixels_per_tile
+                           - hw)
+                    n_low_val = float(n_low) - pad
+                else:
+                    w2c = cur.get_w2c.detach()
+                    out = render_view(self.map, s.cam.replace_w2c(w2c),
+                                      s.opts, owner=self.programs)
+                    alpha = out[:, 4]
+                    # padded pixels never accumulate alpha; subtract them
+                    with trace.span("frontend.wait"):
+                        n_low_val = (float(torch.sum(alpha < 0.5))
+                                     - (alpha.numel() - hw))
             if n_low_val > hw * self.tau_k:
+                trace.annotate(kind="keyframe")
                 map_t0 = time.perf_counter()
                 cur.frame_type = 1  # KF
                 self._densify(cur, render_out=out)
-                mark("densify")
                 self.mapping()
-                mark("kf_mapping")
-                self.map = prune_gaussians(self.map, s.dcfg,
-                                           owner=self.programs)
-                self._fit_capacity()
-                mark("prune")
+                with trace.span("frontend.prune"):
+                    self.map = prune_gaussians(self.map, s.dcfg,
+                                               owner=self.programs)
+                    self._fit_capacity()
                 self.t_map_frame[0] += time.perf_counter() - map_t0
                 self.t_map_frame[1] += 1
 
         if is_refkf:
+            trace.annotate(kind="cut")
             self._cut_submap(time_idx, gt_color, gt_depth, gt_w2c,
                              tracking_flag)
-            mark("cut")
 
         self.numpts_rec.append(self.n_active_host)
-        if prof:
-            print("[prof] frame " + " ".join(
-                f"{k}={v:.0f}ms" for k, v in _marks), flush=True)
 
+    @trace.spanned("frontend.cut")
     def _cut_submap(self, time_idx, gt_color, gt_depth, gt_w2c,
                     tracking_flag):
         s = self.sys
-        prof = os.environ.get("GAUS_PROFILE")
-        t0 = time.perf_counter()
         lm = LocalMap.cut(
             self.cur_lmid, self.local_frames, G.extract_params(self.map),
             self.num_frame_saved, tracking_ok=self.tracking_flag,
             rng=self.rng, n_active_host=self.n_active_host,
         )
-        if prof:
-            t_cut = time.perf_counter() - t0
         self.to_backend.put(lm)
         self.cur_lmid += 1
         cur = Frame(time_idx=time_idx, gt_color=gt_color, gt_depth=gt_depth,
@@ -577,12 +560,7 @@ class Frontend:
         cur.start_optimizer(np.eye(4, dtype=np.float32),
                             s.lcfg.enable_exposure)
         self.local_frames = [cur]
-        t1 = time.perf_counter()
         self.create_map()
-        if prof:
-            probe_fence(self.map.params.xyz)
-            print(f"[prof] cut: localmap.cut={t_cut*1000:.0f}ms "
-                  f"create_map={(time.perf_counter()-t1)*1000:.0f}ms")
         self.tracking_flag = tracking_flag
         while hasattr(self.to_backend, "qsize") and self.to_backend.qsize() > 1:
             print("backend too busy !!!")

@@ -78,6 +78,12 @@ holds no IF node). Every capture lists its graph's node types
 (``_Program.types``) before instantiating it. On the CPU, under
 ``eager()`` and in a key's eager warm-up call ``cond`` runs both
 branches and ``torch.where``s on the flag.
+
+While a torch.profiler records (utils/trace.py), a key's eager first call
+is a ``programs.warmup`` span and its capture, assembly and instantiation
+a ``programs.capture`` span (both with ``owner`` and ``program``), and
+each replay or loop launch on a card is a device interval of the owner's
+program, timed by CUDA events on the launching stream around the launch.
 """
 from __future__ import annotations
 
@@ -93,6 +99,7 @@ from ..ops.camera import Camera
 from ..ops import graph_loop
 from ..ops.graph_loop import (CondScope, LoopGraph, node_types,
                               while_cond_plain)
+from ..utils import trace
 
 # replays by program name, and captures, since the process started
 GRAPH_LAUNCHES: collections.Counter = collections.Counter()
@@ -424,13 +431,15 @@ class Owner:
     def _build(self, name, key, body, capture: bool) -> tuple:
         prog = _Program(name, key, body)
         # the warm-up: the call's real work, on the caller's stream
-        out = body()
+        with trace.span("programs.warmup", owner=self.name, program=name):
+            out = body()
         if self.device.type != "cuda" or not capture:
             prog.out = out
             return prog, out
         try:
-            [(prog.graph, prog.out, prog.launches, conds,
-              prog.types)] = self._capture([body])
+            with trace.span(trace.CAPTURE, owner=self.name, program=name):
+                [(prog.graph, prog.out, prog.launches, conds,
+                  prog.types)] = self._capture([body])
         except Exception as e:
             raise RuntimeError(f"programs: capture of {_describe(key)} failed "
                                f"(owner {self.name}): {e}") from e
@@ -446,7 +455,8 @@ class Owner:
         try:
             if prog.tally is not None:
                 prog.tally.stream = torch.cuda.current_stream(self.device)
-            prog.graph.replay()
+            with trace.device(self.name, prog.name, self.device):
+                prog.graph.replay()
         except Exception as e:
             raise RuntimeError(f"programs: replay of {_describe(prog.key)} "
                                f"failed (owner {self.name}): {e}") from e
@@ -464,20 +474,24 @@ class Owner:
         launch runs the rest of the loop from the carry the warm-up left.
         The other levels are captured without an iteration of their own:
         they differ from the first only in the tiles they render."""
-        if self.device.type != "cuda":
-            return prog.host_loop(check=True)
-        prog.warm()
+        with trace.span("programs.warmup", owner=self.name,
+                        program=prog.name):
+            if self.device.type != "cuda":
+                return prog.host_loop(check=True)
+            prog.warm()
         fns = prog.bodies + ([prog.tail] if prog.tail else [])
         try:
-            caps = self._capture(fns, keep_graph=True)
-            prog.graphs = [c[0] for c in caps]
-            if prog.tail:
-                prog.out = (prog.out[0], caps[-1][1])
-            for body in prog.bodies:
-                prog.check_carry(body)
-            if any(c[3] for c in caps):
-                raise RuntimeError("an IF node in a loop program's body")
-            prog.assemble([c[2] for c in caps])
+            with trace.span(trace.CAPTURE, owner=self.name,
+                            program=prog.name):
+                caps = self._capture(fns, keep_graph=True)
+                prog.graphs = [c[0] for c in caps]
+                if prog.tail:
+                    prog.out = (prog.out[0], caps[-1][1])
+                for body in prog.bodies:
+                    prog.check_carry(body)
+                if any(c[3] for c in caps):
+                    raise RuntimeError("an IF node in a loop program's body")
+                prog.assemble([c[2] for c in caps])
         except Exception as e:
             raise RuntimeError(f"programs: the loop program "
                                f"{_describe(prog.key)} failed to capture or "
@@ -490,7 +504,8 @@ class Owner:
             return prog.host_loop()
         try:
             prog.tally.stream = torch.cuda.current_stream(self.device)
-            prog.loop.launch()
+            with trace.device(self.name, prog.name, self.device):
+                prog.loop.launch()
         except Exception as e:
             raise RuntimeError(f"programs: launch of the loop program "
                                f"{_describe(prog.key)} failed (owner "

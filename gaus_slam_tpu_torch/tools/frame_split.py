@@ -1,8 +1,8 @@
-"""Where a frame's wall time goes, by kind of frame: the frontend's
-``GAUS_PROFILE`` marks (slam/frontend.py: h2d, pose_init, tracking,
-kf_test, densify, kf_mapping, prune, cut, and the cut's create_map),
-the host ms spent capturing programs, the evaluation's ms per frame and
-the graph pools' MiB after the run.
+"""Where a frame's time goes, by kind of frame: the port's spans
+(utils/trace.py) under a frame's ``frontend.process_frame`` span, the
+host ms and the card ms of the captured programs launched in each, the
+backend's tasks, the captures (``programs.capture`` spans), the
+evaluation's ms per frame and the graph pools' MiB after the run.
 
     python gaus_slam_tpu_torch/tools/frame_split.py [--root DIR] \\
         [--mode frontend|driver] [--height 340] [--width 600] \\
@@ -19,104 +19,98 @@ chip_smoke.py's phase 6 counts it).
 ``--root``: the root of the tree whose port to measure (by default this
 file's; an older commit unpacked with ``git archive``, say); run this
 file by its path, not with ``-m``, so that the package is imported from
-there. Its configs/synthetic/config.py is read from this file's tree.
-The marks fence the device at each mark (utils/fence.py), so they split
-a frame's wall time but add the fences' cost to it. Each
-``Owner._capture`` (slam/programs.py: a key's first call after its eager
-warm-up, the graph's capture and instantiation) is timed on the host's
-clock and charged to the frame whose mark line follows it (``capture``,
-0 where none ran; in ``driver`` mode the backend's captures after a
-frame's line land on the next frame). Prints one JSON line: per kind of
-frame (tracked, keyframe, cut) the count and the median ms of each mark
-(create_map among a cut's), the captures' count and ms by owner, eval ms
-per frame and frames/s (driver), the graph pools' MiB and the card.
+there. A tree without the port's tracing (``utils/trace.py``) is
+refused. Its configs/synthetic/config.py is read from this file's tree.
+The run is made under torch.profiler (CPU activity only: tracing is on
+while it records), which fences nothing; the card's ms are the device
+intervals of the programs' launches (CUDA events around each launch).
+Prints one JSON line: per kind of frame (init, tracked, keyframe, cut)
+the count and, per span name under the frame, the median host ms and
+card ms over the frames that have it (the frame's own row under
+``frontend.process_frame``); per backend task kind the count and the
+median host and card ms; the captures' count and host ms by owner; eval
+ms per frame and frames/s (driver); the graph pools' MiB and the card.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
-import io
+import collections
 import json
 import os
 import queue
 import sys
 import time
 
-
-def parse_marks(text: str) -> list:
-    """The ``[prof] frame`` lines of a run as dicts of ms by mark, each
-    with the ``create_map`` ms of the ``[prof] cut`` line printed during
-    its frame and the ms of the ``[prof] capture`` lines printed since the
-    last frame's (``capture``)."""
-    frames, cut, capture = [], None, 0.0
-    for line in text.splitlines():
-        if line.startswith("[prof] cut: "):
-            parts = dict(p.split("=") for p in line.split()[2:])
-            cut = float(parts["create_map"].rstrip("ms"))
-        elif line.startswith("[prof] capture "):
-            capture += float(line.split()[-1].rstrip("ms"))
-        elif line.startswith("[prof] frame "):
-            marks = {k: float(v.rstrip("ms")) for k, v in
-                     (p.split("=") for p in line.split()[2:])}
-            if cut is not None:
-                marks["create_map"], cut = cut, None
-            marks["capture"], capture = capture, 0.0
-            frames.append(marks)
-    return frames
+FRAME = "frontend.process_frame"
 
 
-def parse_captures(text: str) -> dict:
-    """The ``[prof] capture`` lines by owner: {owner: [count, ms]}."""
-    out: dict = {}
-    for line in text.splitlines():
-        if line.startswith("[prof] capture "):
-            words = line.split()
-            row = out.setdefault(" ".join(words[2:-1]), [0, 0.0])
-            row[0] += 1
-            row[1] += float(words[-1].rstrip("ms"))
-    return out
-
-
-@contextlib.contextmanager
-def timed_captures():
-    """Each ``Owner._capture`` of the imported tree prints ``[prof]
-    capture <owner> <ms>`` (host clock)."""
-    from gaus_slam_tpu_torch.slam import programs
-
-    orig = programs.Owner._capture
-
-    def timed(self, *a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return orig(self, *a, **kw)
-        finally:
-            print(f"[prof] capture {self.name} "
-                  f"{1e3 * (time.perf_counter() - t0):.3f}ms")
-
-    programs.Owner._capture = timed
-    try:
-        yield
-    finally:
-        programs.Owner._capture = orig
-
-
-def frame_kind(marks: dict) -> str:
-    if "cut" in marks:
-        return "cut"
-    return "keyframe" if "densify" in marks else "tracked"
-
-
-def summarize(frames: list) -> dict:
+def _medians(rows: list) -> dict:
     import numpy as np
 
-    out = {}
-    for kind in ("tracked", "keyframe", "cut"):
-        rows = [m for m in frames if frame_kind(m) == kind]
-        keys = sorted({k for m in rows for k in m})
-        out[kind] = {"n": len(rows), "median_ms": {
-            k: float(np.median([m[k] for m in rows if k in m]))
-            for k in keys}}
-    return out
+    keys = sorted({k for r in rows for k in r})
+    return {k: float(np.median([r[k] for r in rows if k in r]))
+            for k in keys}
+
+
+def summarize(recs: dict) -> dict:
+    """``trace.records()`` of a run as the table above (without the run's
+    own numbers)."""
+    spans = recs["spans"]
+    by_id = {s["id"]: s for s in spans}
+
+    def root(s):
+        """The frame or backend task span ``s`` lies in, or None."""
+        while s is not None:
+            if s["name"] in (FRAME, "backend.task"):
+                return s
+            s = by_id.get(s["parent"])
+        return None
+
+    def names(sid):
+        """The distinct names of span ``sid`` and its ancestors up to its
+        frame or task."""
+        out, s = [], by_id.get(sid)
+        while s is not None:
+            if s["name"] not in out:
+                out.append(s["name"])
+            if s["name"] in (FRAME, "backend.task"):
+                break
+            s = by_id.get(s["parent"])
+        return out
+
+    host = collections.defaultdict(collections.Counter)
+    card = collections.defaultdict(collections.Counter)
+    for s in spans:
+        r = root(s)
+        if r is not None:
+            host[r["id"]][s["name"]] += (s["t1_ns"] - s["t0_ns"]) / 1e6
+    for iv in recs["intervals"]:
+        r = root(by_id.get(iv["span"]))
+        if r is not None:
+            for name in names(iv["span"]):
+                card[r["id"]][name] += (iv["t1_ns"] - iv["t0_ns"]) / 1e6
+    kinds: dict = collections.defaultdict(list)
+    tasks: dict = collections.defaultdict(list)
+    for s in spans:
+        if s["name"] in (FRAME, "backend.task"):
+            into = kinds if s["name"] == FRAME else tasks
+            into[s["attrs"].get("kind", "?")].append(s["id"])
+    captures: dict = {}
+    for s in spans:
+        if s["name"] == "programs.capture":
+            row = captures.setdefault(s["attrs"]["owner"], [0, 0.0])
+            row[0] += 1
+            row[1] += (s["t1_ns"] - s["t0_ns"]) / 1e6
+
+    def table(groups):
+        return {k: {"n": len(ids),
+                    "host_ms": _medians([dict(host[i]) for i in ids]),
+                    "device_ms": _medians([
+                        {n: card[i][n] for n in host[i]} for i in ids])}
+                for k, ids in sorted(groups.items())}
+
+    return {"kinds": table(kinds), "tasks": table(tasks),
+            "captures": captures}
 
 
 def pool_mib() -> float:
@@ -167,6 +161,24 @@ def run_frontend(cfg: dict, h: int, w: int, n: int, device) -> None:
             fe.to_backend.get()
 
 
+def traced(fn, *a, **kw):
+    """``fn(*a, **kw)`` under torch.profiler (CPU activity: tracing on),
+    then the card synchronised; returns (its result, trace.records())."""
+    import torch
+
+    from gaus_slam_tpu_torch.utils import trace
+
+    trace.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        res = fn(*a, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    recs = trace.records()
+    trace.clear()
+    return res, recs
+
+
 def run_driver(cfg: dict, device) -> dict:
     """rgbd_slam on ``cfg``, eval_final timed between synchronizes, the
     frame loop from the first frame to eval_final."""
@@ -212,6 +224,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    if not os.path.exists(os.path.join(root, "gaus_slam_tpu_torch", "utils",
+                                       "trace.py")):
+        sys.exit(f"frame_split: {root} has no gaus_slam_tpu_torch/utils/"
+                 f"trace.py: its port records no spans to split a frame by")
     sys.path.insert(0, root)
     import torch
 
@@ -219,28 +235,24 @@ def main(argv=None) -> dict:
     out = os.path.join(root, "output", f"frame_split_{args.mode}_{n}")
     cfg = synthetic_config(args.height, args.width, n, out)
     cfg["backend"]["common_vis"] = False
-    os.environ["GAUS_PROFILE"] = "1"
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf), timed_captures():
-        if args.mode == "frontend":
-            run_frontend(cfg, args.height, args.width, n, args.device)
-            extra = {}
-        else:
-            res = run_driver(cfg, args.device)
-            extra = {"eval_ms_per_frame": 1e3 * res["eval_s"] / n,
-                     "frames_per_s": n / res["loop_s"],
-                     "ate_rmse": res["result"]["ATE RMSE"],
-                     "psnr": res["result"]["PSNR"]}
+    if args.mode == "frontend":
+        _, recs = traced(run_frontend, cfg, args.height, args.width, n,
+                         args.device)
+        extra = {}
+    else:
+        res, recs = traced(run_driver, cfg, args.device)
+        extra = {"eval_ms_per_frame": 1e3 * res["eval_s"] / n,
+                 "frames_per_s": n / res["loop_s"],
+                 "ate_rmse": res["result"]["ATE RMSE"],
+                 "psnr": res["result"]["PSNR"]}
     wall = time.perf_counter() - t0
     import gaus_slam_tpu_torch
 
     summary = {"root": os.path.dirname(os.path.dirname(
         os.path.abspath(gaus_slam_tpu_torch.__file__))), "mode": args.mode,
         "frames": n, "shape": [args.height, args.width],
-        "wall_s": wall, "kinds": summarize(parse_marks(buf.getvalue())),
-        "captures": parse_captures(buf.getvalue()),
-        **extra}
+        "wall_s": wall, **summarize(recs), **extra}
     if torch.device(args.device).type == "cuda":
         summary.update(pool_mib=pool_mib(),
                        card=torch.cuda.get_device_name(0))

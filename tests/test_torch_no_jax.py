@@ -55,7 +55,7 @@ def test_port_imports_no_jax():
                 "scripts.eval_nvs", "scripts.gen_video", "utils.gif",
                 "utils.keyframe_selection", "tools.microbench",
                 "tools.backend_probe", "tools.ab_runner", "tools.quality_ab",
-                "tools.test_spread"):
+                "tools.test_spread", "utils.trace", "tools.frame_split"):
         assert "gaus_slam_tpu_torch." + mod in res["modules"], mod
 
 
