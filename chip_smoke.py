@@ -297,6 +297,20 @@ line):
    to torch.where over both (the parent's program), in turns, with and
    without overflow; if_cond's ms per node (a program of IF_NODES nodes
    less the same branches launched plain) and the plain version's.
+14. K7 and K8, the tracking render's per-pair preprocess and its
+   backward to the pose gradient (ops/track_preprocess.py), at the tum
+   cell's pair-cache rows R = 2^20 and at R/2 (its stride-2 level), on a
+   random cache (numpy seed 0; one row in eight behind the camera, one
+   in sixteen zero-opacity padding) seen through TUM fr1's camera at
+   480x640: K7 bit for bit against the chain with the means moved by
+   elementwise sums in K7's order, and within TRACK_PRE_TOL of each
+   row's scale against the chain's cuBLAS product; K8's d_w2c within
+   TRACK_PRE_TOL (normwise) of autograd of the chain, twice the same
+   bits. ms per launch of K7 alone and K8 alone (50 launches in a CUDA
+   graph) against their plain counterparts (the chain's forward; its
+   backward from d_attrs to d_w2c), the bounds by bytes; and forward +
+   backward to the pose through pose_matrix, the chain against the
+   Function of K7 and K8 (each one captured graph).
 Then one JSON line with every kernel's numbers (launches per phase; K1-K3
 also without SA on 3DGS attributes; the bf16 instantiations as entries
 of their own, with their launches in 11b at 340x600; while_cond, the
@@ -321,23 +335,24 @@ CONFIG = os.path.join(REPO, "configs", "synthetic", "config.py")
 
 H, W = 340, 600              # bench shape (bench.py)
 N_FRAMES = 24                # phase 3: two cuts at the default 10-frame submaps
-# What the code before the step path's host waits were taken out printed
-# on this card (commit ecfd254, chip_smoke; commit 9d6a38e, eager, printed
-# the same): the device-side branches, the lagged early exit and the
-# captured steps must give the same numbers, to every digit.
+# What the code printed on this card with the tracking render's per-pair
+# preprocess in K7 / K8 (ops/track_preprocess.py: the means moved by
+# elementwise sums, not a cuBLAS product): the device-side branches, the
+# lagged early exit and the captured steps must give the same numbers, to
+# every digit.
 # phase 3: frame -> (tracking iterations, loss to 4 decimals)
 PARENT_PHASE3 = {
-    1: (30, "1677.6172"), 2: (30, "1887.7397"), 3: (17, "157.1553"),
-    4: (12, "183.1952"), 5: (15, "170.7265"), 6: (13, "280.7792"),
-    7: (13, "206.6241"), 8: (15, "152.5048"), 9: (13, "132.4072"),
-    10: (14, "139.5131"), 11: (16, "146.8007"), 12: (17, "144.3071"),
-    13: (13, "124.1348"), 14: (30, "1101.0991"), 15: (13, "124.2545"),
-    16: (15, "134.2476"), 17: (13, "132.7693"), 18: (13, "160.6365"),
-    19: (12, "157.0670"), 20: (12, "140.6700"), 21: (17, "129.1541"),
-    22: (16, "136.0360"), 23: (16, "130.9289")}
+    1: (30, "1677.3408"), 2: (30, "1887.2175"), 3: (17, "157.2274"),
+    4: (12, "183.0615"), 5: (15, "170.8146"), 6: (13, "281.1314"),
+    7: (13, "207.2997"), 8: (16, "154.1984"), 9: (14, "133.2078"),
+    10: (12, "142.0230"), 11: (16, "146.0222"), 12: (17, "146.3900"),
+    13: (10, "126.9726"), 14: (15, "122.0923"), 15: (26, "1187.9246"),
+    16: (13, "133.9661"), 17: (27, "1162.0981"), 18: (14, "160.2215"),
+    19: (15, "158.6969"), 20: (12, "145.4548"), 21: (15, "128.7208"),
+    22: (16, "135.2138"), 23: (30, "1202.5151")}
 # phases 6 and 11b: ATE RMSE and first-submap PSNR as printed (.6g)
-PARENT_DRIVER = {"driver_340x600": ("0.00196726", "41.291"),
-                 "bf16_340x600": ("0.00950253", "32.9287")}
+PARENT_DRIVER = {"driver_340x600": ("0.00202335", "41.3221"),
+                 "bf16_340x600": ("0.00926382", "33.1192")}
 # phase 12a: demand, num_pairs and n_active of the probe's map
 PARENT_PROBE = {"demand": 3772565, "num_pairs": 3772565, "n_active": 2448000}
 N_FRAMES_REF = 6             # phase 3b
@@ -489,6 +504,15 @@ KERNELS["while_cond"] = ("L1", "gaus_slam_tpu_torch/csrc/graph_loop.cu",
 # device (only the taken branch)
 KERNELS["if_cond"] = ("L2", "gaus_slam_tpu_torch/csrc/graph_loop.cu",
                       "gaus_slam_tpu/ops/binning.py:120")
+# the tracking render's preprocess: no Pallas kernel; it replaces the
+# JAX render_tracking's plain preprocess chain, which XLA fuses
+KERNELS["track_preprocess"] = ("K7",
+                               "gaus_slam_tpu_torch/csrc/track_preprocess.cu",
+                               "gaus_slam_tpu/render/__init__.py:537")
+KERNELS["track_preprocess_backward"] = (
+    "K8", "gaus_slam_tpu_torch/csrc/track_preprocess.cu",
+    "gaus_slam_tpu/render/__init__.py:537")
+TRACK_PATH = ("track_preprocess", "track_preprocess_backward")
 STASH_PATH = ("raster_forward_stash", "raster_backward_stash",
               "raster_forward", "monotone_row_gather")
 BF16_PATH = ("raster_forward_stash_bf16", "raster_backward_stash_bf16",
@@ -2433,9 +2457,8 @@ def phase_gs_densify(dev, card):
 N_LOAD = 12            # 10a: frontend frames tracked beside each backend run
 LATE_HANDOFF_CYCLES = 400_000_000   # 10a: ~0.2 s of spin at the H100's clock
 MARK_KERNELS = ("spin_kernel", "kernelHistogram1D")  # 10a: the stream marks
-# 10a: map_digest of the "off" run's backend state with the code before
-# the step path's host waits were taken out (commit ecfd254, this card)
-PARENT_10A_DIGEST = "5c0d56a78583088a"
+# 10a: map_digest of the "off" run's backend state with K7 / K8 (this card)
+PARENT_10A_DIGEST = "a321d43a29d66b5b"
 TASKS_PER_TURN = 4     # 10a: backend tasks per turn, as in gaus_mp's loop
 PROFILE_TURNS = range(2, 4)   # 10a: the turns the profiler watches
 BACKLOG_TURNS = range(4, 6)   # 10a: the same with a backlog on the backend
@@ -2611,13 +2634,28 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     streams = collections.Counter()
     real_check = _cuda.check
 
+    warming = []    # (owner, the stream that called it) per warm-up
+
     def counted_check(rc, what):
         # a wrapper calls check right after its launch, on its stream; in
-        # a capture it launched nothing (the graph's replays run it)
+        # a capture it launched nothing (the graph's replays run it). A
+        # program's warm-up runs on its owner's capture stream, between
+        # the calling stream's work (Owner._warm): counted on the caller's
         if not torch.cuda.is_current_stream_capturing():
-            streams[(what, inside[0],
-                     torch.cuda.current_stream().cuda_stream)] += 1
+            h = torch.cuda.current_stream().cuda_stream
+            if warming and warming[-1][0].stream.cuda_stream == h:
+                h = warming[-1][1]
+            streams[(what, inside[0], h)] += 1
         return real_check(rc, what)
+
+    real_warm = programs.Owner._warm
+
+    def counted_warm(own, fn, name):
+        warming.append((own, torch.cuda.current_stream().cuda_stream))
+        try:
+            return real_warm(own, fn, name)
+        finally:
+            warming.pop()
 
     real_replay = programs.Owner._replay
 
@@ -2671,6 +2709,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     _cuda.clear_launches()
     _cuda.check = counted_check
     programs.Owner._replay = counted_replay
+    programs.Owner._warm = counted_warm
     t0 = time.perf_counter()
     filled = []
     try:
@@ -2722,6 +2761,7 @@ def stream_run(label, cfg, lms, ds, dev, bd, profile=False, late=False,
     finally:
         _cuda.check = real_check
         programs.Owner._replay = real_replay
+        programs.Owner._warm = real_warm
     del filled
     secs = time.perf_counter() - t0
     launches = dict(_cuda.fold_launches())
@@ -4979,6 +5019,135 @@ def keyframe_split(cfg, dev, card):
                   for k, v in row["host_ms"].items()))
 
 
+# phase 14: the tum cell's pair-cache rows (2 x its first capacity bucket)
+TRACK_PRE_R = 1 << 20
+# against the chain's cuBLAS product (its own sum order: xyz_cam an ulp or
+# two apart): a0..a2, tw and K8's d_w2c within 1e-5 of their scale
+TRACK_PRE_TOL = 1e-5
+
+
+def track_pre_inputs(r, dev, seed=0):
+    """A [13, r] pair cache in front of the camera (numpy draws), one row
+    in eight behind it and one in sixteen a zero-opacity padding row, and
+    a pose 20 deg and 10 cm from the identity."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    raw = np.empty((13, r), np.float32)
+    raw[0:2] = rng.uniform(-1.5, 1.5, (2, r))
+    raw[2] = rng.uniform(0.5, 4.0, r)
+    raw[2, ::8] = -rng.uniform(0.1, 1.0, raw[2, ::8].shape)
+    raw[3:5] = np.exp(rng.uniform(np.log(1e-3), np.log(3e-2), (2, r)))
+    q = rng.normal(size=(4, r))
+    raw[5:9] = q / np.linalg.norm(q, axis=0)
+    raw[9] = rng.uniform(0.0, 1.0, r)
+    raw[9, ::16] = 0.0
+    raw[10:13] = rng.uniform(0.0, 1.0, (3, r))
+    quat = torch.tensor((0.97, 0.12, -0.17, 0.09), device=dev)
+    trans = torch.tensor((0.06, -0.05, 0.08), device=dev)
+    return torch.tensor(raw, device=dev), quat, trans
+
+
+def phase_track_preprocess(dev, card):
+    """14: K7 and K8 against the chain and timed, at R and R/2."""
+    import torch
+
+    from gaus_slam_tpu_torch.ops import _cuda
+    from gaus_slam_tpu_torch.ops import track_preprocess as TP
+    from gaus_slam_tpu_torch.ops.camera import (camera_from_intrinsics,
+                                                world_to_pix3)
+    from gaus_slam_tpu_torch.ops.se3 import pose_matrix, quat_normalize
+
+    k = np.array([[517.3, 0.0, 318.6], [0.0, 516.5, 255.3], [0.0, 0.0, 1.0]])
+    eye = camera_from_intrinsics(480, 640, k, np.eye(4), device=dev)
+    M = world_to_pix3(eye)
+    raw_full, quat0, trans0 = track_pre_inputs(TRACK_PRE_R, dev)
+    numbers = {}
+    _cuda.clear_launches()
+    for r in (TRACK_PRE_R, TRACK_PRE_R // 2):
+        raw = raw_full[:, :r]       # a head slice, as the coarse level's
+        quat = quat0.clone().requires_grad_()
+        trans = trans0.clone().requires_grad_()
+        w2c, q = pose_matrix(quat, trans), quat_normalize(quat).detach()
+        d = torch.randn((24, r), generator=torch.Generator().manual_seed(1)
+                        ).to(dev)
+        with torch.no_grad():
+            got = TP.k7(raw, w2c, q, M)
+            xyz_cam = torch.stack([w2c[i, 0] * raw[0] + w2c[i, 1] * raw[1]
+                                   + w2c[i, 2] * raw[2] + w2c[i, 3]
+                                   for i in range(3)])
+            exact = TP.track_preprocess_plain(
+                torch.cat([xyz_cam, raw[3:]]),
+                torch.eye(4, device=dev), q, eye)
+        check(torch.equal(got, exact),
+              f"phase 14: K7 at R {r} differs from the chain with the means "
+              f"moved in its order")
+        plain = TP.track_preprocess_plain(raw, w2c, q, eye)
+        err = 0.0
+        for c in range(12):
+            scale = float(plain[c].abs().max())
+            err = max(err, float((got[c] - plain[c]).abs().max()) / scale)
+        check(err <= TRACK_PRE_TOL and torch.equal(got[14:17], plain[14:17])
+              and torch.equal(got[18:], plain[18:]),
+              f"phase 14: K7 at R {r} against the chain: {err:.3g} of scale")
+        (want,) = torch.autograd.grad(plain, (w2c,), d)
+        g1, g2 = TP.k8(raw, q, M, d), TP.k8(raw, q, M, d)
+        gerr = float(torch.linalg.norm((g1 - want).double())
+                     / torch.linalg.norm(want.double()))
+        check(torch.equal(g1, g2), f"phase 14: K8 at R {r} twice differs")
+        check(gerr <= TRACK_PRE_TOL,
+              f"phase 14: K8 at R {r} against autograd: {gerr:.3g}")
+        t7 = time_graph_ms(lambda: TP.k7(raw, w2c, q, M), 50)
+        t8 = time_graph_ms(lambda: TP.k8(raw, q, M, d), 50)
+
+        def chain(fn, pose_leaves, grad=True):
+            """``fn``'s pair attributes at the pose, and with ``grad`` their
+            backward: to w2c, or with ``pose_leaves`` through pose_matrix
+            to the quaternion and translation."""
+            def run():
+                qq = quat0.detach().requires_grad_(pose_leaves)
+                tt = trans0.detach().requires_grad_(pose_leaves)
+                w = pose_matrix(qq, tt)
+                if not pose_leaves:
+                    w = w.detach().requires_grad_()
+                attrs = fn(raw, w, quat_normalize(qq).detach(), eye)
+                if grad:
+                    torch.autograd.grad(
+                        attrs, (qq, tt) if pose_leaves else (w,), d)
+            return run
+        # the plain counterparts: the chain's forward (K7's), its
+        # backward from d_attrs to d_w2c (K8's: forward and backward less
+        # the forward), each one captured graph of 5 calls
+        plain = TP.track_preprocess_plain
+        t_fwd = time_graph_ms(chain(plain, False, grad=False), 5)
+        t_bwd = time_graph_ms(chain(plain, False), 5) - t_fwd
+        # forward and backward to the pose, pose_matrix included: the
+        # chain against the Function of K7 and K8
+        t_chain = time_graph_ms(chain(plain, True), 5)
+        t_fn = time_graph_ms(chain(TP.track_preprocess, True), 5)
+        b7 = 37 * 4 * r / HBM_BYTES_PER_S * 1e3
+        b8 = 16 * 4 * r / HBM_BYTES_PER_S * 1e3
+        for name, t, b, e, tp in (
+                ("track_preprocess", t7, b7, err, t_fwd),
+                ("track_preprocess_backward", t8, b8, gerr, t_bwd)):
+            numbers.setdefault(name, {})[f"r{r}"] = dict(
+                max_rel_err=e, ms=t, bound_ms=b, bound_by="bytes",
+                roofline=b / t, plain_ms=tp, chain_ms=t_chain,
+                function_ms=t_fn)
+        print(f"[track_pre] {card}: R {r}: K7 {t7:.4f} ms (bound "
+              f"{b7:.4f}, {100 * b7 / t7:.1f}%; the chain's forward "
+              f"{t_fwd:.4f}), K8 {t8:.4f} ms (bound {b8:.4f}, "
+              f"{100 * b8 / t8:.1f}%; the chain's backward to w2c "
+              f"{t_bwd:.4f}), K7 + K8 {t7 + t8:.4f} ms "
+              f"({100 * (b7 + b8) / (t7 + t8):.1f}% of {b7 + b8:.4f}); "
+              f"forward + backward to the pose: the Function {t_fn:.4f} ms, "
+              f"the chain {t_chain:.4f} ms; K7 err {err:.3g} of "
+              f"scale, K8 {gerr:.3g}")
+    launches = dict(_cuda.fold_launches())
+    print(f"[track_pre] launches {json.dumps({k: launches.get(k, 0) for k in TRACK_PATH})}")
+    return numbers, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5036,6 +5205,8 @@ def main() -> int:
         phase_programs(cfg, ds, dev, card)
         numbers["while_cond"] = phase_loop_program(cfg, ds, dev, card)
         numbers["if_cond"] = phase_cond_program(cfg, ds, dev, card)
+        track_numbers, track_launches = phase_track_preprocess(dev, card)
+        numbers.update(track_numbers)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5047,17 +5218,19 @@ def main() -> int:
               "9d": densify_launches, "10a": stream_launches,
               "10b": ba_launches, **mp_launches, "11b 48x64": bf16_small,
               "11b 340x600": bf16_full, "12a": probe_launches,
-              "12b": ab_launches, "12c": spread_launches}
+              "12b": ab_launches, "12c": spread_launches,
+              "14": track_launches}
     kernels = []
     for name, (kid, src, replaces) in KERNELS.items():
         # launches on this slice's path: the driver at full width (phase
-        # 6) for K1-K4, while_cond and if_cond, the reference backend (3b)
+        # 6) for K1-K4, K7, K8, while_cond and if_cond, the reference
+        # backend (3b)
         # for K5,
         # K6's entry (7)
         # the bf16 instantiations: the driver with the bf16 compute dtype
         # at full width (11b)
-        main_path = ("6" if name in STASH_PATH + ("while_cond", "if_cond")
-                     else
+        main_path = ("6" if name in STASH_PATH + TRACK_PATH
+                     + ("while_cond", "if_cond") else
                      "11b 340x600" if name in BF16_PATH else
                      "3b" if name == "raster_backward" else "7")
         kernels.append({"name": name, "id": kid, "route": "cuda",

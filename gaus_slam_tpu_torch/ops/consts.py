@@ -15,13 +15,58 @@ Inside a step that is a wait per call. Two ways out:
     through pinned memory with a non-blocking copy on the current
     stream. PyTorch's caching host allocator keeps the pinned block until
     the copy has run.
+
+A captured step's eager warm-up takes its device memory from a graph
+pool (``into_pool``, slam/programs.py); a tensor made there that outlives
+the call (a ``cached`` entry, an owner's buffer) is made under
+``persistent``, from the caching allocator's default pool.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
 
 _CACHE: dict = {}
+# (device index, graph pool id) while ``into_pool`` routes allocations
+# there, on the thread that entered it
+_ROUTE = threading.local()
+
+
+@contextlib.contextmanager
+def into_pool(device: torch.device, pool_id):
+    """Within: allocations on ``device`` come from the graph pool
+    ``pool_id``, those of every thread (the autograd engine runs a
+    backward on a thread of its own)."""
+    to = (device.index, pool_id)
+    torch._C._cuda_beginAllocateToPool(*to)
+    _ROUTE.to = to
+    try:
+        yield
+    finally:
+        _ROUTE.to = None
+        torch._C._cuda_endAllocateToPool(*to)
+        torch._C._cuda_releasePool(*to)
+
+
+@contextlib.contextmanager
+def persistent():
+    """Within: allocations come from the default pool, also inside
+    ``into_pool`` (a tensor that outlives the call)."""
+    to = getattr(_ROUTE, "to", None)
+    if to is None:
+        yield
+        return
+    torch._C._cuda_endAllocateToPool(*to)
+    torch._C._cuda_releasePool(*to)
+    _ROUTE.to = None
+    try:
+        yield
+    finally:
+        torch._C._cuda_beginAllocateToPool(*to)
+        _ROUTE.to = to
 
 
 def _device(device) -> torch.device:
@@ -37,7 +82,8 @@ def cached(key, make, device) -> torch.Tensor:
     dev = _device(device)
     t = _CACHE.get((key, dev))
     if t is None:
-        t = torch.as_tensor(make(), device=dev)
+        with persistent():
+            t = torch.as_tensor(make(), device=dev)
         _CACHE[(key, dev)] = t
     return t
 

@@ -33,8 +33,9 @@ from ..ops.camera import Camera
 from ..ops.compositing import OUT_C
 from ..ops.preprocess import PreSummary, pack_pair_attrs, preprocess_t
 from ..ops.raster import RenderSettings, render_pairs
-from ..ops.se3 import (pose_matrix, quat_multiply, quat_multiply_rows,
-                       quat_normalize, rotmat_to_quat)
+from ..ops.se3 import (pose_matrix, quat_multiply, quat_normalize,
+                       rotmat_to_quat)
+from ..ops.track_preprocess import track_preprocess
 from ..slam import programs
 
 
@@ -369,8 +370,9 @@ def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
     effective camera is ``pre_w2c @ pose_matrix(quat, trans)`` (backend
     tracking: the live submap transform under a fixed frame-in-submap
     pose); the detached quaternion rotation is then q_pre * q. Under
-    3DGS the moved means carry the pose gradient into the EWA
-    preprocess."""
+    2DGS the move and the preprocess are ``track_preprocess`` (K7, and
+    K8 for the pose gradient, on the card); under 3DGS the moved means
+    carry the pose gradient into the EWA preprocess."""
     if pair_hi is not None and pair_hi < cache.raw_t.shape[1]:
         start_c = torch.clamp(cache.tile_start, max=pair_hi)
         stop_c = torch.where(cache.tile_stop <= pair_hi, cache.tile_stop,
@@ -392,10 +394,7 @@ def render_tracking(cache: PairCache, pose_quat, pose_trans, cam_proj: Camera,
                                cache.opac, cam_eye, opts)
         pattrs = pack_pair_attrs(pre, cache.rgb_t.T)
     else:
-        xyz_cam_t = w2c[:3, :3] @ cache.xyz_t + w2c[:3, 3][:, None]
-        quats_cam_t = quat_multiply_rows(q, cache.quats_t).detach()
-        pattrs, _ = preprocess_t(xyz_cam_t, cache.scales_t, quats_cam_t,
-                                 cache.opac, cache.rgb_t, cam_eye)
+        pattrs = track_preprocess(cache.raw_t, w2c, q, cam_eye)
     if tile_ids is None:
         start, stop = cache.tile_start, cache.tile_stop
     else:

@@ -11,13 +11,15 @@ capacity bucket and the pair cache's rows; besides, the owner.
 
 An ``Owner`` (the frontend, the backend, or the default owner of a
 device for any other caller) holds its programs, the static buffers
-they read and write, and on a card a capture stream. The programs that
-replay on a device's default stream share one graph memory pool, and
-those that replay on another stream (a backend's own) another: every
-result is copied into an owner's buffers, so a graph's temporaries are
-free again once it has run, and the graphs of one stream run one at a
-time. The frontend and a backend on a stream of its own run at the same
-time and never share a pool.
+they read and write, and on a card a capture stream and its graph
+memory pools: one for the programs it replays on a device's default
+stream, and one for those it replays on another (a backend's own).
+Every result is copied into an owner's buffers, so a graph's
+temporaries are free again once it has run, and the graphs of one
+owner and stream run one at a time. When an owner's map grows, its
+pools are released with its programs (``Owner.set_capacity``): a pool's
+blocks are cut to the sizes of the programs captured into it, and a
+pool kept across the growth would hold the old sizes beside the new.
 
 A call binds each tensor argument to the owner's buffer of the same
 name, shape and layout (strides, storage offset, and which arguments
@@ -39,13 +41,17 @@ buffers:
     default owner returns copies of every result, as a jitted function
     returns fresh arrays.
 
-On a card the first call of a key runs the step once on the caller's
-stream (the warm-up that capture needs: constant tables filled, the
-autograd engine and cuBLAS set up; its results are the call's), then
-captures the same body on the owner's capture stream. Later calls replay
-the graph on the caller's stream and add, to ``ops._cuda.LAUNCHES``, the
-kernel launches the capture recorded. A capture or replay that fails
-raises an error naming its key; nothing falls back to eager execution.
+On a card the first call of a key runs the step once eagerly (the
+warm-up that capture needs: constant tables filled, the autograd engine
+and cuBLAS set up; its results are the call's), then captures the same
+body; both on the owner's capture stream, and the warm-up's temporaries
+taken from the graph pool the capture goes into (``Owner._warm``): they
+reuse the blocks the pool's graphs free between replays, and the capture
+reuses them in turn, so a step's temporaries are held once, in the
+pool. Later calls replay the graph on the caller's stream and add, to
+``ops._cuda.LAUNCHES``, the kernel launches the capture recorded. A
+capture or replay that fails raises an error naming its key; nothing
+falls back to eager execution.
 On the CPU the same static-buffer body is built once per key and then
 called with no arguments, so a host value that a capture would bake is
 baked there too. When the map's capacity changes, the owner's programs
@@ -72,7 +78,7 @@ iterations' kernel launches are tallied on the card and folded into
 owner's capture on a card (``Owner._capture`` sets the capturing stream's
 ``CondScope``) it builds an IF node whose branch the card picks, each
 branch's temporaries in a graph pool of the branches' own (one per
-device and stream kind, beside ``_POOLS``); the nodes' branch tallies
+owner and stream kind, beside the owner's pool); the nodes' branch tallies
 fold into ``LAUNCHES`` as the loop programs' do (a loop program's body
 holds no IF node). Every capture lists its graph's node types
 (``_Program.types``) before instantiating it. On the CPU, under
@@ -96,6 +102,7 @@ import torch
 
 from ..ops import _cuda
 from ..ops.camera import Camera
+from ..ops.consts import into_pool, persistent
 from ..ops import graph_loop
 from ..ops.graph_loop import (CondScope, LoopGraph, node_types,
                               while_cond_plain)
@@ -108,9 +115,6 @@ CAPTURES: collections.Counter = collections.Counter()
 _EAGER = [0]
 _INSIDE = [0]         # program bodies running: a nested call runs inline
 _DEFAULT: dict = {}
-_POOLS: dict = {}     # (device, on the default stream) -> _pool(...)
-# (device, on the default stream) -> the IF nodes' branches' MemPool
-_BRANCH_POOLS: dict = {}
 _OWNERS: "weakref.WeakSet" = weakref.WeakSet()
 
 
@@ -240,6 +244,9 @@ class Owner:
         self._storages: set = set()  # data_ptr of every buffer storage
         self.capacity = None
         self.stream = None
+        # on the default stream -> (_pool(...), the IF nodes' branches'
+        # MemPool)
+        self._pools: dict = {}
         self._retired: list = []
         self.resets = 0
         _OWNERS.add(self)
@@ -282,8 +289,9 @@ class Owner:
                 if _capturing(self):
                     raise RuntimeError(f"programs: {desc[0][0]} has no "
                                        f"buffer at capture")
-                raw = torch.empty(key[2], dtype=torch.uint8,
-                                  device=self.device).untyped_storage()
+                with persistent():
+                    raw = torch.empty(key[2], dtype=torch.uint8,
+                                      device=self.device).untyped_storage()
                 views = [torch.empty(0, dtype=dt, device=self.device).set_(
                     raw, off, shape, stride)
                     for _, shape, dt, off, stride in desc]
@@ -342,10 +350,14 @@ class Owner:
     def set_capacity(self, cap: int):
         """Drop every program and buffer when the map's capacity changes;
         on a card the old graphs are destroyed once the work queued before
-        the change is done."""
+        the change is done. When it grows on a card, the card first runs
+        what is queued, the old graphs go at once, and the owner's pools
+        with them, released to the card with the caching allocator's free
+        blocks."""
         self._purge()
         if cap == self.capacity:
             return
+        grows = self.capacity is not None and cap > self.capacity
         if self.capacity is not None and self.programs:
             ev = None
             if self.device.type == "cuda":
@@ -357,6 +369,10 @@ class Owner:
         self.programs, self.buffers, self._source = {}, rings, {}
         self._storages = set()
         self.capacity = cap
+        if grows and self._pools:
+            torch.cuda.synchronize(self.device)
+            self._retired, self._pools = [], {}
+            torch.cuda.empty_cache()
 
     def _purge(self):
         self._retired = [r for r in self._retired
@@ -374,16 +390,8 @@ class Owner:
         node's tally). Each graph's nodes are listed before it is
         instantiated. ``keep_graph``: keep each raw graph
         (``CUDAGraph.raw_cuda_graph``), not instantiated."""
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(device=self.device)
+        pool, branch_pool = self._graph_pool()
         cur = torch.cuda.current_stream(self.device)
-        where = (self.device, cur == torch.cuda.default_stream(self.device))
-        pool = _POOLS.get(where)
-        if pool is None:
-            pool = _POOLS[where] = _pool(self.device, self.stream)
-        branch_pool = _BRANCH_POOLS.get(where)
-        if branch_pool is None:
-            branch_pool = _BRANCH_POOLS[where] = torch.cuda.MemPool()
         side = graph_loop.body_stream(self.device)
         s = self.stream
         s.wait_stream(cur)
@@ -428,11 +436,60 @@ class Owner:
             cur.wait_stream(s)
         return out
 
+    def _graph_pool(self) -> tuple:
+        """(``_pool``'s tuple, the IF nodes' branches' MemPool): the pools
+        of the programs replayed on the caller's stream; they and the
+        owner's capture stream made at first use."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device=self.device)
+            # cuBLAS's workspaces for this thread's handle and the autograd
+            # engine's on the stream (PyTorch makes one at the first product
+            # there, and keeps it): made now, so that no warm-up makes them
+            # in the pool
+            a = torch.zeros((2, 2), device=self.device, requires_grad=True)
+            with torch.cuda.stream(self.stream), torch.enable_grad():
+                torch.addmm(a, a, a).sum().backward()
+        cur = torch.cuda.current_stream(self.device)
+        where = cur == torch.cuda.default_stream(self.device)
+        pools = self._pools.get(where)
+        if pools is None:
+            pools = self._pools[where] = (_pool(self.device, self.stream),
+                                          torch.cuda.MemPool())
+        return pools
+
+    def _warm(self, fn, name: str):
+        """``fn()`` as a capture's warm-up on a card: on the owner's capture
+        stream, with the device's allocations taken from the graph pool the
+        capture goes into (``into_pool``; buffers and constants that outlive
+        the call are made outside it, ``persistent``). The pool's graphs
+        hold their temporaries in blocks of that stream; a block of it the
+        warm-up leaves allocated raises: a later replay would overwrite
+        it. (Another thread's allocation on another stream, a staged
+        frame, lies in blocks of its own stream, which no capture on this
+        one is given.)"""
+        pool, _ = self._graph_pool()
+        cur = torch.cuda.current_stream(self.device)
+        s = self.stream
+        held = _pool_bytes(pool[0], s)
+        s.wait_stream(cur)
+        try:
+            with torch.cuda.stream(s), into_pool(self.device, pool[0]):
+                out = fn()
+        finally:
+            cur.wait_stream(s)
+        left = _pool_bytes(pool[0], s) - held
+        if left:
+            raise RuntimeError(f"programs: the warm-up of {name} (owner "
+                               f"{self.name}) left {left} bytes allocated "
+                               f"in the graph pool")
+        return out
+
     def _build(self, name, key, body, capture: bool) -> tuple:
         prog = _Program(name, key, body)
-        # the warm-up: the call's real work, on the caller's stream
+        # the warm-up: the call's real work
         with trace.span("programs.warmup", owner=self.name, program=name):
-            out = body()
+            out = (self._warm(body, name) if self.device.type == "cuda"
+                   and capture else body())
         if self.device.type != "cuda" or not capture:
             prog.out = out
             return prog, out
@@ -478,7 +535,7 @@ class Owner:
                         program=prog.name):
             if self.device.type != "cuda":
                 return prog.host_loop(check=True)
-            prog.warm()
+            self._warm(prog.warm, prog.name)
         fns = prog.bodies + ([prog.tail] if prog.tail else [])
         try:
             with trace.span(trace.CAPTURE, owner=self.name,
@@ -520,11 +577,12 @@ _CAPTURING: set = set()
 
 def _pool(device, stream) -> tuple:
     """(a graph pool handle, a one-kernel graph captured into it, that
-    graph's tensor), the capture on ``stream``: the pool of the programs
-    that replay on a device's default stream, or of those that replay on
-    another. A pool goes with the last graph captured into it, and its
-    handle may not be captured into again (PyTorch 2.11 asserts): the
-    keeper graph, kept as long as the process runs, holds it."""
+    graph's tensor), the capture on ``stream``: an owner's pool of the
+    programs that replay on a device's default stream, or of those that
+    replay on another. A pool goes with the last graph captured into it,
+    and its handle may not be captured into again (PyTorch 2.11 asserts):
+    the keeper graph, kept as long as the owner keeps the pool, holds
+    it."""
     t = torch.zeros(1, device=device)
     keeper = torch.cuda.CUDAGraph()
     handle = torch.cuda.graph_pool_handle()
@@ -534,6 +592,14 @@ def _pool(device, stream) -> tuple:
         t.add_(1)
         keeper.capture_end()
     return handle, keeper, t
+
+
+def _pool_bytes(pool_id, stream) -> int:
+    """Bytes allocated (not free) in the graph pool ``pool_id``, in the
+    blocks of ``stream``."""
+    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool_id)
+               and seg["stream"] == stream.cuda_stream)
 
 
 def _describe(key) -> str:

@@ -5,7 +5,7 @@ backend's tasks, the captures (``programs.capture`` spans), the
 evaluation's ms per frame and the graph pools' MiB after the run.
 
     python gaus_slam_tpu_torch/tools/frame_split.py [--root DIR] \\
-        [--mode frontend|driver] [--height 340] [--width 600] \\
+        [--mode frontend|driver|memory] [--height 340] [--width 600] \\
         [--frames N] [--device cuda]
 
 ``frontend``: a Frontend over the first N frames (24 by default: two
@@ -16,6 +16,13 @@ schedule) with its backend and eval_final, whose wall time is taken
 between device synchronizes, and frames/s over the frame loop (from the
 first frame to eval_final, drains, final merge and refine included, as
 chip_smoke.py's phase 6 counts it).
+``memory``: the card's memory frame by frame in the benchmark's
+``tum.handheld`` cell (slambench/loop.py's set-up, two warm-up cuts,
+then N frames, 80 by default, one turn of the driver's loop at a time;
+seed ``MEMORY_SEED``; a card only): after the set-up and after each frame
+the MiB the caching allocator holds, its peak so far, the MiB allocated,
+the graph pools' MiB, the submap and the backend map's capacity. Prints
+one JSON line of those rows.
 ``--root``: the root of the tree whose port to measure (by default this
 file's; an older commit unpacked with ``git archive``, say); run this
 file by its path, not with ``-m``, so that the package is imported from
@@ -122,6 +129,57 @@ def pool_mib() -> float:
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**20
 
 
+MEMORY_CELL = "tum.handheld"
+MEMORY_SEED = 2147484011
+MEMORY_COLUMNS = ("reserved_mib", "peak_reserved_mib", "allocated_mib",
+                  "pool_mib", "submap", "backend_capacity")
+
+
+def run_memory(n: int, device) -> dict:
+    """``--mode memory``: the rows described above, the seconds of the
+    set-up and of the frames, and of one ``torch.cuda.memory_snapshot``."""
+    import torch
+
+    from slambench import harness, registry
+    from slambench.loop import Cell
+
+    wl = registry.cell(registry.benchmark(), MEMORY_CELL)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    harness._load_kernels(dev)
+    cell = Cell(registry.config(wl["config"]), registry.traffic(wl["traffic"]),
+                MEMORY_SEED, device=dev, overrides=registry.overrides(
+                    MEMORY_CELL))
+
+    def reading():
+        gm = cell.backend.map
+        return [round(torch.cuda.memory_reserved(dev) / 2**20),
+                round(torch.cuda.max_memory_reserved(dev) / 2**20),
+                round(torch.cuda.memory_allocated(dev) / 2**20),
+                round(pool_mib()), int(cell.frontend.cur_lmid),
+                0 if gm is None else int(gm.capacity)]
+
+    cell.start_feeder()
+    try:
+        cell.warm_up()
+        out = {"cell": MEMORY_CELL, "seed": MEMORY_SEED,
+               "columns": MEMORY_COLUMNS, "setup": reading(),
+               "setup_s": time.perf_counter() - t0, "frames": []}
+        t1 = time.perf_counter()
+        while len(out["frames"]) < n:
+            if cell.turn(handing=True):
+                out["frames"].append(reading())
+        cell.drain()
+        out["frames_s"] = time.perf_counter() - t1
+        out["end"] = reading()
+        t2 = time.perf_counter()
+        torch.cuda.memory_snapshot()
+        out["snapshot_ms"] = 1e3 * (time.perf_counter() - t2)
+    finally:
+        cell.stop_feeder()
+    return out
+
+
 def synthetic_config(h: int, w: int, n: int, out: str) -> dict:
     from gaus_slam_tpu_torch.utils.config import load_config
 
@@ -216,7 +274,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
     ap.add_argument("--mode", default="frontend",
-                    choices=("frontend", "driver"))
+                    choices=("frontend", "driver", "memory"))
     ap.add_argument("--height", type=int, default=340)
     ap.add_argument("--width", type=int, default=600)
     ap.add_argument("--frames", type=int, default=None)
@@ -231,6 +289,15 @@ def main(argv=None) -> dict:
     sys.path.insert(0, root)
     import torch
 
+    if args.mode == "memory":
+        import gaus_slam_tpu_torch
+
+        summary = {"root": os.path.dirname(os.path.dirname(os.path.abspath(
+            gaus_slam_tpu_torch.__file__))),
+            **run_memory(args.frames or 80, args.device),
+            "card": torch.cuda.get_device_name(0)}
+        print(json.dumps(summary), flush=True)
+        return summary
     n = args.frames or (24 if args.mode == "frontend" else 30)
     out = os.path.join(root, "output", f"frame_split_{args.mode}_{n}")
     cfg = synthetic_config(args.height, args.width, n, out)

@@ -463,3 +463,105 @@ def test_cuda_retired_loop_tally_is_folded_and_dropped(cuda_scene):
     counts = _cuda.fold_launches()
     iters = int(first[1]["iters"])
     assert counts["raster_forward_stash"] == 3 * iters + int(view[1]["iters"])
+
+
+# ---------------------------------------------------------------------------
+# the warm-up's memory and the owner's pools
+
+
+def _segments_mib(pool_ids) -> float:
+    """MiB of the caching allocator's segments in the pools ``pool_ids``
+    ((0, 0): the default pool)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in pool_ids) / 2**20
+
+
+def _pool_ids(own) -> set:
+    return {tuple(ids) for (pool, branches) in own._pools.values()
+            for ids in (pool[0], branches.id)}
+
+
+def _big_temporary(x):
+    """x plus a reduction of a 256 MiB temporary, freed before the step
+    returns."""
+    big = x.repeat(64)
+    return x + big.view(64, -1).sum(0)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_up_takes_its_temporaries_from_the_pool():
+    """A step's eager warm-up and its capture use the same blocks of the
+    owner's graph pool: a step with a 256 MiB temporary adds less than
+    that to the caching allocator's default pool, the pool holds it once,
+    and the replays equal the eager step bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: graphs are captured only there")
+    x = torch.rand(1 << 20, device="cuda")
+    want = _big_temporary(x)
+    own = programs.Owner("warm")
+    # the owner's stream, its cuBLAS workspaces and pools, and x's buffer
+    programs.call(own, "plus", lambda x: x + 1, {"x": x}, {}, "y")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()     # the eager step's 256 MiB, cached
+    default0 = _segments_mib({(0, 0)})
+    got = programs._clone(programs.call(own, "warm", _big_temporary,
+                                        {"x": x}, {}, "y"))
+    torch.cuda.synchronize()
+    assert _segments_mib({(0, 0)}) - default0 < 64
+    assert 256 <= _segments_mib(_pool_ids(own)) < 2 * 256 + 64
+    assert torch.equal(got, want)
+    assert torch.equal(programs.call(own, "warm", _big_temporary, {"x": x},
+                                     {}, "y"), want)
+
+
+@pytest.mark.cuda
+def test_cuda_first_capture_under_no_grad():
+    """An owner whose first program is called under ``torch.no_grad``
+    (the mesh evaluation's renders) captures it: the owner's stream is
+    made ready for the autograd engine with grad enabled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: graphs are captured only there")
+    x = torch.rand(1 << 10, device="cuda")
+    own = programs.Owner("no_grad")
+    with torch.no_grad():
+        got = programs._clone(programs.call(own, "plus", lambda x: x + 1,
+                                            {"x": x}, {}, "y"))
+    assert torch.equal(got, x + 1) and own.programs
+
+
+@pytest.mark.cuda
+def test_cuda_warm_up_that_keeps_a_block_of_the_pool_raises():
+    """A step that keeps a tensor it made beyond the call would hold it in
+    the graph pool, where a later replay writes: the warm-up raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: graphs are captured only there")
+    kept = []
+
+    def step(x):
+        kept.append(x * 2)
+        return x + 1
+
+    own = programs.Owner("keep")
+    with pytest.raises(RuntimeError, match="bytes allocated in the graph"):
+        programs.call(own, "keep", step,
+                      {"x": torch.ones(1 << 16, device="cuda")}, {}, "y")
+
+
+@pytest.mark.cuda
+def test_cuda_growing_map_releases_the_owners_pools():
+    """When an owner's map grows its programs and pools go, and the card
+    gets their memory back; a map that shrinks keeps the pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: graphs are captured only there")
+    x = torch.rand(1 << 20, device="cuda")
+    own = programs.Owner("grow")
+    own.set_capacity(2)
+    programs.call(own, "warm", _big_temporary, {"x": x}, {}, "y")
+    own.set_capacity(1)
+    assert own._pools and not own.programs
+    programs.call(own, "warm", _big_temporary, {"x": x}, {}, "y")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved() / 2**20
+    own.set_capacity(3)
+    assert not own._pools and not own.programs
+    assert torch.cuda.memory_reserved() / 2**20 <= reserved - 256
